@@ -1,0 +1,470 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+From the root of a checkout. Phases, each printed as one JSON line:
+
+1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions and
+   the TF32 flags the port sets;
+2. the build of every kernel of the main path from ``src/repro_torch/
+   kernels/csrc`` (one ``nvcc`` per source, all started together);
+3. each kernel against its plain PyTorch version on the card, fp32 and
+   bf16, at the main path's shapes and at edge shapes (n = 17 and 200001,
+   tie rows, all-zero rows, subnormal rows): index sets and orders must be
+   equal, values within the stated tolerance;
+4. the main path: ``run_experiment`` for ``paper-fcn`` at the paper's
+   cohort (K=100, tau=2, lr=0.05, b=16, label skew with 3 classes per
+   client, chunked scheduler) with the dense store, the top-k store and the
+   top-k store's index-order decision, 3 rounds each, then one
+   ``paper-cnn`` dense-store phase. The launch counters are set to 0 just
+   before each phase and read just after; every kernel of a phase must
+   have launched. The same spec then runs with ``device="cpu"`` (the plain
+   versions): uplink floats, scalar fraction and wire bytes must be
+   identical, loss and params within tolerance, and no client's sin² may
+   lie within 1e-5 of delta (a float-level flip would otherwise be
+   possible);
+5. one profiled round each of the dense and top-k FCN phases: wall time,
+   device busy time and idle share, and the kernels that took the most
+   device time;
+6. one ``kernels`` line: per kernel, its launches on the main path, its
+   median time over 25 launches (CUDA events, L2 flushed before each),
+   its plain version's time, one PyTorch call's time as a yardstick, and
+   the least time the card could take for the same work.
+
+It exits non-zero, with no result line, when there is no CUDA card, when a
+kernel does not build, launch or agree, or when any phase fails. The last
+line of its output is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS = 67e12              # H100 SXM fp32, outside the tensor cores
+ROUNDS = 3
+TIMED_LAUNCHES = 25
+
+
+def emit(record):
+    print(json.dumps(record), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+# ---------------------------------------------------------------- timing
+
+_flush = None
+
+
+def time_ms(fn, n=TIMED_LAUNCHES):
+    """Median device time of ``fn`` over ``n`` calls, CUDA events around
+    each, with a 1 GiB write before each call. The write flushes the 50 MB
+    L2 and keeps the device busy for ~0.3 ms, long enough for the host to
+    enqueue the call (a wrapper's Python and ctypes overhead) before the
+    device reaches it, so the events time the device's work."""
+    import torch
+    global _flush
+    if _flush is None:
+        _flush = torch.empty(2 ** 28, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(n):
+        _flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return median(times)
+
+
+def bound_ms(bytes_moved, flops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------- kernel checks
+
+def rand_inputs(gen, shape, dtype, device, kind="normal"):
+    import torch
+    x = torch.randn(shape, generator=gen, dtype=torch.float32)
+    if kind == "ties":      # few distinct magnitudes, both signs
+        x = torch.round(x * 2) / 2
+    elif kind == "zeros":
+        x = torch.zeros(shape)
+    elif kind == "subnormal":
+        x = x * 1e-41
+    elif kind == "sparse":  # fewer nonzeros than kb in each row
+        x = torch.where(torch.rand(shape, generator=gen) < 0.001, x, 0.0)
+    return x.to(dtype).to(device)
+
+
+def check_projection(gen, B, n, dtype):
+    import torch
+    from repro_torch.kernels import lbgm_projection as kp
+    from repro_torch.kernels import ref
+    g = rand_inputs(gen, (B, n), dtype, "cuda") * 0.1
+    l = rand_inputs(gen, (B, n), dtype, "cuda") * 0.1
+    got = kp.lbgm_projection_batched(g, l)
+    want = ref.lbgm_projection_ref(g, l)
+    # the sums of |terms| bound the error of a reordered fp32 sum; bf16
+    # inputs widen exactly to fp32, so one tolerance serves both types
+    scale = ref.lbgm_projection_ref(g.abs(), l.abs())
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, w, s in zip(got, want, scale):
+        if a.shape != (B,) or not torch.isfinite(a).all():
+            fail(f"projection output {tuple(a.shape)} not finite (B={B})")
+        d = (a - w).abs()
+        err = max(err, float(d.max()))
+        if bool((d > 1e-5 * s + 1e-30).any()):
+            fail(f"projection B={B} n={n} {dtype}: error {float(d.max())}"
+                 f" beyond 1e-5 of the sum of |terms|")
+    return err
+
+
+def check_decision(gen, B, nb, block, kb, dtype, two_pass, kind="normal"):
+    import torch
+    from repro_torch.kernels import lbgm_sparse as ks
+    from repro_torch.kernels import ref
+    blocks = rand_inputs(gen, (B, nb, block), dtype, "cuda", kind)
+    idx = torch.argsort(torch.rand((B, nb, block), generator=gen),
+                        dim=-1)[..., :kb].to(torch.int32).cuda()
+    gg, gath, ti, tv = ks.lbgm_sparse_decision_batched(blocks, idx,
+                                                       two_pass=two_pass)
+    fn = (ref.lbgm_sparse_decision_two_pass_ref if two_pass
+          else ref.lbgm_sparse_decision_ref)
+    rgg, rgath, rti, rtv = fn(blocks, idx)
+    torch.cuda.synchronize()
+    what = (f"decision B={B} nb={nb} block={block} kb={kb} {dtype} "
+            f"{kind} two_pass={two_pass}")
+    if not torch.equal(ti, rti):
+        bad = int((ti != rti).sum())
+        fail(f"{what}: {bad} top-k indices differ from the plain version")
+    if not torch.equal(tv, rtv) or not torch.equal(gath, rgath):
+        fail(f"{what}: selected or gathered values differ")
+    # the selected and gathered values are equal; only ||g||^2, a sum
+    # taken in another order, differs
+    err = float((gg - rgg).abs().max())
+    if not torch.allclose(gg, rgg, rtol=1e-5, atol=0.0):
+        fail(f"{what}: ||g||^2 off by {err:.3g}")
+    return err
+
+
+def kernel_checks():
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    errs = {"lbgm_projection": 0.0, "lbgm_sparse_decision": 0.0,
+            "lbgm_sparse_decision_two_pass": 0.0}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        # main-path shapes: FCN leaves at a chunk of 10, CNN conv3/w, fc/w
+        # and the unbatched (B = 1) form; then odd lengths
+        for B, n in ((10, 100352), (10, 1280), (10, 128), (10, 10),
+                     (10, 36864), (10, 31360), (1, 100352), (1, 17),
+                     (3, 200001), (2, 65536), (4, 1000), (1, 1)):
+            errs["lbgm_projection"] = max(errs["lbgm_projection"],
+                                          check_projection(gen, B, n, dtype))
+            cases += 1
+    shapes = [(10, 16, 65536, 627), (10, 1, 1280, 128), (10, 1, 128, 12),
+              (10, 1, 10, 1), (4, 1, 36864, 3686), (4, 1, 31360, 3136),
+              (1, 16, 65536, 627), (3, 2, 256, 256), (2, 3, 1000, 9)]
+    for two_pass in (False, True):
+        name = ("lbgm_sparse_decision_two_pass" if two_pass
+                else "lbgm_sparse_decision")
+        for dtype in (torch.float32, torch.bfloat16):
+            for shp in shapes:
+                errs[name] = max(errs[name], check_decision(
+                    gen, *shp, dtype, two_pass))
+                cases += 1
+            for kind in ("ties", "zeros", "subnormal", "sparse"):
+                for shp in ((3, 4, 4096, 64), (2, 2, 65536, 627)):
+                    errs[name] = max(errs[name], check_decision(
+                        gen, *shp, dtype, two_pass, kind))
+                    cases += 1
+    from repro_torch.kernels import lbgm_sparse as ks
+    emit({"phase": "kernel_checks", "cases": cases,
+          "max_abs_err": errs,
+          "note": "decision: selected and gathered values equal the plain "
+                  "version exactly; its error is ||g||^2's (rtol 1e-5)",
+          "value_order_kb_ceiling": ks.max_value_order_kb()})
+    return errs
+
+
+# -------------------------------------------------------------- main path
+
+def fl_spec(model, **fl):
+    from repro_torch.fed.experiment import ExperimentSpec
+    base = dict(num_clients=100, tau=2, lr=0.05, batch_size=16, seed=0,
+                delta_threshold=0.2, scheduler="chunked")
+    base.update(fl)
+    return ExperimentSpec.from_dict({
+        "name": f"smoke-{model}", "model": {"name": model, "kw": {}},
+        "data": {"name": "mixture", "kw": {"n": 20000, "n_eval": 1000,
+                                           "seed": 0}},
+        "partition": {"name": "label_skew",
+                      "kw": {"classes_per_client": 3, "seed": 0}},
+        "fl": base, "rounds": ROUNDS,
+        "eval": {"every": 0, "final": True, "verbose": False}})
+
+
+def run_phase(label, spec, two_pass, want_kernels, totals):
+    import numpy as np
+    import torch
+    from repro_torch.fed.engine import pick_chunk
+    from repro_torch.fed.experiment import build_experiment, run_experiment
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import TWO_PASS_ENV
+
+    os.environ[TWO_PASS_ENV] = "1" if two_pass else "0"
+    # one set of initial weights for both devices
+    eng, _ = build_experiment(spec, device="cpu")
+    params = {k: v.numpy() for k, v in eng.params.items()}
+    del eng
+    # one warm-up round (CUDA context, cuBLAS/cuDNN handles, library
+    # load) outside the counted, timed run
+    run_experiment(spec, rounds=1, device="cuda", params=params)
+    _build.reset_launch_counts()
+    gpu = run_experiment(spec, device="cuda", params=params)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for k in want_kernels:
+        if launches[k] <= 0:
+            fail(f"{label}: kernel {k} never launched on the main path")
+        totals[k] += launches[k]
+    cpu = run_experiment(spec, device="cpu", params=params)
+    for r, (a, b) in enumerate(zip(gpu.history, cpu.history)):
+        for k in ("uplink_floats", "frac_scalar", "wire_bytes", "savings"):
+            if a[k] != b[k]:
+                fail(f"{label} round {r + 1}: {k} {a[k]} on the card vs "
+                     f"{b[k]} on the CPU")
+        if not np.isfinite(a["loss"]) or \
+                abs(a["loss"] - b["loss"]) > 1e-4 * abs(b["loss"]):
+            fail(f"{label} round {r + 1}: loss {a['loss']} vs {b['loss']}")
+    tl_gpu, tl_cpu = gpu.final_eval["test_loss"], cpu.final_eval["test_loss"]
+    if not abs(tl_gpu - tl_cpu) <= 1e-3 * abs(tl_cpu):
+        fail(f"{label}: held-out loss {tl_gpu} on the card vs {tl_cpu}")
+    margin = min(float(np.min(np.abs(s - spec.fl.delta_threshold)))
+                 for s in gpu.sin2)
+    if margin < 1e-5:
+        fail(f"{label}: a client's sin^2 lies {margin:.3g} from delta")
+    rec = {"phase": label, "model": spec.model.name,
+           "store": spec.fl.lbg_variant,
+           "decision_order": "index" if two_pass else "value",
+           "K": spec.fl.num_clients, "rounds": spec.rounds,
+           "delta": spec.fl.delta_threshold,
+           "chunk": pick_chunk(spec.fl.num_clients, spec.fl.chunk_size),
+           "gpu_ms_per_round": gpu.us_per_round / 1e3,
+           "cpu_ms_per_round": cpu.us_per_round / 1e3,
+           "loss": [h["loss"] for h in gpu.history],
+           "loss_cpu": [h["loss"] for h in cpu.history],
+           "frac_scalar": [h["frac_scalar"] for h in gpu.history],
+           "uplink_floats": [h["uplink_floats"] for h in gpu.history],
+           "savings": gpu.savings, "sin2_margin": margin,
+           "test_acc": gpu.final_eval.get("test_acc"),
+           "launches": {k: v for k, v in launches.items() if v}}
+    emit(rec)
+    return rec
+
+
+def profile_round(label, spec, device="cuda"):
+    """One steady round of ``spec`` under ``torch.profiler``: wall time,
+    the device's busy time (sum of kernel times; the round runs on one
+    stream) and its idle share, and the kernels that took the most device
+    time. A profiler that records no device time is reported as such."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.fed.experiment import build_experiment
+
+    eng, _ = build_experiment(spec, device=device)
+    src = eng.prefetcher(np.random.RandomState(spec.fl.seed + 1))
+    try:
+        eng.run_round(src)                       # warm-up
+        acts = [ProfilerActivity.CPU]
+        if device == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+            torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            eng.run_round(src)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        src.close()
+    by_name, n_kernels = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        n_kernels += 1
+        us = by_name.setdefault(ev.name, [0.0, 0])
+        us[0] += ev.device_time_total if hasattr(ev, "device_time_total") \
+            else ev.cuda_time_total
+        us[1] += 1
+    busy_ms = sum(v[0] for v in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    rec = {"phase": f"profile_{label}", "wall_ms": wall_ms,
+           "device_kernels": n_kernels,
+           "device_busy_ms": busy_ms if n_kernels else "not measured",
+           "device_idle_share": (1 - busy_ms / wall_ms) if n_kernels
+           else "not measured",
+           "top_kernels": [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
+                           for k, v in top]}
+    emit(rec)
+    return rec
+
+
+# ------------------------------------------------------------ kernel line
+
+def kernel_line(errs, totals):
+    import torch
+    from repro_torch.kernels import lbgm_projection as kp
+    from repro_torch.kernels import lbgm_sparse as ks
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(1)
+    out = []
+    # projection at the dense store's largest call: fc1/w, chunk of 10;
+    # B = 1 is the unbatched form (lbgm_projection_pallas), the same kernel
+    def projection(B, n):
+        g = torch.randn((B, n), generator=gen).cuda()
+        l = torch.randn((B, n), generator=gen).cuda()
+        gl2 = torch.stack([g, l], 1)
+        bnd, by = bound_ms(2 * B * n * 4 + 3 * B * 4, 6 * B * n)
+        return {
+            "shape": [B, n], "dtype": "float32",
+            "ms": time_ms(lambda: kp.lbgm_projection_batched(g, l)),
+            "plain_ms": time_ms(lambda: ref.lbgm_projection_ref(g, l)),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.bmm(gl2,
+                                                    gl2.transpose(1, 2))),
+            "library_call": "torch.bmm of the stacked [g;l] Gram matrix"}
+    out.append({
+        "name": "lbgm_projection", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lbgm_projection.cu",
+        "replaces": "src/repro/kernels/lbgm_projection.py:112",
+        "launches": totals["lbgm_projection"],
+        "max_abs_err": errs["lbgm_projection"],
+        **projection(10, 100352),
+        "unbatched": {"replaces": "src/repro/kernels/lbgm_projection.py:54",
+                      **projection(1, 100352)}})
+    # decision at the top-k store's largest call: fc1/w, chunk of 10
+    B, nb, block, kb = 10, 16, 65536, 627
+    flat = torch.randn((B, 100352), generator=gen)
+    blocks = torch.nn.functional.pad(flat, (0, nb * block - 100352)) \
+        .reshape(B, nb, block).cuda()
+    idx = torch.randint(0, block, (B, nb, kb), generator=gen,
+                        dtype=torch.int32).cuda()
+    t_bytes = B * nb * block * 4 + B * nb * kb * 4 + 3 * B * nb * kb * 4 \
+        + B * 4
+    bnd, by = bound_ms(t_bytes, 2 * B * nb * block)
+    for two_pass, name, line in ((False, "lbgm_sparse_decision", 69),
+                                 (True, "lbgm_sparse_decision_two_pass",
+                                  224)):
+        fn = (ref.lbgm_sparse_decision_two_pass_ref if two_pass
+              else ref.lbgm_sparse_decision_ref)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lbgm_sparse_decision.cu",
+            "replaces": f"src/repro/kernels/lbgm_sparse.py:{line}",
+            "launches": totals[name], "max_abs_err": errs[name],
+            "shape": [B, nb, block, kb], "dtype": "float32",
+            "ms": time_ms(lambda: ks.lbgm_sparse_decision_batched(
+                blocks, idx, two_pass=two_pass)),
+            "plain_ms": time_ms(lambda: fn(blocks, idx)),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.topk(blocks.abs(), kb,
+                                                     dim=-1)),
+            "library_call": "torch.topk of |g| per row (the selection "
+                            "only: no gather, no ||g||^2, no tie rule)"})
+    return out
+
+
+# ------------------------------------------------------------------- main
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a "
+             "CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import repro_torch.fed.experiment  # noqa: F401
+    except ImportError as e:
+        fail(f"cannot import the port from {ROOT / 'src'}: {e}")
+    from repro_torch.fed.engine import resolve_device
+    from repro_torch.kernels import _build
+
+    resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    emit({"phase": "card", "nvidia_smi": smi_line,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "name": torch.cuda.get_device_name(0),
+          "capability": list(torch.cuda.get_device_capability(0)),
+          "count": torch.cuda.device_count(),
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": {k: str(v.relative_to(ROOT)) for k, v in
+                        libs.items()}})
+
+    errs = kernel_checks()
+
+    totals = {k: 0 for k in _build.LAUNCHES}
+    topk = {"lbg_variant": "topk", "lbg_kw": {"k_frac": 0.1}}
+    run_phase("fcn_dense", fl_spec("fcn"), False, ["lbgm_projection"],
+              totals)
+    run_phase("fcn_topk", fl_spec("fcn", **topk), False,
+              ["lbgm_sparse_decision"], totals)
+    run_phase("fcn_topk_index_order",
+              fl_spec("fcn", delta_threshold=0.7, **topk), True,
+              ["lbgm_sparse_decision_two_pass"], totals)
+    run_phase("cnn_dense", fl_spec("cnn"), False, ["lbgm_projection"],
+              totals)
+
+    profile_round("fcn_dense", fl_spec("fcn"))
+    profile_round("fcn_topk", fl_spec("fcn", **topk))
+
+    kernels = kernel_line(errs, totals)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi_line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except SystemExit:
+        raise
+    except BaseException:
+        traceback.print_exc()
+        sys.exit(1)

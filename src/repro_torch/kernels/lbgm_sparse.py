@@ -1,0 +1,97 @@
+"""Fused sparse-LBG decision: gather, ||g||^2 and block top-k in one read.
+
+Counterpart of the decision kernels in ``repro.kernels.lbgm_sparse``. On a
+CUDA tensor the wrapper launches ``csrc/lbgm_sparse_decision.cu``; on a
+CPU tensor it returns the plain version from
+:mod:`repro_torch.kernels.ref`. ``two_pass=False`` emits each row's top-kb
+in descending |value| order (ties to the lowest index, as ``lax.top_k``),
+``two_pass=True`` the same set in ascending index order — the JAX
+package's one-pass and two-pass kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    lib = _build.load("lbgm_sparse_decision")
+    f = lib.lbgm_sparse_decision_launch
+    if not f.argtypes:
+        P, L = ctypes.c_void_p, ctypes.c_longlong
+        f.argtypes = [P, ctypes.c_int, P, L, L, L, L, ctypes.c_int,
+                      P, P, P, P, P, P]
+        f.restype = ctypes.c_int
+        lib.lbgm_sparse_decision_max_kb.argtypes = []
+        lib.lbgm_sparse_decision_max_kb.restype = ctypes.c_longlong
+    return lib
+
+
+def max_value_order_kb() -> int:
+    """The kernel's ceiling on kb in descending-value order (its shared
+    memory sort); index order has none beyond kb <= block."""
+    return int(_lib().lbgm_sparse_decision_max_kb())
+
+
+def lbgm_sparse_decision_batched(blocks: torch.Tensor, idx: torch.Tensor,
+                                 two_pass: bool = False):
+    """blocks: (B, nb, block) gradient block layout (fp32 or bf16); idx:
+    (B, nb, kb) int32 block-local LBG positions in [0, block). Returns
+    ``(gg (B,), gathered (B, nb, kb), top_idx (B, nb, kb) int32, top_val
+    (B, nb, kb))``, all fp32 but the indices."""
+    if (blocks.dim() != 3 or idx.dim() != 3
+            or blocks.shape[:2] != idx.shape[:2]):
+        raise ValueError(f"want blocks (B, nb, block) and idx (B, nb, kb), "
+                         f"got {tuple(blocks.shape)} and {tuple(idx.shape)}")
+    B, nb, block = blocks.shape
+    kb = idx.shape[2]
+    if not 1 <= kb <= block:
+        raise ValueError(f"kb={kb} must lie in [1, block={block}]")
+    if blocks.device.type == "cpu" and idx.device.type == "cpu":
+        fn = (ref.lbgm_sparse_decision_two_pass_ref if two_pass
+              else ref.lbgm_sparse_decision_ref)
+        return fn(blocks, idx)
+    _build.check_card(blocks, idx)
+    if blocks.dtype not in _DTYPES or idx.dtype != torch.int32:
+        raise TypeError(f"want fp32/bf16 blocks and int32 idx, got "
+                        f"{blocks.dtype} and {idx.dtype}")
+    if not (blocks.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("lbgm_sparse_decision takes contiguous tensors")
+    lib = _lib()
+    if not two_pass and kb > max_value_order_kb():
+        raise ValueError(
+            f"kb={kb} exceeds the value-order kernel's ceiling of "
+            f"{max_value_order_kb()} (its shared-memory sort); use the "
+            "index-order form (two_pass=True)")
+    dev = blocks.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    gg_partial = torch.empty((B, nb), **f32)
+    gg = torch.empty((B,), **f32)
+    gathered = torch.empty((B, nb, kb), **f32)
+    top_idx = torch.empty((B, nb, kb), dtype=torch.int32, device=dev)
+    top_val = torch.empty((B, nb, kb), **f32)
+    with torch.cuda.device(dev):
+        rc = lib.lbgm_sparse_decision_launch(
+            blocks.data_ptr(), _DTYPES[blocks.dtype], idx.data_ptr(), B, nb,
+            block, kb, int(not two_pass), gg_partial.data_ptr(),
+            gg.data_ptr(), gathered.data_ptr(), top_idx.data_ptr(),
+            top_val.data_ptr(), _build.stream_ptr(dev))
+    name = ("lbgm_sparse_decision_two_pass" if two_pass
+            else "lbgm_sparse_decision")
+    _build.check_rc(name, rc)
+    _build.LAUNCHES[name] += 1
+    return gg, gathered, top_idx, top_val
+
+
+def lbgm_sparse_decision(blocks: torch.Tensor, idx: torch.Tensor,
+                         two_pass: bool = False):
+    """Unbatched view: blocks (nb, block), idx (nb, kb) -> (gg scalar,
+    gathered, top_idx, top_val)."""
+    gg, gath, ti, tv = lbgm_sparse_decision_batched(blocks[None], idx[None],
+                                                    two_pass=two_pass)
+    return gg[0], gath[0], ti[0], tv[0]

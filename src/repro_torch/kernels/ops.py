@@ -1,0 +1,55 @@
+"""Public wrappers of the LBGM decision kernels, as the engine calls them.
+
+Counterpart of ``repro.kernels.ops``. The JAX package routes ``jax.vmap``
+over clients onto its batched kernels with ``custom_vmap`` rules; the port
+writes the client axis out instead, so these take ``(C, ...)`` stacks and
+call the batched kernels directly.
+
+Dispatch: a CPU tensor goes to the kernel's plain PyTorch version; a CUDA
+tensor launches the hand-written kernel or raises (see
+``kernels._build.check_card``).
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.lbgm_projection import lbgm_projection_batched
+from repro_torch.kernels.lbgm_sparse import lbgm_sparse_decision_batched
+
+#: "1" routes lbgm_sparse_decision through the index-order (two-pass) form
+#: of the decision kernel — the same knob as the JAX package's
+TWO_PASS_ENV = "REPRO_LBGM_TWO_PASS_TOPK"
+
+
+def _default_two_pass() -> bool:
+    return os.environ.get(TWO_PASS_ENV, "0").lower() not in (
+        "0", "", "false", "off", "no")
+
+
+def lbgm_projection(g_tree: Dict[str, torch.Tensor],
+                    l_tree: Dict[str, torch.Tensor]):
+    """Per-client fused (<g,l>, ||g||^2, ||l||^2) over a pair of batched
+    dicts (leaves ``(C, ...)``): one batched launch per leaf, the per-leaf
+    scalars added in sorted key order. Returns three (C,) fp32 tensors."""
+    gl = gg = ll = None
+    for name in sorted(g_tree):
+        g, l = g_tree[name], l_tree[name]
+        a, b, c = lbgm_projection_batched(g.reshape(g.shape[0], -1),
+                                          l.reshape(l.shape[0], -1))
+        if gl is None:
+            gl, gg, ll = a, b, c
+        else:
+            gl, gg, ll = gl + a, gg + b, ll + c
+    return gl, gg, ll
+
+
+def lbgm_sparse_decision(blocks: torch.Tensor, idx: torch.Tensor,
+                         two_pass=None):
+    """One fused pass over a ``(C, nb, block)`` block layout: returns
+    ``(gg (C,), gathered, top_idx, top_val)``. ``two_pass=None`` reads the
+    ``REPRO_LBGM_TWO_PASS_TOPK`` knob."""
+    two_pass = _default_two_pass() if two_pass is None else bool(two_pass)
+    return lbgm_sparse_decision_batched(blocks, idx, two_pass=two_pass)

@@ -1,0 +1,109 @@
+"""Fig. 5 parity: one FL spec, both packages, the same per-round history.
+
+The acceptance test of the port's main path (ROADMAP.md, North star): the
+fig5-sized spec of ``benchmarks/common.py`` (FCN, K=20, tau=2, lr=0.05,
+b=16, delta=0.2, label skew with 3 classes per client) runs 5 rounds in
+the JAX package and in the port (``device="cpu"``) from the same initial
+params, across the vmap and chunked schedulers (including a chunk that
+forces zero-weight padding: K=7, chunk_size=4), the dense and top-k
+stores, ``sample_frac < 1``, and ``fused_kernels`` None and False. The
+top-k cases run at delta=0.7: at 0.2 its dense-vs-sparse projection never
+clears the threshold, and the scalar rounds would go untested.
+
+``uplink_floats``, ``frac_scalar``, ``wire_bytes`` and ``savings`` must
+match exactly. Loss rtol 1e-5; final params rtol 1e-4 / atol 1e-6 (five
+rounds of fp32 SGD with sums in other orders). No client's sin^2 may lie
+within 1e-5 of delta, so a float-level difference cannot flip a decision
+and fail the exact checks for no real reason.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and spinning
+# OpenMP threads would starve the other workers' threads
+torch.set_num_threads(1)
+
+from repro.fed import experiment as jexp  # noqa: E402
+from repro_torch.fed import experiment as texp  # noqa: E402
+
+EXACT = ("uplink_floats", "frac_scalar", "wire_bytes", "savings",
+         "total_uplink", "vanilla_uplink", "total_wire_bytes",
+         "wire_savings")
+TOPK = {"lbg_variant": "topk", "lbg_kw": {"k_frac": 0.1},
+        "delta_threshold": 0.7}
+
+CASES = {
+    "vmap-dense": {},
+    "chunked-dense-legacy-sampled": dict(scheduler="chunked", chunk_size=6,
+                                         fused_kernels=False,
+                                         sample_frac=0.5),
+    "vmap-topk": dict(TOPK),
+    "chunked-topk-sampled": dict(TOPK, scheduler="chunked", chunk_size=8,
+                                 sample_frac=0.6),
+    "chunked-topk-legacy": dict(TOPK, scheduler="chunked", chunk_size=5,
+                                fused_kernels=False),
+    "chunked-dense-pad": dict(num_clients=7, scheduler="chunked",
+                              chunk_size=4),
+    "chunked-topk-pad": dict(TOPK, num_clients=7, scheduler="chunked",
+                             chunk_size=4, fused_kernels=True),
+    "vmap-null": dict(use_lbgm=False),
+}
+
+
+def fig5_spec(**fl):
+    base = dict(num_clients=20, tau=2, lr=0.05, batch_size=16, seed=0,
+                delta_threshold=0.2)
+    base.update(fl)
+    return {"name": "fig5", "model": {"name": "fcn", "kw": {}},
+            "data": {"name": "mixture",
+                     "kw": {"n": 2000, "n_eval": 500, "seed": 0}},
+            "partition": {"name": "label_skew",
+                          "kw": {"classes_per_client": 3, "seed": 0}},
+            "fl": base, "rounds": 5,
+            "eval": {"every": 0, "final": False, "verbose": False}}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fig5_parity(case):
+    d = fig5_spec(**CASES[case])
+    jeng, _ = jexp.build_experiment(jexp.ExperimentSpec.from_dict(d))
+    p0 = {k: np.asarray(v) for k, v in jeng.params.items()}
+    teng, _ = texp.build_experiment(texp.ExperimentSpec.from_dict(d),
+                                    params=p0, device="cpu")
+    assert teng._chunk == jeng._chunk and teng._pad == jeng._pad
+    assert teng._sparse_agg == jeng._sparse_agg
+    if case.endswith("pad"):
+        assert teng._pad > 0
+    jh = jeng.run(5)
+    th = teng.run(5)
+    assert len(th) == len(jh) == 5
+    delta = teng.cfg.delta_threshold
+    for r, (a, b) in enumerate(zip(jh, th)):
+        for k in EXACT:
+            assert a[k] == b[k], (case, r, k, a[k], b[k])
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-5,
+                                   err_msg=f"{case} round {r}")
+    if teng.cfg.use_lbgm:
+        margin = min(float(np.min(np.abs(s - delta)))
+                     for s in teng.sin2_history)
+        assert margin > 1e-5, (case, margin)
+    scalar = [h["frac_scalar"] for h in th]
+    if case != "vmap-null":
+        assert max(scalar) > 0, f"{case}: no recycle round to test"
+    for k, v in jeng.params.items():
+        np.testing.assert_allclose(teng.params[k].numpy(), np.asarray(v),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_run_experiment_matches_engine_history():
+    """``run_experiment`` is ``FLEngine.run`` plus eval: same history, and
+    it exposes each round's per-client sin^2."""
+    d = fig5_spec(num_clients=6)
+    d["rounds"] = 3
+    spec = texp.ExperimentSpec.from_dict(d)
+    res = texp.run_experiment(spec, device="cpu")
+    eng, _ = texp.build_experiment(spec, device="cpu")
+    assert res.history == eng.run(3)
+    assert len(res.sin2) == 3 and res.sin2[0].shape == (6,)
+    assert res.device == "cpu" and res.duration_s > 0

@@ -1,0 +1,114 @@
+"""One spec file drives either package; keys the port lacks are refused.
+
+An ``ExperimentSpec`` JSON round-trips in both packages to equal
+``FLConfig`` dicts, and the port's ``FLConfig`` rejects every registry key
+and knob it has not ported with the reference's "unknown ...; registered:
+[...]" error (or a "not ported" error for non-registry knobs), instead of
+running something else.
+"""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers, and spinning
+# OpenMP threads would starve the other workers' threads
+torch.set_num_threads(1)
+
+from repro.fed import experiment as jexp  # noqa: E402
+from repro.fed.flconfig import FLConfig as JFL  # noqa: E402
+from repro_torch.fed import experiment as texp  # noqa: E402
+from repro_torch.fed.flconfig import FLConfig as TFL  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SPEC = {
+    "name": "roundtrip",
+    "model": {"name": "cnn", "kw": {"arch": "paper-cnn"}},
+    "data": {"name": "mixture", "kw": {"n": 300, "n_eval": 50}},
+    "partition": {"name": "iid", "kw": {"seed": 3}},
+    "fl": {"num_clients": 8, "tau": 3, "lr": 0.1, "batch_size": 4,
+           "delta_threshold": 0.3, "scheduler": "chunked", "chunk_size": 3,
+           "lbg_variant": "topk", "lbg_kw": {"k_frac": 0.05},
+           "sample_frac": 0.75, "fused_kernels": False, "seed": 5,
+           "mesh": None, "aggregator": "mean", "codec": "none"},
+    "rounds": 7,
+    "eval": {"every": 2, "final": True, "verbose": False},
+}
+
+
+def test_spec_json_roundtrips_in_both_packages():
+    text = json.dumps(SPEC)
+    js = jexp.ExperimentSpec.from_json(text)
+    ts = texp.ExperimentSpec.from_json(text)
+    assert js.fl.to_dict() == ts.fl.to_dict()
+    assert js.to_dict() == ts.to_dict()
+    assert json.loads(ts.to_json()) == json.loads(js.to_json())
+    assert texp.ExperimentSpec.from_json(js.to_json()) == ts
+    over = {"fl.delta_threshold": 0.5, "model.kw.d_model": 16}
+    assert (js.with_overrides(over).to_dict()
+            == ts.with_overrides(over).to_dict())
+
+
+def test_flconfig_fields_and_defaults_match():
+    assert TFL().to_dict() == JFL().to_dict()
+    for bad in (dict(num_clients=0), dict(sample_frac=0.0),
+                dict(chunk_size=0), dict(fused_kernels=1),
+                dict(mesh=[2, 2]), dict(attack_frac=0.5)):
+        for cls in (TFL, JFL):
+            with pytest.raises(ValueError):
+                cls(**bad)
+
+
+@pytest.mark.parametrize("kw,word", [
+    (dict(scheduler="sharded"), "unknown scheduler"),
+    (dict(scheduler="buffered", lbg_variant="topk"), "unknown scheduler"),
+    (dict(lbg_variant="topk-sharded"), "unknown lbg_variant"),
+    (dict(lbg_variant="topk-host", scheduler="chunked"),
+     "unknown lbg_variant"),
+    (dict(aggregator="trimmed_mean"), "unknown aggregator"),
+    (dict(aggregator="geometric_median"), "unknown aggregator"),
+    (dict(codec="int8"), "unknown codec"),
+    (dict(codec="delta_idx"), "unknown codec"),
+    (dict(compressor="topk"), "unknown compressor"),
+    (dict(compressor="signsgd"), "unknown compressor"),
+    (dict(attack="sign_flip", attack_frac=0.2), "unknown attack"),
+    (dict(latency="fixed", scheduler="buffered", lbg_variant="topk"),
+     "unknown"),
+    (dict(tiers=[2]), "not ported"),
+    (dict(ckpt_every=2, ckpt_path="x.npz"), "not ported"),
+    (dict(dropout_frac=0.1), "not ported"),
+    (dict(aggregator="trimmed_mean", aggregator_kw={"beta": 0.1}),
+     "unknown aggregator"),
+])
+def test_unported_keys_raise(kw, word):
+    JFL(**kw)  # valid in the reference
+    with pytest.raises(ValueError, match=word) as e:
+        TFL(**kw)
+    if word.startswith("unknown"):
+        assert "registered" in str(e.value)
+
+
+def test_cli_prints_and_runs_on_cpu(tmp_path):
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps(dict(
+        SPEC, model={"name": "fcn", "kw": {}}, rounds=2,
+        fl=dict(SPEC["fl"], num_clients=4))))
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "1"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.fed.run", "--spec", str(spec),
+         "--set", "fl.delta_threshold=0.4", "--print-spec"],
+        capture_output=True, text=True, env=env, timeout=120, check=True)
+    printed = json.loads(out.stdout)
+    assert printed["fl"]["delta_threshold"] == 0.4
+    res = tmp_path / "res.json"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.fed.run", "--spec", str(spec),
+         "--device", "cpu", "--out", str(res)],
+        capture_output=True, text=True, env=env, timeout=300, check=True)
+    assert "2 rounds on cpu" in out.stdout
+    assert len(json.loads(res.read_text())["records"]) == 2
