@@ -11,22 +11,30 @@ From the root of a checkout. Phases, each printed as one JSON line:
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the main path's shapes and at edge shapes (n = 17 and 200001,
    tie rows, all-zero rows, subnormal rows): index sets and orders must be
-   equal, values within the stated tolerance;
+   equal, values within the stated tolerance. The dequant-accumulate
+   kernel, int8 and fp8, must equal its plain version bit for bit
+   (``torch.equal``), on the card and on the CPU, at every leaf shape of
+   the FCN and CNN and with phantom NaN clients, w = 0 clients, every
+   client on the same positions, kb = 1 and a 10-wide block;
 4. the main path: ``run_experiment`` for ``paper-fcn`` at the paper's
    cohort (K=100, tau=2, lr=0.05, b=16, label skew with 3 classes per
    client, chunked scheduler) with the dense store, the top-k store and the
    top-k store's index-order decision, 3 rounds each, then one
-   ``paper-cnn`` dense-store phase. The launch counters are set to 0 just
-   before each phase and read just after; every kernel of a phase must
-   have launched. The same spec then runs with ``device="cpu"`` (the plain
-   versions): uplink floats, scalar fraction and wire bytes must be
-   identical, loss and params within tolerance, and no client's sin² may
-   lie within 1e-5 of delta (a float-level flip would otherwise be
-   possible);
-5. one profiled round each of the dense and top-k FCN phases: wall time,
-   device busy time and idle share, and the kernels that took the most
-   device time;
-6. one ``kernels`` line: per kernel, its launches on the main path, its
+   ``paper-cnn`` dense-store phase; then the compressed uplink: the top-k
+   store (delta 0.9) under the stochastic int8 and the round-to-nearest
+   fp8 wire codec, and the dense store under top-K 0.1 with error
+   feedback (delta 0.75) and under ATOMO rank 2 (delta 0.5). The launch
+   counters are set to 0 just before each phase and read just after;
+   every kernel of a phase must have launched. The same spec then runs
+   with ``device="cpu"`` (the plain versions): uplink floats, scalar
+   fraction, wire bytes and savings must be identical, loss and params
+   within tolerance, and no client's sin² may lie within 1e-5 of delta (a
+   float-level flip would otherwise be possible);
+5. one profiled round each of the dense, top-k and top-k int8 FCN
+   phases: wall time, device busy time and idle share, and the kernels
+   that took the most device time;
+6. one ``kernels`` line: per kernel (four, the dequant-accumulate last),
+   its launches on the main path, its
    median time over 25 launches (CUDA events, L2 flushed before each),
    its plain version's time, one PyTorch call's time as a yardstick, and
    the least time the card could take for the same work.
@@ -71,12 +79,15 @@ def median(xs):
 _flush = None
 
 
-def time_ms(fn, n=TIMED_LAUNCHES):
+def time_ms(fn, n=TIMED_LAUNCHES, flush=True):
     """Median device time of ``fn`` over ``n`` calls, CUDA events around
     each, with a 1 GiB write before each call. The write flushes the 50 MB
     L2 and keeps the device busy for ~0.3 ms, long enough for the host to
     enqueue the call (a wrapper's Python and ctypes overhead) before the
-    device reaches it, so the events time the device's work."""
+    device reaches it, so the events time the device's work. With
+    ``flush=False`` a small wait kernel takes the write's place, so the
+    call finds its inputs in L2, as on the main path where a producer has
+    just written them."""
     import torch
     global _flush
     if _flush is None:
@@ -85,7 +96,10 @@ def time_ms(fn, n=TIMED_LAUNCHES):
         fn()
     times = []
     for _ in range(n):
-        _flush.zero_()
+        if flush:
+            _flush.zero_()
+        else:
+            torch.cuda._sleep(1_000_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -170,11 +184,68 @@ def check_decision(gen, B, nb, block, kb, dtype, two_pass, kind="normal"):
     return err
 
 
+def dequant_inputs(gen, C, nb, block, kb, qdtype, kind="normal"):
+    """CPU inputs of one dequant-accumulate call. ``kind``: "phantom"
+    gives client 1 w = 0, a NaN gscale and (fp8) NaN values; "zero_w"
+    gives every other client w = 0; "shared" puts every client on the
+    same positions."""
+    import torch
+    acc = torch.randn((nb, block), generator=gen)
+    w = torch.rand(C, generator=gen) / C
+    gscale = torch.rand(C, generator=gen) * 2 - 0.5
+    keys = torch.rand((1 if kind == "shared" else C, nb, block),
+                      generator=gen)
+    idx = torch.argsort(keys, dim=-1)[..., :kb].to(torch.int32)
+    idx = idx.expand(C, nb, kb).contiguous()
+    if qdtype == torch.int8:
+        qv = torch.randint(-127, 128, (C, nb, kb), generator=gen,
+                           dtype=torch.int8)
+    else:
+        qv = (torch.randn((C, nb, kb), generator=gen) * 100).clamp(
+            -448, 448).to(qdtype)
+    scale = torch.ldexp(torch.ones(C, nb, 1), torch.randint(
+        -20, 2, (C, nb, 1), generator=gen))
+    if kind == "phantom" and C > 1:
+        w[1], gscale[1] = 0.0, float("nan")
+        if qdtype != torch.int8:
+            qv[1] = torch.full((nb, kb), float("nan")).to(qdtype)
+    elif kind == "zero_w":
+        w[::2] = 0.0
+    return acc, w, gscale, idx, qv, scale
+
+
+def check_dequant(gen, C, nb, block, kb, qdtype, kind="normal"):
+    import torch
+    from repro_torch.kernels import lbgm_sparse as ks
+    from repro_torch.kernels import ref
+    cpu = dequant_inputs(gen, C, nb, block, kb, qdtype, kind)
+    dev = [t.cuda() for t in cpu]
+    got = ks.lbgm_dequant_accum(dev[0].clone(), *dev[1:])
+    plain_card = ref.lbgm_dequant_accum_ref(dev[0].clone(), *dev[1:])
+    plain_cpu = ref.lbgm_dequant_accum_ref(cpu[0].clone(), *cpu[1:])
+    torch.cuda.synchronize()
+    what = f"dequant C={C} nb={nb} block={block} kb={kb} {qdtype} {kind}"
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite accumulator (a phantom client leaked)")
+    if not torch.equal(got, plain_card) or \
+            not torch.equal(got.cpu(), plain_cpu):
+        bad = float((got.cpu() - plain_cpu).abs().max())
+        fail(f"{what}: differs from the plain version (max {bad:.3g})")
+    return float((got.cpu() - plain_cpu).abs().max())
+
+
+#: (C, nb, block, kb) of every top-k leaf at a chunk of 10: FCN fc1/w,
+#: fc2/w, fc1/b, fc2/b; CNN conv3/w and fc/w
+DEQUANT_SHAPES = [(10, 16, 65536, 627), (10, 1, 1280, 128),
+                  (10, 1, 128, 12), (10, 1, 10, 1), (10, 1, 36864, 3686),
+                  (10, 1, 31360, 3136)]
+
+
 def kernel_checks():
     import torch
     gen = torch.Generator().manual_seed(0)
     errs = {"lbgm_projection": 0.0, "lbgm_sparse_decision": 0.0,
-            "lbgm_sparse_decision_two_pass": 0.0}
+            "lbgm_sparse_decision_two_pass": 0.0, "lbgm_dequant_accum": 0.0}
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         # main-path shapes: FCN leaves at a chunk of 10, CNN conv3/w, fc/w
@@ -201,11 +272,24 @@ def kernel_checks():
                     errs[name] = max(errs[name], check_decision(
                         gen, *shp, dtype, two_pass, kind))
                     cases += 1
+    for qdtype in (torch.int8, torch.float8_e4m3fn):
+        for shp in DEQUANT_SHAPES:
+            errs["lbgm_dequant_accum"] = max(errs["lbgm_dequant_accum"],
+                                             check_dequant(gen, *shp, qdtype))
+            cases += 1
+        for kind in ("phantom", "zero_w", "shared"):
+            for shp in ((10, 16, 65536, 627), (4, 3, 10, 1), (5, 2, 10, 10),
+                        (1, 4, 1000, 37)):
+                errs["lbgm_dequant_accum"] = max(
+                    errs["lbgm_dequant_accum"],
+                    check_dequant(gen, *shp, qdtype, kind))
+                cases += 1
     from repro_torch.kernels import lbgm_sparse as ks
     emit({"phase": "kernel_checks", "cases": cases,
           "max_abs_err": errs,
           "note": "decision: selected and gathered values equal the plain "
-                  "version exactly; its error is ||g||^2's (rtol 1e-5)",
+                  "version exactly; its error is ||g||^2's (rtol 1e-5). "
+                  "dequant: equal to the plain version bit for bit",
           "value_order_kb_ceiling": ks.max_value_order_kb()})
     return errs
 
@@ -268,7 +352,9 @@ def run_phase(label, spec, two_pass, want_kernels, totals):
     if margin < 1e-5:
         fail(f"{label}: a client's sin^2 lies {margin:.3g} from delta")
     rec = {"phase": label, "model": spec.model.name,
-           "store": spec.fl.lbg_variant,
+           "store": spec.fl.lbg_variant, "codec": spec.fl.codec,
+           "codec_kw": spec.fl.codec_kw, "compressor": spec.fl.compressor,
+           "compressor_kw": spec.fl.compressor_kw,
            "decision_order": "index" if two_pass else "value",
            "K": spec.fl.num_clients, "rounds": spec.rounds,
            "delta": spec.fl.delta_threshold,
@@ -279,11 +365,91 @@ def run_phase(label, spec, two_pass, want_kernels, totals):
            "loss_cpu": [h["loss"] for h in cpu.history],
            "frac_scalar": [h["frac_scalar"] for h in gpu.history],
            "uplink_floats": [h["uplink_floats"] for h in gpu.history],
+           "wire_bytes": [h["wire_bytes"] for h in gpu.history],
            "savings": gpu.savings, "sin2_margin": margin,
            "test_acc": gpu.final_eval.get("test_acc"),
            "launches": {k: v for k, v in launches.items() if v}}
     emit(rec)
     return rec
+
+
+def device_events(prof):
+    """``({name: [device us, count]}, kernels, busy ms)`` of a profile,
+    leaving out the spin kernel of ``torch.cuda._sleep``."""
+    from torch.autograd import DeviceType
+    by_name, n_kernels = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or "spin_kernel" in ev.name:
+            continue
+        n_kernels += 1
+        us = by_name.setdefault(ev.name, [0.0, 0])
+        us[0] += ev.device_time_total if hasattr(ev, "device_time_total") \
+            else ev.cuda_time_total
+        us[1] += 1
+    return by_name, n_kernels, sum(v[0] for v in by_name.values()) / 1e3
+
+
+def uplink_launches():
+    """Device kernels, device time and host wall time of one chunk's
+    uplink steps at the FCN's top-k payload shapes (10 clients): the fp32
+    fold's per-client loop (``SparseTopKAggregator``), the quantized fold
+    (``SparseCodecAggregator``, one dequant-accumulate launch per leaf),
+    and the int8 (stochastic) and fp8 (nearest) encoders."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.comm import wire
+    from repro_torch.core.lbgm import LBGMStats, _block_layout
+    from repro_torch.fed.engine import (SparseCodecAggregator,
+                                        SparseTopKAggregator)
+    from repro_torch.fed.experiment import build_experiment
+    eng, _ = build_experiment(fl_spec("fcn"), device="cuda")
+    params, C = eng.params, 10
+    gen = torch.Generator().manual_seed(2)
+    send = {}
+    for name, p in params.items():
+        nb, block, kb = _block_layout(int(p.numel()), 0.1)
+        idx = torch.argsort(torch.rand((C, nb, block), generator=gen),
+                            dim=-1)[..., :kb].to(torch.int32)
+        send[name] = {"idx": idx.cuda(),
+                      "val": torch.randn((C, nb, kb), generator=gen).cuda()}
+    w = torch.full((C,), 0.01, device="cuda")
+    ones = torch.ones(C, device="cuda")
+    stats = LBGMStats(sin2=ones, rho=ones, sent_scalar=ones < 0,
+                      uplink_floats=ones, grad_sq_norm=ones)
+    seed = torch.arange(C, device="cuda")
+    int8, fp8 = wire.Int8Codec(), wire.Fp8Codec(stochastic=False)
+    q8 = int8.encode_sparse((send, ones), send, stats, seed)[0]
+    fold_t = SparseTopKAggregator(params, 0.1)
+    fold_c = SparseCodecAggregator(params, 0.1)
+    acc_t, acc_c = fold_t.init(params), fold_c.init(params)
+    steps = {
+        "fold_fp32_per_client": lambda: fold_t.accumulate(
+            acc_t, w, (send, ones)),
+        "fold_quantized": lambda: fold_c.accumulate(acc_c, w, q8),
+        "encode_int8_stochastic": lambda: int8.encode_sparse(
+            (send, ones), send, stats, seed),
+        "encode_fp8_nearest": lambda: fp8.encode_sparse(
+            (send, ones), send, stats, None)}
+    out = {}
+    for label, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # the first kernel of a profiled window may go unrecorded: let
+            # it be a spin kernel, which device_events leaves out
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        _, n, busy = device_events(prof)
+        out[label] = {"device_kernels": n, "device_busy_ms": busy,
+                      "wall_ms": wall_ms}
+    emit({"phase": "uplink_launches", "clients": C, "leaves": len(params),
+          "steps": out})
+    return out
 
 
 def profile_round(label, spec, device="cuda"):
@@ -293,7 +459,6 @@ def profile_round(label, spec, device="cuda"):
     time. A profiler that records no device time is reported as such."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.fed.experiment import build_experiment
 
@@ -313,16 +478,7 @@ def profile_round(label, spec, device="cuda"):
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         src.close()
-    by_name, n_kernels = {}, 0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        n_kernels += 1
-        us = by_name.setdefault(ev.name, [0.0, 0])
-        us[0] += ev.device_time_total if hasattr(ev, "device_time_total") \
-            else ev.cuda_time_total
-        us[1] += 1
-    busy_ms = sum(v[0] for v in by_name.values()) / 1e3
+    by_name, n_kernels, busy_ms = device_events(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     rec = {"phase": f"profile_{label}", "wall_ms": wall_ms,
            "device_kernels": n_kernels,
@@ -397,7 +553,51 @@ def kernel_line(errs, totals):
                                                      dim=-1)),
             "library_call": "torch.topk of |g| per row (the selection "
                             "only: no gather, no ||g||^2, no tie rule)"})
+    out.append(dequant_entry(gen, errs, totals))
     return out
+
+
+def dequant_entry(gen, errs, totals):
+    """The dequant-accumulate kernel at the codec fold's largest call:
+    fc1/w's int8 payloads at a chunk of 10 clients."""
+    import torch
+    from repro_torch.kernels import lbgm_sparse as ks
+    from repro_torch.kernels import ref
+    C, nb, block, kb = DEQUANT_SHAPES[0]
+    args = [t.cuda() for t in dequant_inputs(gen, C, nb, block, kb,
+                                             torch.int8)]
+    acc, w, gscale, idx, qv, scale = args
+    # bytes this call must move: idx (4 B) and value (1 B) per entry, the
+    # row scales, w and gscale, and each accumulator element the payload
+    # touches read and written once (8 B)
+    rows = torch.arange(nb, device="cuda").reshape(1, nb, 1)
+    flat = (rows * block + idx.long()).reshape(-1)
+    touched = int(torch.unique(flat).numel())
+    entries = C * nb * kb
+    bnd, by = bound_ms(entries * 5 + C * nb * 4 + 2 * C * 4 + touched * 8,
+                       2 * entries + 2 * C * nb)
+    coeff = torch.where(w > 0, w * gscale, 0.0).reshape(C, 1, 1) * scale
+    vals = (coeff * qv.float()).reshape(-1)
+    acc_lib = acc.clone().reshape(-1)
+    acc_plain = acc.clone()
+    return {
+        "name": "lbgm_dequant_accum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lbgm_dequant_accum.cu",
+        "replaces": "src/repro/kernels/lbgm_sparse.py:324",
+        "launches": totals["lbgm_dequant_accum"],
+        "max_abs_err": errs["lbgm_dequant_accum"],
+        "shape": [C, nb, block, kb], "dtype": "int8 values, float32 acc",
+        "touched_elements": touched,
+        "ms": time_ms(lambda: ks.lbgm_dequant_accum(acc, *args[1:])),
+        "ms_inputs_in_l2": time_ms(
+            lambda: ks.lbgm_dequant_accum(acc, *args[1:]), flush=False),
+        "plain_ms": time_ms(lambda: ref.lbgm_dequant_accum_ref(
+            acc_plain, *args[1:])),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(lambda: acc_lib.scatter_add_(0, flat, vals)),
+        "library_call": "torch.Tensor.scatter_add_ of the pre-dequantized "
+                        "values (adds in no fixed order; no widening, no "
+                        "phantom gate)"}
 
 
 # ------------------------------------------------------------------- main
@@ -448,9 +648,30 @@ def main():
               ["lbgm_sparse_decision_two_pass"], totals)
     run_phase("cnn_dense", fl_spec("cnn"), False, ["lbgm_projection"],
               totals)
+    # the compressed uplink: wire codecs over the top-k store, compressor
+    # stacks over the dense store
+    int8 = dict(topk, delta_threshold=0.9, codec="int8")
+    codec_kernels = ["lbgm_sparse_decision", "lbgm_dequant_accum"]
+    run_phase("fcn_topk_int8", fl_spec("fcn", **int8), False, codec_kernels,
+              totals)
+    run_phase("fcn_topk_fp8",
+              fl_spec("fcn", **dict(int8, codec="fp8",
+                                    codec_kw={"stochastic": False})),
+              False, codec_kernels, totals)
+    run_phase("fcn_dense_topk_ef",
+              fl_spec("fcn", compressor="topk",
+                      compressor_kw={"k_frac": 0.1}, error_feedback=True,
+                      delta_threshold=0.75),
+              False, ["lbgm_projection"], totals)
+    run_phase("fcn_dense_atomo",
+              fl_spec("fcn", compressor="atomo", compressor_kw={"rank": 2},
+                      delta_threshold=0.5),
+              False, ["lbgm_projection"], totals)
 
     profile_round("fcn_dense", fl_spec("fcn"))
     profile_round("fcn_topk", fl_spec("fcn", **topk))
+    profile_round("fcn_topk_int8", fl_spec("fcn", **int8))
+    uplink_launches()
 
     kernels = kernel_line(errs, totals)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,11 +2,14 @@
 
 Counterpart of ``repro.fed.engine``, for the slice the paper's own
 experiment loop runs: the ``"vmap"`` and ``"chunked"`` client schedulers,
-the ``"null"``, ``"dense"`` and ``"topk"`` LBG stores, and the ``"mean"``
-streaming fold (``DenseAggregator``, or ``SparseTopKAggregator`` for the
-top-k store) under the fp32 ``"none"`` wire codec. The host-bank,
-buffered, sharded, attack, tier and checkpoint branches of the JAX engine
-are later slices; ``FLConfig`` rejects their keys until then.
+the ``"null"``, ``"dense"`` and ``"topk"`` LBG stores, the uplink
+compressor stacks (top-K, SignSGD, ATOMO, with or without error
+feedback), the ``"mean"`` streaming fold (``DenseAggregator``,
+``SparseTopKAggregator`` for the top-k store, ``SparseCodecAggregator``
+for its quantized payloads) and every wire codec (``none``,
+``delta_idx``, ``int8``, ``fp8``). The host-bank, buffered, sharded,
+robust-rule, attack, tier and checkpoint branches of the JAX engine are
+later slices; ``FLConfig`` rejects their keys until then.
 
 One round:
 
@@ -14,17 +17,23 @@ One round:
    participation mask from one ``np.random.RandomState(seed + 1)`` stream,
    draw for draw as the JAX engine does, and stages them on the device
    (:class:`RoundPrefetcher` overlaps round t+1's draws and copy with
-   round t);
+   round t). A stochastic wire codec also draws one rounding seed per
+   client from its own stream (``codec_rng``), which rides the batch dict
+   under ``WIRE_KEY``;
 2. the scheduler walks the clients in chunks (``"vmap"``: one chunk of
    all K). Within a chunk the client axis is written out: local SGD is
    ``torch.func.vmap(torch.func.grad(loss))`` over the chunk's clients,
-   and the LBG store's Algorithm-1 step takes the ``(C, ...)`` stacks and
-   calls the *batched* decision kernels (``repro_torch.kernels.ops``)
-   directly — one launch per leaf per chunk;
+   the uplink pipeline compresses the stacks (adding each client's
+   error-feedback residual), the LBG store's Algorithm-1 step takes the
+   ``(C, ...)`` stacks and calls the *batched* decision kernels
+   (``repro_torch.kernels.ops``) directly — one launch per leaf per chunk
+   — and the codec encodes what the uplink ships;
 3. the aggregator folds every client's update into the round aggregate
    strictly sequentially, ``a + where(w > 0, w * g, 0)`` in client order,
-   so vmap and chunked add in the same order; the LBG bank rows of the
-   chunk are updated in place (unsampled clients keep theirs);
+   so vmap and chunked add in the same order (quantized sparse payloads
+   go through the dequant-accumulate kernel, one launch per leaf per
+   chunk); the LBG and residual bank rows of the chunk are updated in
+   place (unsampled clients keep theirs);
 4. the server steps the params and ``CommLedger`` counts the uplink.
 
 Device: the engine runs on the CUDA card unless it is given
@@ -46,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.accounting import CommLedger
-from repro_torch.comm.wire import make_codec
+from repro_torch.comm.wire import WIRE_KEY, codec_rng, make_codec
 from repro_torch.compression import make_uplink_pipeline
 from repro_torch.core import lbgm as lbgm_lib
 from repro_torch.core.tree_math import tree_size
@@ -54,6 +63,7 @@ from repro_torch.fed.flconfig import FLConfig  # noqa: F401  (re-export)
 from repro_torch.fed.registry import (LBG_STORES, SCHEDULERS,
                                       register_aggregator, register_latency,
                                       register_lbg_store, register_scheduler)
+from repro_torch.kernels import ops
 
 
 def resolve_device(device) -> torch.device:
@@ -281,16 +291,40 @@ class SparseTopKAggregator:
                 for name, (shape, size, _, _) in self._layout.items()}
 
 
+class SparseCodecAggregator(SparseTopKAggregator):
+    """Streaming aggregation of QUANTIZED sparse payloads.
+
+    The layout, client order and finalize of :class:`SparseTopKAggregator`,
+    but each client's payload arrives in the wire layout ``{idx, val
+    (int8/fp8), scale}`` and widens inside the fold: one
+    ``kernels.ops.lbgm_dequant_accum`` call per leaf per chunk (the
+    hand-written kernel on the card, its plain version on the CPU), with
+    the accumulator updated in place. No fp32 (C, nb, kb) payload stack is
+    materialized.
+    """
+
+    def accumulate(self, acc, w, out):
+        send, gscale = out   # idx/val (C, nb, kb); scale (C, nb, 1)
+        for name in sorted(acc):
+            sk = send[name]
+            ops.lbgm_dequant_accum(acc[name], w, gscale, sk["idx"],
+                                   sk["val"], sk["scale"])
+        return acc
+
+
 def make_aggregator(cfg: FLConfig, store, params, codec):
     """``(aggregator, sparse)``: sparse scalar-round payloads whenever the
     store supports them and ``fused_kernels`` is not False, else the dense
-    fold. Only the streaming ``"mean"`` rule and the lossless ``"none"``
-    codec are ported."""
-    if cfg.aggregator != "mean" or codec.lossy:
+    fold; a lossy codec's sparse payloads fold through
+    :class:`SparseCodecAggregator`. Only the streaming ``"mean"`` rule is
+    ported."""
+    if cfg.aggregator != "mean":
         raise ValueError(
-            f"aggregator={cfg.aggregator!r} with codec={cfg.codec!r} is not "
-            "ported to repro_torch yet; use aggregator='mean', codec='none'")
+            f"aggregator={cfg.aggregator!r} is not ported to repro_torch "
+            "yet; use aggregator='mean'")
     if cfg.fused_kernels is not False and hasattr(store, "make_aggregator"):
+        if codec.lossy:
+            return SparseCodecAggregator(params, store.k_frac), True
         return store.make_aggregator(params), True
     return DenseAggregator(), False
 
@@ -317,7 +351,8 @@ class _ChunkLoop:
     runs ``client_fn`` over its stacked clients, folds the updates into the
     round aggregate in client order, and writes its bank rows back in
     place. The banks are allocated padded to the chunk grid (K + pad rows);
-    pad rows are never sampled."""
+    pad rows are never sampled. The error-feedback residual bank (empty
+    without error feedback) is sliced and written back like the LBG bank."""
 
     num_clients: int
     chunk: int
@@ -334,7 +369,7 @@ class _ChunkLoop:
             return out
         return {k: pad(v) for k, v in stacked.items()}
 
-    def run(self, client_fn, agg, params, batch, lbg, w, maskf):
+    def run(self, client_fn, agg, params, batch, lbg, resid, w, maskf):
         K, chunk, pad = self.num_clients, self.chunk, self.pad
         if pad:
             w = torch.cat([w, w.new_zeros(pad)])
@@ -344,11 +379,13 @@ class _ChunkLoop:
         for start in range(0, K + pad, chunk):
             s = slice(start, start + chunk)
             l_c = _tmap(lambda x: x[s], lbg)
+            r_c = _tmap(lambda x: x[s], resid)
             b_c = {k: v[s] for k, v in batch.items()}
-            gt, nl, *y = client_fn(params, b_c, l_c)
+            gt, nl, nr, *y = client_fn(params, b_c, l_c, r_c)
             acc = agg.accumulate(acc, w[s], gt)
-            _tmap(lambda dst, src: dst[s].copy_(src), lbg,
-                  _keep_sampled(maskf[s], nl, l_c))
+            for bank, new, old in ((lbg, nl, l_c), (resid, nr, r_c)):
+                _tmap(lambda dst, src: dst[s].copy_(src), bank,
+                      _keep_sampled(maskf[s], new, old))
             ys.append(y)
         y = [torch.cat(col)[:K] for col in zip(*ys)]
         return (agg.finalize(acc), *y)
@@ -426,13 +463,29 @@ class FLEngine:
         self._data_cat = {k: np.concatenate([d[k] for d in client_data])
                           for k in client_data[0]}
         self.store = make_lbg_store(flcfg)
+        # the codec's rounding seeds come from their own stream, drawn only
+        # when the codec is stochastic: a deterministic codec leaves every
+        # other draw where it was
         self.codec = make_codec(flcfg)
+        self._codec_rng = codec_rng(flcfg.seed)
         self.agg, self._sparse_agg = make_aggregator(flcfg, self.store,
                                                      self.params, self.codec)
+        if self.codec.lossy and not (
+                self._sparse_agg or isinstance(self.store, NullLBGStore)):
+            raise ValueError(
+                f"codec={flcfg.codec!r} is lossy, but the dense LBGM bank "
+                "cannot track the server-decoded values (recycle rounds "
+                "would replay unquantized LBGs the server never saw). Use "
+                "the sparse payload path (lbg_variant='topk' with "
+                "fused_kernels not False) or vanilla FL (use_lbgm=False)")
         Kp = K + self._pad
         self.lbg = self.store.init(self.params, Kp)
-        self._pipeline = make_uplink_pipeline(
+        self._pipeline, self._use_ef = make_uplink_pipeline(
             flcfg.compressor, flcfg.compressor_kw, flcfg.error_feedback)
+        self.residual = {
+            k: torch.zeros((Kp,) + tuple(p.shape), dtype=torch.float32,
+                           device=self.device)
+            for k, p in self.params.items()} if self._use_ef else {}
         self._client_fn = self._build_client_fn()
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
@@ -483,23 +536,29 @@ class FLEngine:
                 [lbgm_lib._block_layout(int(p.numel()), store.k_frac)[::2]
                  for p in self.params.values()])
 
-        def client_fn(params, batches, lbg_c):
+        def client_fn(params, batches, lbg_c, resid_c):
+            # the codec's per-client seed rides the batch dict; strip it
+            # before local SGD
+            batches = dict(batches)
+            seed = batches.pop(WIRE_KEY, None)
             asg, loss = client_update(params, batches)
-            asg, cost = pipeline(asg)
+            asg, resid_c, cost = pipeline(asg, resid_c)
             step = store.sparse_client_step if sparse else store.client_step
             gt, lbg_c, stats = step(asg, lbg_c)
             scalar = stats.sent_scalar
             uplink = torch.where(scalar, torch.ones_like(cost),
                                  store.full_round_cost(cost, stats))
             if sparse:
-                gt, lbg_c, wire = codec.encode_sparse(gt, lbg_c, stats)
+                gt, lbg_c, wire = codec.encode_sparse(gt, lbg_c, stats,
+                                                      seed)
             elif sparse_wire is not None:
                 wire = torch.where(
                     scalar, torch.full_like(cost, codec.scalar_bytes),
                     torch.full_like(cost, sparse_wire))
             else:
-                gt, wire = codec.encode_dense(gt, uplink)
-            return gt, lbg_c, loss, uplink, scalar, wire, stats.sin2
+                gt, wire = codec.encode_dense(gt, uplink, seed)
+            return (gt, lbg_c, resid_c, loss, uplink, scalar, wire,
+                    stats.sin2)
 
         return client_fn
 
@@ -509,8 +568,8 @@ class FLEngine:
         w = self.weights * maskf
         w = w / torch.clamp(w.sum(), min=1e-12)
         agg, losses, uplink, scalar, wire, sin2 = self.sched.run(
-            self._client_fn, self.agg, self.params, batch, self.lbg, w,
-            maskf)
+            self._client_fn, self.agg, self.params, batch, self.lbg,
+            self.residual, w, maskf)
         self.params = {k: p - cfg.lr * agg[k].to(p.dtype)
                        for k, p in self.params.items()}
         metrics = torch.stack([
@@ -527,13 +586,18 @@ class FLEngine:
     def _sample_batches(self, rng: np.random.RandomState):
         """Per-round (K + pad, tau, b, ...) host batches. The K per-client
         index draws run in client order — the JAX engine's stream, draw for
-        draw."""
+        draw. A stochastic codec adds one rounding seed per client under
+        ``WIRE_KEY``, from the codec stream (never ``rng``), as the JAX
+        engine draws them; pad rows get seed 0."""
         cfg = self.cfg
         idx = np.empty((cfg.num_clients, cfg.tau, cfg.batch_size), np.int64)
         for k, n in enumerate(self._data_sizes):
             idx[k] = rng.randint(0, n, size=(cfg.tau, cfg.batch_size))
         idx += self._data_offsets[:, None, None]
         stacked = {k: v[idx] for k, v in self._data_cat.items()}
+        if self.codec.stochastic:
+            stacked[WIRE_KEY] = self._codec_rng.randint(
+                0, 2 ** 31 - 1, size=cfg.num_clients).astype(np.int64)
         return self.sched.prepare_batch(stacked)
 
     def _sample_mask(self, rng: np.random.RandomState) -> np.ndarray:

@@ -30,7 +30,8 @@ class FLConfig:
     batch_size: int = 32
     use_lbgm: bool = True
     delta_threshold: float = 0.2
-    compressor: str = "none"         # registry key
+    compressor: str = "none"         # registry key: none | topk | atomo |
+    #                                  signsgd
     compressor_kw: Optional[dict] = None
     error_feedback: Optional[bool] = None   # default: on iff topk
     sample_frac: float = 1.0         # Algorithm 3 device sampling
@@ -52,8 +53,9 @@ class FLConfig:
     #   hand-written kernels on a CUDA device, their plain PyTorch versions
     #   on the CPU, plus sparse scalar-round aggregation for the top-k
     #   store. False: the legacy multi-pass path with dense aggregation.
-    codec: str = "none"              # registry key: none
-    codec_kw: Optional[dict] = None
+    codec: str = "none"              # registry key: none | delta_idx |
+    #   int8 | fp8 — the uplink wire codec (repro_torch.comm.wire)
+    codec_kw: Optional[dict] = None  # e.g. {"stochastic": False}
     latency: str = "none"            # registry key: none
     latency_kw: Optional[dict] = None
     tiers: Union[None, list, dict] = None

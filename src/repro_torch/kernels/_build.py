@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("lbgm_projection", "lbgm_sparse_decision")
+SOURCES = ("lbgm_projection", "lbgm_sparse_decision", "lbgm_dequant_accum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -104,7 +104,8 @@ def load(name: str) -> ctypes.CDLL:
 #: launches per kernel wrapper; a wrapper adds one where it launches its
 #: kernel and nowhere else (the CPU path counts nothing)
 LAUNCHES: Dict[str, int] = {"lbgm_projection": 0, "lbgm_sparse_decision": 0,
-                            "lbgm_sparse_decision_two_pass": 0}
+                            "lbgm_sparse_decision_two_pass": 0,
+                            "lbgm_dequant_accum": 0}
 
 
 def reset_launch_counts() -> None:

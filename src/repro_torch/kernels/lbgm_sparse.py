@@ -1,12 +1,17 @@
-"""Fused sparse-LBG decision: gather, ||g||^2 and block top-k in one read.
+"""Sparse-LBG kernels: the fused decision and the quantized fold.
 
-Counterpart of the decision kernels in ``repro.kernels.lbgm_sparse``. On a
-CUDA tensor the wrapper launches ``csrc/lbgm_sparse_decision.cu``; on a
-CPU tensor it returns the plain version from
-:mod:`repro_torch.kernels.ref`. ``two_pass=False`` emits each row's top-kb
-in descending |value| order (ties to the lowest index, as ``lax.top_k``),
-``two_pass=True`` the same set in ascending index order — the JAX
-package's one-pass and two-pass kernels.
+Counterpart of ``repro.kernels.lbgm_sparse``. On a CUDA tensor each wrapper
+launches its hand-written kernel; on a CPU tensor it returns the plain
+version from :mod:`repro_torch.kernels.ref`.
+
+* :func:`lbgm_sparse_decision_batched` (``csrc/lbgm_sparse_decision.cu``):
+  gather, ||g||^2 and block top-k in one read. ``two_pass=False`` emits
+  each row's top-kb in descending |value| order (ties to the lowest index,
+  as ``lax.top_k``), ``two_pass=True`` the same set in ascending index
+  order — the JAX package's one-pass and two-pass kernels.
+* :func:`lbgm_dequant_accum` (``csrc/lbgm_dequant_accum.cu``): dequantize
+  C clients' int8 / fp8-e4m3 sparse payloads and scatter-add them into an
+  fp32 accumulator leaf, clients in order, in place.
 """
 from __future__ import annotations
 
@@ -95,3 +100,65 @@ def lbgm_sparse_decision(blocks: torch.Tensor, idx: torch.Tensor,
     gg, gath, ti, tv = lbgm_sparse_decision_batched(blocks[None], idx[None],
                                                     two_pass=two_pass)
     return gg[0], gath[0], ti[0], tv[0]
+
+
+# ------------------------------------------ fused dequant + accumulate
+
+_QV_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
+def _dequant_lib():
+    lib = _build.load("lbgm_dequant_accum")
+    f = lib.lbgm_dequant_accum_launch
+    if not f.argtypes:
+        P, L = ctypes.c_void_p, ctypes.c_longlong
+        f.argtypes = [P, P, P, P, P, ctypes.c_int, P, L, L, L, L, P]
+        f.restype = ctypes.c_int
+    return lib
+
+
+def lbgm_dequant_accum(acc: torch.Tensor, w: torch.Tensor,
+                       gscale: torch.Tensor, idx: torch.Tensor,
+                       qv: torch.Tensor, scale: torch.Tensor):
+    """``acc += sum_c [w_c > 0] (w_c * gscale_c * scale_c) * f32(qv_c)``
+    scattered at ``idx_c``, clients folded in order, in place on ``acc``.
+
+    acc: (nb, block) f32; w, gscale: (C,) f32; idx: (C, nb, kb) int32
+    block-local positions, unique within a row; qv: (C, nb, kb) int8 or
+    float8_e4m3fn; scale: (C, nb, 1) f32. Returns ``acc``. The kernel and
+    the plain version agree bit for bit (no FMA in either)."""
+    if acc.dim() != 2 or idx.dim() != 3 or qv.shape != idx.shape:
+        raise ValueError(f"want acc (nb, block) and idx, qv (C, nb, kb), got "
+                         f"{tuple(acc.shape)}, {tuple(idx.shape)} and "
+                         f"{tuple(qv.shape)}")
+    C, nb, kb = idx.shape
+    block = acc.shape[1]
+    if (acc.shape[0] != nb or tuple(scale.shape) != (C, nb, 1)
+            or tuple(w.shape) != (C,) or tuple(gscale.shape) != (C,)):
+        raise ValueError(f"shapes disagree: acc {tuple(acc.shape)}, w "
+                         f"{tuple(w.shape)}, gscale {tuple(gscale.shape)}, "
+                         f"idx {tuple(idx.shape)}, scale {tuple(scale.shape)}")
+    if not 1 <= kb <= block:
+        raise ValueError(f"kb={kb} must lie in [1, block={block}]")
+    tensors = (acc, w, gscale, idx, qv, scale)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ref.lbgm_dequant_accum_ref(acc, w, gscale, idx, qv, scale)
+    _build.check_card(*tensors)
+    if (any(t.dtype != torch.float32 for t in (acc, w, gscale, scale))
+            or idx.dtype != torch.int32 or qv.dtype not in _QV_DTYPES):
+        raise TypeError(
+            f"want f32 acc, w, gscale and scale, int32 idx and int8 or "
+            f"float8_e4m3fn qv; got {acc.dtype}, {w.dtype}, {gscale.dtype}, "
+            f"{scale.dtype}, {idx.dtype} and {qv.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("lbgm_dequant_accum takes contiguous tensors")
+    lib = _dequant_lib()
+    dev = acc.device
+    with torch.cuda.device(dev):
+        rc = lib.lbgm_dequant_accum_launch(
+            acc.data_ptr(), w.data_ptr(), gscale.data_ptr(), idx.data_ptr(),
+            qv.data_ptr(), _QV_DTYPES[qv.dtype], scale.data_ptr(), C, nb,
+            block, kb, _build.stream_ptr(dev))
+    _build.check_rc("lbgm_dequant_accum", rc)
+    _build.LAUNCHES["lbgm_dequant_accum"] += 1
+    return acc

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the LBGM decision kernels.
+"""Plain PyTorch versions of the LBGM kernels.
 
 Counterparts of ``repro.kernels.ref``: the CPU path of every kernel
 wrapper, the engine's arithmetic when its device is the CPU, and what
@@ -43,6 +43,29 @@ def lbgm_sparse_decision_ref(blocks: torch.Tensor, idx: torch.Tensor):
     gathered = torch.gather(b32, -1, idx.long())
     ti, tv = topk_abs_rows(b32, idx.shape[-1])
     return gg, gathered, ti, tv
+
+
+def lbgm_dequant_accum_ref(acc: torch.Tensor, w: torch.Tensor,
+                           gscale: torch.Tensor, idx: torch.Tensor,
+                           qv: torch.Tensor, scale: torch.Tensor):
+    """Sequential dequantize + scatter-accumulate, in place on ``acc``.
+
+    acc: (nb, block) f32; w, gscale: (C,) f32; idx: (C, nb, kb) int32
+    block-local positions, unique within a row; qv: (C, nb, kb) int8 or
+    float8_e4m3fn wire values; scale: (C, nb, 1) f32 row scales. Clients
+    fold strictly in order, each a gather-modify-scatter:
+    ``coeff = (w_c * gscale_c) * scale_c``, then
+    ``a[row, idx] = a[row, idx] + where(w_c > 0, coeff * f32(qv_c), 0)``.
+    The multiply and the add are separate ops (no FMA), as in the CUDA
+    kernel, so the two agree bit for bit; the ``w_c > 0`` select keeps a
+    phantom client's NaN payload or gscale out. Returns ``acc``."""
+    for c in range(idx.shape[0]):
+        w_c = w[c]
+        coeff = (w_c * gscale[c]) * scale[c]             # (nb, 1)
+        i_c = idx[c].long()
+        add = torch.where(w_c > 0, coeff * qv[c].float(), 0.0)
+        acc.scatter_(1, i_c, acc.gather(1, i_c) + add)
+    return acc
 
 
 def sort_topk_rows(idx: torch.Tensor, val: torch.Tensor):

@@ -22,8 +22,8 @@ from repro_torch.fed.flconfig import FLConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.lbgm_projection import \
     lbgm_projection_batched  # noqa: E402
-from repro_torch.kernels.lbgm_sparse import \
-    lbgm_sparse_decision_batched  # noqa: E402
+from repro_torch.kernels.lbgm_sparse import (  # noqa: E402
+    lbgm_dequant_accum, lbgm_sparse_decision_batched)
 
 
 def _spec():
@@ -75,6 +75,13 @@ def test_kernel_wrappers_refuse_cuda_without_cuda(no_cuda):
         lbgm_sparse_decision_batched(
             torch.zeros(1, 1, 8, device="meta"),
             torch.zeros(1, 1, 2, dtype=torch.int32, device="meta"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lbgm_dequant_accum(
+            torch.zeros(1, 8, device="meta"), torch.ones(2, device="meta"),
+            torch.ones(2, device="meta"),
+            torch.zeros(2, 1, 2, dtype=torch.int32, device="meta"),
+            torch.zeros(2, 1, 2, dtype=torch.int8, device="meta"),
+            torch.ones(2, 1, 1, device="meta"))
 
 
 def test_engine_sets_no_tf32_on_the_card(monkeypatch):
@@ -89,13 +96,14 @@ def test_engine_sets_no_tf32_on_the_card(monkeypatch):
 
 def test_build_is_lazy():
     """Importing the kernel modules built nothing and found no compiler;
-    the build sources are the two .cu files of the main path."""
+    the build sources are the three .cu files of the main path."""
     assert not _build._libs
-    assert _build.SOURCES == ("lbgm_projection", "lbgm_sparse_decision")
+    assert _build.SOURCES == ("lbgm_projection", "lbgm_sparse_decision",
+                              "lbgm_dequant_accum")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert json.dumps(sorted(_build.LAUNCHES)) == json.dumps(
-        ["lbgm_projection", "lbgm_sparse_decision",
+        ["lbgm_dequant_accum", "lbgm_projection", "lbgm_sparse_decision",
          "lbgm_sparse_decision_two_pass"])
 
 
@@ -118,3 +126,12 @@ def test_kernels_match_plain_versions_on_the_card():
                                             two_pass=two_pass)
         assert torch.equal(got[2].cpu(), want[2])
         assert torch.equal(got[3].cpu(), want[3])
+    for qdt in (torch.int8, torch.float8_e4m3fn):
+        acc = torch.randn(16, 65536)
+        idx = torch.argsort(torch.rand(10, 16, 65536), -1)[..., :627].to(
+            torch.int32)
+        qv = torch.randint(-127, 128, (10, 16, 627)).float().to(qdt)
+        args = (torch.rand(10), torch.rand(10), idx, qv,
+                torch.rand(10, 16, 1))
+        got = lbgm_dequant_accum(acc.cuda(), *(a.cuda() for a in args))
+        assert torch.equal(got.cpu(), lbgm_dequant_accum(acc, *args))

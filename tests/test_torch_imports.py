@@ -30,8 +30,14 @@ def _imported_roots(path: Path):
 
 
 def test_scan_covers_the_port():
-    names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "lbgm.py", "ops.py", "chip_smoke.py"} <= names
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    port = "src/repro_torch/"
+    assert {port + f for f in (
+        "fed/engine.py", "core/lbgm.py", "kernels/ops.py",
+        "kernels/lbgm_sparse.py", "comm/wire.py", "compression/__init__.py",
+        "compression/topk.py", "compression/signsgd.py",
+        "compression/atomo.py", "compression/error_feedback.py")} \
+        | {"chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -44,7 +50,10 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_entry_points_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.fed.experiment, repro_torch.fed.run, "
-            "repro_torch.fed.engine, repro_torch.kernels.ops\n"
+            "repro_torch.fed.engine, repro_torch.kernels.ops, "
+            "repro_torch.comm.wire, repro_torch.compression.atomo, "
+            "repro_torch.compression.error_feedback, "
+            "repro_torch.compression.signsgd, repro_torch.compression.topk\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad); sys.exit(1 if bad else 0)")

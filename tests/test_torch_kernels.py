@@ -11,6 +11,13 @@ plus an absolute 1e-6 of the sum of |terms|: <g,l> of random vectors can
 cancel to far below its terms, where a relative bound means nothing.
 Top-k index sets *and orders* must match exactly, and so must the selected
 and gathered values (they are copies of input elements); ||g||^2 rtol 1e-5.
+The port's dequant-accumulate fold rounds ``coeff * q`` and the sum
+separately (no FMA), as its CUDA kernel does. On fp8 payloads so does XLA
+on the CPU, and the fold equals the JAX package's oracle and its
+interpreted Pallas kernel exactly. On int8 payloads XLA contracts
+``cur + coeff * f32(q)`` into one fused multiply-add (its result equals a
+single-rounding emulation exactly), so there the port agrees to rtol 1e-6
+(plus 1e-7 absolute where a sum cancels; the terms are O(1)).
 """
 import numpy as np
 import pytest
@@ -25,8 +32,10 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.lbgm_projection import (  # noqa: E402
     lbgm_projection_batched_pallas, lbgm_projection_pallas)
+from repro.comm.wire import Fp8Codec, Int8Codec  # noqa: E402
 from repro.kernels.lbgm_sparse import (  # noqa: E402
-    lbgm_sparse_decision_batched_pallas, lbgm_sparse_decision_pallas,
+    lbgm_dequant_accum_pallas, lbgm_sparse_decision_batched_pallas,
+    lbgm_sparse_decision_pallas,
     lbgm_sparse_decision_two_pass_batched_pallas,
     lbgm_sparse_decision_two_pass_pallas)
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -34,7 +43,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.lbgm_projection import (  # noqa: E402
     lbgm_projection, lbgm_projection_batched)
 from repro_torch.kernels.lbgm_sparse import (  # noqa: E402
-    lbgm_sparse_decision, lbgm_sparse_decision_batched)
+    lbgm_dequant_accum, lbgm_sparse_decision, lbgm_sparse_decision_batched)
 
 BF16 = {"f32": (np.float32, jnp.float32, torch.float32),
         "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
@@ -250,6 +259,102 @@ def test_two_pass_env_knob(monkeypatch):
         assert not ops._default_two_pass(), off
 
 
+# ------------------------------------------------ dequant + accumulate
+
+
+def _dequant_case(wire_dtype, seed, C=5, nb=4, kb=8, block=32,
+                  shared=False):
+    """tests/test_wire.py's case: a phantom client (w = 0) with NaN values
+    and gscale, int8 or fp8 payloads from the JAX codec. ``shared=True``
+    puts every client on the same positions, so each position is hit C
+    times in client order."""
+    import jax
+    rng = np.random.RandomState(seed)
+    acc = rng.randn(nb, block).astype(np.float32)
+    w = rng.rand(C).astype(np.float32)
+    w[seed % C] = 0.0
+    gscale = rng.rand(C).astype(np.float32)
+    gscale[seed % C] = np.nan
+    rows = [rng.choice(block, kb, replace=False) for _ in range(nb)]
+    idx = np.stack([np.stack(rows if shared else
+                             [rng.choice(block, kb, replace=False)
+                              for _ in range(nb)]) for _ in range(C)]
+                   ).astype(np.int32)
+    val = rng.randn(C, nb, kb).astype(np.float32)
+    codec = (Int8Codec if wire_dtype == "int8" else Fp8Codec)(
+        stochastic=False)
+    qv, scale = jax.vmap(lambda v: codec.quantize(v, None))(jnp.asarray(val))
+    if wire_dtype == "fp8":
+        qv = qv.at[seed % C].set(jnp.nan)          # NaN survives e4m3
+    tq = torch.from_numpy(np.array(qv.astype(jnp.float32)))
+    tq = tq.to(torch.int8 if wire_dtype == "int8" else torch.float8_e4m3fn)
+    j = (jnp.asarray(acc), jnp.asarray(w), jnp.asarray(gscale),
+         jnp.asarray(idx), qv, scale)
+    t = (torch.from_numpy(acc), torch.from_numpy(w),
+         torch.from_numpy(gscale), torch.from_numpy(idx), tq,
+         torch.from_numpy(np.array(scale)))
+    return j, t
+
+
+def _fma_fold(acc, w, gscale, idx, qv, scale):
+    """The fold with ``cur + coeff * q`` rounded once, as an FMA does: the
+    float64 product of an fp32 coeff and an int8 value is exact."""
+    a = acc.numpy().copy()
+    for c in range(idx.shape[0]):
+        coeff = ((w[c] * gscale[c]) * scale[c]).numpy().astype(np.float64)
+        q = qv[c].float().numpy().astype(np.float64)
+        for r in range(a.shape[0]):
+            i = idx[c, r].numpy()
+            if w[c] > 0:
+                a[r, i] = (a[r, i] + coeff[r] * q[r]).astype(np.float32)
+            else:
+                a[r, i] = a[r, i] + np.float32(0)
+    return a
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("wire_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("seed", range(3))
+def test_dequant_accum_plain_matches_jax(wire_dtype, seed, shared):
+    j, t = _dequant_case(wire_dtype, seed, shared=shared)
+    want = np.asarray(jref.lbgm_dequant_accum_ref(*j))
+    pallas = np.asarray(lbgm_dequant_accum_pallas(*j, interpret=True))
+    acc_in = t[0].clone()
+    got = tref.lbgm_dequant_accum_ref(*t)
+    assert got is t[0]                              # updated in place
+    assert np.all(np.isfinite(want))
+    np.testing.assert_array_equal(want, pallas)
+    if wire_dtype == "fp8":
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_array_equal(_fma_fold(acc_in, *t[1:]), want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    # the wrapper and ops take the plain version on CPU tensors
+    for fn in (lbgm_dequant_accum, ops.lbgm_dequant_accum):
+        out = fn(acc_in.clone(), *t[1:])
+        assert torch.equal(out, got)
+
+
+def test_dequant_accum_edge_shapes_match_jax():
+    """kb = 1 and a 10-wide block (the FCN's fc2/b leaf), one client."""
+    for C, nb, kb, block in ((3, 1, 1, 10), (1, 2, 1, 5), (4, 1, 10, 10)):
+        j, t = _dequant_case("int8", 0, C=C, nb=nb, kb=kb, block=block)
+        want = np.asarray(jref.lbgm_dequant_accum_ref(*j))
+        np.testing.assert_allclose(tref.lbgm_dequant_accum_ref(*t).numpy(),
+                                   want, rtol=1e-6, atol=1e-7)
+
+
+def test_dequant_accum_refuses_bad_shapes():
+    j, t = _dequant_case("int8", 0)
+    acc, w, gs, idx, qv, sc = t
+    with pytest.raises(ValueError):
+        lbgm_dequant_accum(acc[:2], w, gs, idx, qv, sc)
+    with pytest.raises(ValueError):
+        lbgm_dequant_accum(acc, w, gs, idx, qv, sc[:, :, 0])
+    with pytest.raises(ValueError):
+        lbgm_dequant_accum(acc, w[:2], gs, idx, qv, sc)
+
+
 # --------------------------------------------------------------- dispatch
 
 
@@ -259,6 +364,10 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     lbgm_projection_batched(g, g)
     lbgm_sparse_decision_batched(torch.randn(2, 1, 100),
                                  torch.zeros(2, 1, 5, dtype=torch.int32))
+    lbgm_dequant_accum(torch.zeros(1, 10), torch.ones(2), torch.ones(2),
+                       torch.zeros(2, 1, 3, dtype=torch.int32),
+                       torch.ones(2, 1, 3, dtype=torch.int8),
+                       torch.ones(2, 1, 1))
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 

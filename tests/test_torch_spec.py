@@ -71,10 +71,11 @@ def test_flconfig_fields_and_defaults_match():
      "unknown lbg_variant"),
     (dict(aggregator="trimmed_mean"), "unknown aggregator"),
     (dict(aggregator="geometric_median"), "unknown aggregator"),
-    (dict(codec="int8"), "unknown codec"),
-    (dict(codec="delta_idx"), "unknown codec"),
-    (dict(compressor="topk"), "unknown compressor"),
-    (dict(compressor="signsgd"), "unknown compressor"),
+    (dict(aggregator="coordinate_median"), "unknown aggregator"),
+    (dict(aggregator="scalar_median", lbg_variant="topk"),
+     "unknown aggregator"),
+    (dict(attack="gaussian", attack_frac=0.2), "unknown attack"),
+    (dict(attack="colluding_sign", attack_frac=0.2), "unknown attack"),
     (dict(attack="sign_flip", attack_frac=0.2), "unknown attack"),
     (dict(latency="fixed", scheduler="buffered", lbg_variant="topk"),
      "unknown"),
@@ -90,6 +91,30 @@ def test_unported_keys_raise(kw, word):
         TFL(**kw)
     if word.startswith("unknown"):
         assert "registered" in str(e.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(codec="int8"), dict(codec="fp8", codec_kw={"stochastic": False}),
+    dict(codec="delta_idx"), dict(compressor="topk"),
+    dict(compressor="topk", compressor_kw={"k_frac": 0.2},
+         error_feedback=False),
+    dict(compressor="signsgd", error_feedback=True),
+    dict(compressor="atomo", compressor_kw={"rank": 3, "method": "power"}),
+])
+def test_ported_codec_and_compressor_keys_accepted(kw):
+    """The codecs and compressor stacks are ported: both packages accept
+    them with the same JSON form."""
+    j, t = JFL(**kw), TFL(**kw)
+    assert j.to_dict() == t.to_dict()
+    assert TFL.from_dict(json.loads(json.dumps(t.to_dict()))) == t
+
+
+def test_codec_kw_errors_match_the_reference():
+    for cls in (TFL, JFL):
+        with pytest.raises(ValueError, match="codec_kw keys"):
+            cls(codec="int8", codec_kw={"bogus": 1})
+        with pytest.raises(ValueError, match="unknown codec"):
+            cls(codec="zstd")
 
 
 def test_cli_prints_and_runs_on_cpu(tmp_path):
