@@ -33,11 +33,26 @@ From the root of a checkout. Phases, each printed as one JSON line:
 5. one profiled round each of the dense, top-k and top-k int8 FCN
    phases: wall time, device busy time and idle share, and the kernels
    that took the most device time;
-6. one ``kernels`` line: per kernel (four, the dequant-accumulate last),
-   its launches on the main path, its
+6. LM serving (``lm_*`` phases), after the flash-attention and RWKV6-scan
+   kernels were held against their plain versions (``lm_kernel_checks``,
+   with phase 3): full-width qwen3-1.7b and rwkv6-3b in bf16, weights
+   drawn on the card from seed 0, one model at a time. ``make_prefill_step``
+   at B=4, T=4096 must launch its kernel once per layer, and every block
+   must give the plain kernels' output on the same input (qwen3's
+   last-position logits also end to end; the 32-layer random-init rwkv6
+   is chaotic in bf16, which a nudge of its scan measures); the greedy
+   driver ``generate`` (B=8, prompt 128, gen 32, cache 4096) gives ms per
+   decode step, with rwkv6's scan launched once per layer per step, and
+   decode is held against the forward over the prompt (rwkv6 layer by
+   layer, with its carried state).
+   Then both archs at full width, depth 2, fp32: the card's logits
+   against the port's CPU run;
+7. one ``kernels`` line: per kernel (six: the dequant-accumulate, flash
+   attention and the RWKV6 scan last), its launches on the main path, its
    median time over 25 launches (CUDA events, L2 flushed before each),
-   its plain version's time, one PyTorch call's time as a yardstick, and
-   the least time the card could take for the same work.
+   its plain version's time, one PyTorch call's time as a yardstick where
+   there is one, and the least time the card could take for the same
+   work.
 
 It exits non-zero, with no result line, when there is no CUDA card, when a
 kernel does not build, launch or agree, or when any phase fails. The last
@@ -45,6 +60,7 @@ line of its output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -56,6 +72,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12              # H100 SXM fp32, outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
 ROUNDS = 3
 TIMED_LAUNCHES = 25
 
@@ -110,10 +127,38 @@ def time_ms(fn, n=TIMED_LAUNCHES, flush=True):
     return median(times)
 
 
-def bound_ms(bytes_moved, flops):
+def bound_ms(bytes_moved, flops, peak_flops=FP32_FLOPS):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_usage(logs):
+    """``{library: {kernel<type,ints>: {"registers", "spill_bytes"}}}``
+    from nvcc's ``-Xptxas -v`` output."""
+    import re
+    out = {}
+    for lib, log in logs.items():
+        cur, kernels = None, {}
+        for line in log.splitlines():
+            m = re.search(r"entry function '_Z(\d+)(\w+)'", line)
+            if m:
+                n, rest = int(m.group(1)), m.group(2)
+                args = (["bf16"] if rest[n:].startswith("I13__nv_bfloat16")
+                        else ["f32"] if rest[n:].startswith("If") else [])
+                args += re.findall(r"Li(\d+)E", rest[n:])
+                cur = f"{rest[:n]}<{','.join(args)}>"
+                kernels[cur] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and cur:
+                kernels[cur]["spill_bytes"] = int(m.group(1)) + \
+                    int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                kernels[cur]["registers"] = int(m.group(1))
+        out[lib] = kernels
+    return out
 
 
 # ----------------------------------------------------------- kernel checks
@@ -291,6 +336,168 @@ def kernel_checks():
                   "version exactly; its error is ||g||^2's (rtol 1e-5). "
                   "dequant: equal to the plain version bit for bit",
           "value_order_kb_ceiling": ks.max_value_order_kb()})
+    return errs
+
+
+# ------------------------------------------------------- LM kernel checks
+
+#: flash kernel vs plain version in fp32, rtol = atol: the JAX package's
+#: own kernel-test tolerance (tests/test_kernels.py)
+FLASH_TOL_FP32 = 2e-4
+#: in bf16 the kernel is held against the fp32 plain version of the same
+#: bf16 inputs, element by element: within one bf16 ulp of the output
+#: (rtol 2^-7; rounding to bf16 alone costs up to half of one) plus an
+#: absolute 1e-5 for fp32 reassociation where an output is near zero. An
+#: absolute bf16 bound such as the JAX test's 2e-2 would be as large as
+#: the outputs at T = 4096 (about sqrt(e / T) = 0.026)
+FLASH_RTOL_BF16, FLASH_ATOL_BF16 = 2.0 ** -7, 1e-5
+#: the scan kernel against its plain chunked version: the same fp32
+#: arithmetic in another order of dot products (the running log decay in
+#: the same order); against the per-step recurrence the JAX kernel test's
+#: 1e-3, with a decay that never reaches the clamp
+SCAN_TOL_CHUNKED = 1e-4
+SCAN_TOL_STEPWISE = 1e-3
+
+
+def check_flash(gen, B, Tq, Tk, Hq, Hkv, hd, dtype, causal, window,
+                q_offset=0):
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v = (torch.randn(shape, generator=gen).to(dtype).cuda()
+               for shape in ((B, Tq, Hq, hd), (B, Tk, Hkv, hd),
+                             (B, Tk, Hkv, hd)))
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    # the plain version in fp32 on the same (bf16-valued) inputs
+    want = ref.flash_attention_gqa_ref(q.float(), k.float(), v.float(),
+                                       causal=causal, window=window,
+                                       q_offset=q_offset)
+    torch.cuda.synchronize()
+    what = (f"flash B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} hd={hd} {dtype} "
+            f"causal={causal} window={window} q_offset={q_offset}")
+    if got.shape != want.shape or got.dtype != dtype or \
+            not torch.isfinite(got).all():
+        fail(f"{what}: output {tuple(got.shape)} {got.dtype} not finite")
+    rtol, atol = ((FLASH_TOL_FP32, FLASH_TOL_FP32) if dtype == torch.float32
+                  else (FLASH_RTOL_BF16, FLASH_ATOL_BF16))
+    err = float((got.float() - want).abs().max())
+    if not torch.allclose(got.float(), want, rtol=rtol, atol=atol):
+        fail(f"{what}: error {err:.3g} beyond rtol {rtol:.3g}, atol {atol}")
+    return err
+
+
+def scan_inputs(gen, B, T, H, hd, state, decay):
+    """r, k, v, logw, u, state0 on the card. ``decay``: "model" draws the
+    log decay around the LM's initial -1 per step (-exp(N(0, 0.04^2))),
+    which reaches the chunked form's clamp (|cum| > 60) in the last steps
+    of a 64-step chunk; "mild" is the JAX kernel test's -0.7 sigmoid(N),
+    which never does. ``state``: "zeros" or "random"."""
+    import torch
+    r, k, v = (torch.randn((B, T, H, hd), generator=gen) * 0.5
+               for _ in range(3))
+    z = torch.randn((B, T, H, hd), generator=gen)
+    logw = (-torch.exp(0.04 * z) if decay == "model"
+            else -0.7 * torch.sigmoid(z))
+    u = torch.randn((H, hd), generator=gen) * 0.5
+    s0 = (torch.zeros((B, H, hd, hd)) if state == "zeros"
+          else torch.randn((B, H, hd, hd), generator=gen) * 0.5)
+    return [t.cuda() for t in (r, k, v, logw, u, s0)]
+
+
+def check_scan(gen, B, T, H, hd, state, decay):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    r, k, v, logw, u, s0 = scan_inputs(gen, B, T, H, hd, state, decay)
+    out, st = rs.rwkv6_scan(r, k, v, logw, u, s0)
+    ro, rst = ref.rwkv6_chunked_ref(r, k, v, logw, u, s0, min(rs.CHUNK, T))
+    torch.cuda.synchronize()
+    what = f"scan B={B} T={T} H={H} hd={hd} state={state} decay={decay}"
+    if not (torch.isfinite(out).all() and torch.isfinite(st).all()):
+        fail(f"{what}: non-finite output or state")
+    err = max(float((out - ro).abs().max()), float((st - rst).abs().max()))
+    tol = SCAN_TOL_CHUNKED
+    if not (torch.allclose(out, ro, rtol=tol, atol=tol)
+            and torch.allclose(st, rst, rtol=tol, atol=tol)):
+        fail(f"{what}: error {err:.3g} vs the chunked plain version beyond "
+             f"rtol = atol = {tol}")
+    err_step = None
+    if T <= 256 and state == "zeros" and decay == "mild":
+        flat = lambda a: a.permute(0, 2, 1, 3).reshape(B * H, T, hd)
+        want = ref.rwkv6_scan_ref(flat(r), flat(k), flat(v), flat(logw),
+                                  u.repeat(B, 1))
+        want = want.reshape(B, H, T, hd).permute(0, 2, 1, 3)
+        err_step = float((out - want).abs().max())
+        tol = SCAN_TOL_STEPWISE
+        if not torch.allclose(out, want, rtol=tol, atol=tol):
+            fail(f"{what}: error {err_step:.3g} vs the per-step recurrence "
+                 f"beyond rtol = atol = {tol}")
+    return err, err_step
+
+
+def lm_kernel_checks():
+    """Both LM kernels against their plain versions on the card, at the
+    full-width models' shapes (qwen3: Hq 16, Hkv 8, hd 128; rwkv6: H 40,
+    hd 64) and at edge shapes. Returns the largest errors."""
+    import torch
+    gen = torch.Generator().manual_seed(3)
+    errs = {"flash_attention": 0.0, "rwkv6_scan": 0.0,
+            "rwkv6_scan_vs_per_step": 0.0}
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        flash = [(2, T, T, 16, 8, 128, dtype, True, w)
+                 for T in (1, 100, 4096) for w in (None, 1000)]
+        flash += [(2, 100, 100, 16, 8, 128, dtype, False, None),
+                  (2, 64, 4096, 16, 8, 128, dtype, False, None),
+                  (2, 100, 300, 16, 8, 128, dtype, True, None),
+                  (2, 100, 300, 16, 8, 128, dtype, True, 1000),
+                  (2, 300, 100, 16, 8, 128, dtype, True, None),
+                  (2, 32, 64, 4, 2, 32, dtype, True, 50),
+                  (2, 100, 100, 4, 4, 64, dtype, True, 50)]
+        for case in flash:
+            errs["flash_attention"] = max(errs["flash_attention"],
+                                          check_flash(gen, *case))
+            cases += 1
+        # a query block continuing a cache: absolute positions 200..299
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            gen, 2, 100, 300, 16, 8, 128, dtype, True, 150, q_offset=200))
+        cases += 1
+    # the call lm_prefill_qwen3 makes: B=4, T=4096, bf16, causal
+    errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+        gen, 4, 4096, 4096, 16, 8, 128, torch.bfloat16, True, None))
+    cases += 1
+    for T in (1, 37, 64, 100, 4096):
+        for state in ("zeros", "random"):
+            for decay in ("model", "mild"):
+                e, es = check_scan(gen, 2, T, 40, 64, state, decay)
+                errs["rwkv6_scan"] = max(errs["rwkv6_scan"], e)
+                if es is not None:
+                    errs["rwkv6_scan_vs_per_step"] = max(
+                        errs["rwkv6_scan_vs_per_step"], es)
+                cases += 1
+    for T in (37, 128):
+        e, es = check_scan(gen, 2, T, 4, 32, "zeros", "mild")
+        errs["rwkv6_scan"] = max(errs["rwkv6_scan"], e)
+        errs["rwkv6_scan_vs_per_step"] = max(errs["rwkv6_scan_vs_per_step"],
+                                             es)
+        cases += 1
+    # the calls lm_prefill_rwkv6 (B=4, T=4096, zero state) and lm_serve_rwkv6
+    # (B=8, T=1, a carried state) make
+    for B, T, state in ((4, 4096, "zeros"), (8, 1, "random")):
+        e, _ = check_scan(gen, B, T, 40, 64, state, "model")
+        errs["rwkv6_scan"] = max(errs["rwkv6_scan"], e)
+        cases += 1
+    emit({"phase": "lm_kernel_checks", "cases": cases, "max_abs_err": errs,
+          "tolerances": {
+              "flash_attention": f"vs flash_attention_gqa_ref in fp32 on "
+                                 f"the same inputs: rtol = atol = "
+                                 f"{FLASH_TOL_FP32} (fp32); rtol 2^-7 (one "
+                                 f"bf16 ulp), atol {FLASH_ATOL_BF16} (bf16)",
+              "rwkv6_scan": f"rtol = atol = {SCAN_TOL_CHUNKED} (output "
+                            f"and final state) vs rwkv6_chunked_ref; "
+                            f"{SCAN_TOL_STEPWISE} vs rwkv6_scan_ref (T <= "
+                            f"256, zero state, mild decay)"}})
     return errs
 
 
@@ -600,6 +807,429 @@ def dequant_entry(gen, errs, totals):
                         "phantom gate)"}
 
 
+# ------------------------------------------------------------ LM serving
+
+#: bf16 model comparisons (kernel path against plain path, decode against
+#: forward): max |a - b| over max |b|, at most the JAX serve test's rtol.
+#: Both sides round activations to bf16 in every layer, where one ulp is
+#: 2^-8 relative; the decode path also rounds the softmax weights to bf16
+BF16_MODEL_TOL = 5e-2
+#: card against CPU at depth 2 in fp32, TF32 off: matmul and attention
+#: sums in other orders
+CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-3, 1e-4
+LM_KERNEL = {"qwen3-1.7b": "flash_attention", "rwkv6-3b": "rwkv6_scan"}
+#: prompt steps over which rwkv6's decode state and logits are held against
+#: prefill: at the model's initial decay of e^-1 per step the reference's
+#: chunked form reaches its exp(-cum) clamp from step 60 of a 64-step
+#: chunk and is inexact there (ROADMAP §3); below it the two forms are the
+#: same recurrence
+RWKV6_EXACT_PREFIX = 48
+
+
+def norm_err(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@contextlib.contextmanager
+def plain_lm_kernels():
+    """Route the LM's two kernel calls (``kernels.ops.flash_attention``
+    and ``ops.rwkv6_scan``, looked up at call time by the models) to their
+    plain versions on the card, for a comparison run only."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    saved = ops.flash_attention, ops.rwkv6_scan
+
+    def flash(q, k, v, *, causal=True, window=None, q_offset=0):
+        return ref.flash_attention_gqa_ref(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset)
+
+    def scan(r, k, v, logw, u, state0=None, *, chunk=64):
+        if state0 is None:
+            B, _, H, hd = r.shape
+            state0 = torch.zeros((B, H, hd, hd), device=r.device)
+        return ref.rwkv6_chunked_ref(r, k, v, logw, u, state0,
+                                     min(chunk, r.shape[1]))
+    ops.flash_attention, ops.rwkv6_scan = flash, scan
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.rwkv6_scan = saved
+
+
+def lm_model(arch):
+    """The full-width model, bf16 weights drawn on the card from seed 0."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    cfg = get_config(arch)
+    params, _ = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    return cfg, params
+
+
+def profile_device(fn):
+    """Wall ms, device busy ms, idle share and top kernels of one call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, n, busy = device_events(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"wall_ms": wall_ms, "device_kernels": n,
+            "device_busy_ms": busy if n else "not measured",
+            "device_idle_share": (1 - busy / wall_ms) if n
+            else "not measured",
+            "top_kernels": [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
+                            for k, v in top]}
+
+
+def teacher_forced(params, cfg, tokens):
+    """The prefill layer by layer: each block runs on the same input
+    through the kernels and through their plain versions, and the next
+    layer takes the kernel path's output. Returns the largest error of a
+    block's update (its output minus its input) over the plain update's
+    max, and the last-position logits of the two paths' last layer."""
+    import torch
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import (_apply_block_train, _head,
+                                                layer_params)
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    pos = torch.arange(T, device=x.device)[None].expand(B, T)
+    worst = 0.0
+    for kind, p in layer_params(params, cfg):
+        y, _ = _apply_block_train(p, x, cfg, kind, pos)
+        with plain_lm_kernels():
+            y_plain, _ = _apply_block_train(p, x, cfg, kind, pos)
+        worst = max(worst, norm_err(y.float() - x.float(),
+                                    y_plain.float() - x.float()))
+        x = y
+    head = _head(params, cfg)
+    last = [rms_norm(h[:, -1], params["final_norm"], cfg.norm_eps) @ head
+            for h in (y, y_plain)]
+    return worst, norm_err(*last)
+
+
+def lm_prefill(arch, cfg, params, totals, B=4, T=4096, reps=3):
+    """``make_prefill_step`` at full width: one launch of the arch's
+    kernel per layer, ms per prefill, and the kernel path held against
+    the plain kernels' run."""
+    import torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.train.trainer import make_prefill_step
+    kernel = LM_KERNEL[arch]
+    tokens = torch.randint(0, cfg.vocab_size, (B, T),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    batch = {"tokens": tokens}
+    step = make_prefill_step(cfg)
+    with torch.no_grad():
+        step(params, batch)                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        launches = _build.LAUNCHES[kernel]
+        if launches != cfg.n_layers:
+            fail(f"lm_prefill {arch}: {launches} {kernel} launches, want "
+                 f"one per layer ({cfg.n_layers})")
+        totals[kernel] += launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            step(params, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prof = profile_device(lambda: step(params, batch))
+        layer_err, last_err = teacher_forced(params, cfg, tokens)
+        # free running: the whole prefill through the plain versions; for
+        # the scan (fp32 output) also the plain prefill with every scan
+        # output moved by one part in 1e6: the model's own sensitivity
+        floor = None
+        with plain_lm_kernels():
+            plain = step(params, batch)
+            if kernel == "rwkv6_scan":
+                scan = ops.rwkv6_scan
+
+                def nudged(*a, **kw):
+                    out, st = scan(*a, **kw)
+                    return out * (1 + 1e-6 * torch.randn_like(out)), st
+                ops.rwkv6_scan = nudged
+                floor = norm_err(step(params, batch), plain)
+        torch.cuda.synchronize()
+    if logits.shape != (B, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail(f"lm_prefill {arch}: logits {tuple(logits.shape)} not finite")
+    if max(layer_err, last_err) > BF16_MODEL_TOL:
+        fail(f"lm_prefill {arch}: a block's update off the plain kernels' "
+             f"by {layer_err:.3g} of its max, last-position logits by "
+             f"{last_err:.3g} (tolerance {BF16_MODEL_TOL})")
+    free = norm_err(logits, plain)
+    # end to end too where the model is not chaotic in bf16: qwen3 (the
+    # scan's nudge floor shows that rwkv6 is)
+    if floor is None and free > BF16_MODEL_TOL:
+        fail(f"lm_prefill {arch}: last-position logits off the plain "
+             f"kernels' run by {free:.3g} (tolerance {BF16_MODEL_TOL})")
+    ms = median(times)
+    rec = {"phase": f"lm_prefill_{arch.split('-')[0]}", "arch": arch,
+           "params": sum(int(v.numel()) for v in params.values()),
+           "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": B,
+           "seq_len": T, "launches": {kernel: launches},
+           "ms_per_prefill": ms, "ms_runs": times,
+           "tokens_per_s": B * T / ms * 1e3, "peak_mem_gb": peak_gb,
+           "layer_update_err_vs_plain": layer_err,
+           "last_logits_err_vs_plain": last_err,
+           "tolerance": f"max|a-b|/max|b| <= {BF16_MODEL_TOL}, every "
+                        f"layer on the same input (teacher forced); end "
+                        f"to end too for qwen3",
+           "free_running_err_vs_plain": free,
+           "free_running_floor_1e-6_nudge": floor,
+           "argmax_agree_vs_plain": float(
+               (logits.argmax(-1) == plain.argmax(-1)).float().mean()),
+           "profile": prof}
+    emit(rec)
+    return rec
+
+
+def rwkv6_teacher_forced_decode(params, cfg, tokens):
+    """Decode against the chunked forward layer by layer: each block takes
+    the forward's input sequence once whole (chunked, through
+    ``_apply_block_train``, with ``apply_rwkv6``'s carry) and once a token
+    at a time through ``_decode_block`` from a zero cache. Returns the
+    largest errors of the block's update, of the carried state and of the
+    last token, each over the chunked side's max."""
+    import torch
+    from repro_torch.models import rwkv6 as rwkv6_lib
+    from repro_torch.models.common import rms_norm, subtree
+    from repro_torch.models.transformer import (_apply_block_train,
+                                                layer_params)
+    from repro_torch.serve.decode import _block_cache, _decode_block
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    pos = torch.arange(T, device=x.device)[None].expand(B, T)
+    upd = s_err = l_err = 0.0
+    for kind, p in layer_params(params, cfg):
+        y, _ = _apply_block_train(p, x, cfg, kind, pos)
+        _, (s_ref, last_ref) = rwkv6_lib.apply_rwkv6(
+            subtree(p, "tmix"), rms_norm(x, p["norm1"], cfg.norm_eps), cfg)
+        cache, _ = _block_cache(cfg, kind, B, T, x.device)
+        ys = []
+        for t in range(T):
+            yt, cache = _decode_block(p, x[:, t:t + 1], cfg, kind, cache, t)
+            ys.append(yt)
+        yd = torch.cat(ys, dim=1)
+        upd = max(upd, norm_err(yd.float() - x.float(),
+                                y.float() - x.float()))
+        s_err = max(s_err, norm_err(cache["s"], s_ref))
+        l_err = max(l_err, norm_err(cache["last"], last_ref))
+        x = y
+    return upd, s_err, l_err
+
+
+def lm_serve(arch, cfg, params, totals, B=8, P=128, G=32, L=4096):
+    """The greedy driver ``generate``: ms per decode step and tokens/s;
+    then decode held against forward over the prompt (for rwkv6 layer by
+    layer, with the carried state against the chunked forward's)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve.decode import init_decode_state, serve_step
+    kernel = LM_KERNEL[arch]
+    per_step = cfg.n_layers if kernel == "rwkv6_scan" else 0
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                              size=(B, P)).astype(np.int32)
+    generate(params, cfg, prompt[:, :2], 2, 64)            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = generate(params, cfg, prompt, G, L)
+    launches = _build.LAUNCHES[kernel]
+    if launches != per_step * (P + G):
+        fail(f"lm_serve {arch}: {launches} {kernel} launches over "
+             f"{P + G} decode steps, want {per_step} per step")
+    totals[kernel] += launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if res.tokens.shape != (B, G) or not torch.isfinite(res.logits).all() \
+            or int(res.tokens.min()) < 0 \
+            or int(res.tokens.max()) >= cfg.vocab_size:
+        fail(f"lm_serve {arch}: bad tokens {tuple(res.tokens.shape)} or "
+             f"non-finite logits")
+    rwkv6 = kernel == "rwkv6_scan"
+    exact = RWKV6_EXACT_PREFIX if rwkv6 else P
+    state, _ = init_decode_state(cfg, B, L)
+    toks = torch.from_numpy(prompt).cuda()
+    dec = []
+    with torch.no_grad():
+        _build.reset_launch_counts()
+        for t in range(P):
+            logits, state = serve_step(params, cfg, state, toks[:, t:t + 1])
+            dec.append(logits)
+        step_launches = _build.LAUNCHES[kernel]
+        fwd, _ = forward(params, cfg, toks[:, :exact])
+        dec = torch.cat(dec, dim=1)
+        prof = profile_device(
+            lambda: serve_step(params, cfg, state, toks[:, :1]))
+        err = norm_err(dec[:, :exact], fwd)
+        rec = {"phase": f"lm_serve_{arch.split('-')[0]}", "arch": arch,
+               "batch": B, "prompt": P, "gen": G, "cache_len": L,
+               "ms_per_decode_step": res.decode_s / G * 1e3,
+               "tokens_per_s": B * G / res.decode_s,
+               "ms_per_prompt_step": res.prefill_s / P * 1e3,
+               "launches": {kernel: launches},
+               "launches_per_decode_step": step_launches / P,
+               "peak_mem_gb": peak_gb,
+               "decode_vs_forward_positions": exact,
+               "decode_vs_forward_err": err,
+               "tolerance": f"max|a-b|/max|b| <= {BF16_MODEL_TOL}",
+               "first_tokens": res.tokens[0, :8].tolist(),
+               "profile_decode_step": prof}
+        if rwkv6:
+            # free running, 32 random-init bf16 layers amplify rounding
+            # past any bf16 tolerance (lm_prefill_rwkv6's nudge floor), so
+            # the logits are recorded and each layer is held on its own
+            upd, s_err, l_err = rwkv6_teacher_forced_decode(
+                params, cfg, toks[:, :exact])
+            rec.update(decode_vs_forward_held="per layer (teacher forced)",
+                       layer_update_err=upd, state_vs_prefill_err=s_err,
+                       last_vs_prefill_err=l_err)
+            # past the exact prefix: the reference's clamp, measured
+            fwd_all, _ = forward(params, cfg, toks)
+            rec["decode_vs_forward_err_all_positions"] = norm_err(dec, fwd_all)
+            err = max(upd, s_err, l_err)
+        if step_launches != per_step * P:
+            fail(f"lm_serve {arch}: {step_launches} {kernel} launches over "
+                 f"{P} steps, want {per_step} per step")
+    if err > BF16_MODEL_TOL:
+        fail(f"lm_serve {arch}: decode off forward by {err:.3g} "
+             f"(tolerance {BF16_MODEL_TOL})")
+    emit(rec)
+    return rec
+
+
+def lm_card_vs_cpu(T=256):
+    """Full width at depth 2 in fp32: the card's logits (through the
+    kernels) against the port's CPU run (the plain versions)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import forward, init_lm
+    out = {}
+    for arch, kernel in LM_KERNEL.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  dtype="float32")
+        cpu, _ = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+        card = {k: v.cuda() for k, v in cpu.items()}
+        toks = torch.from_numpy(np.random.RandomState(2).randint(
+            0, cfg.vocab_size, (1, T)))
+        with torch.no_grad():
+            _build.reset_launch_counts()
+            got, _ = forward(card, cfg, toks.cuda())
+            torch.cuda.synchronize()
+            launches = _build.LAUNCHES[kernel]
+            want, _ = forward(cpu, cfg, toks)
+        if launches != cfg.n_layers:
+            fail(f"lm_card_vs_cpu {arch}: {launches} {kernel} launches")
+        got = got.cpu()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=CARD_CPU_RTOL,
+                              atol=CARD_CPU_ATOL):
+            fail(f"lm_card_vs_cpu {arch}: logits off the CPU run by {err:.3g}"
+                 f" (rtol {CARD_CPU_RTOL}, atol {CARD_CPU_ATOL})")
+        out[arch] = {"max_abs_err": err, "logit_max": float(want.abs().max()),
+                     "launches": {kernel: launches}}
+        del cpu, card
+    emit({"phase": "lm_card_vs_cpu", "layers": 2, "dtype": "float32",
+          "batch": 1, "seq_len": T,
+          "tolerance": f"rtol {CARD_CPU_RTOL}, atol {CARD_CPU_ATOL}",
+          "archs": out})
+    return out
+
+
+def flash_entry(gen, errs, totals, B=4, T=4096):
+    """The flash kernel at qwen3-1.7b's prefill call: B=4, Hq 16, Hkv 8,
+    T 4096, hd 128, bf16, causal."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    Hq, Hkv, hd = 16, 8, 128
+    q = torch.randn((B, T, Hq, hd), generator=gen).bfloat16().cuda()
+    k, v = (torch.randn((B, T, Hkv, hd), generator=gen).bfloat16().cuda()
+            for _ in range(2))
+    # the (q, k) pairs the causal mask keeps: 2 flops each for q.k and
+    # for p.v per head dim
+    flops = 4 * hd * (T * (T + 1) // 2) * B * Hq
+    bnd, by = bound_ms(2 * B * T * hd * (2 * Hq + 2 * Hkv), flops,
+                       BF16_FLOPS)
+    g = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+              for x in (k, v))
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:64",
+        "launches": totals["flash_attention"],
+        "max_abs_err": errs["flash_attention"],
+        "shape": [B, T, Hq, Hkv, hd], "dtype": "bfloat16",
+        "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+        "plain_ms": time_ms(lambda: ref.flash_attention_gqa_ref(q, k, v)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        "library_call": "torch.nn.functional.scaled_dot_product_attention "
+                        "(is_causal; kv heads repeated before timing; "
+                        "bf16 P.V)"}
+
+
+def scan_entry(gen, errs, totals, B=4, T=4096):
+    """The scan kernel at rwkv6-3b's prefill call: B=4, H 40, T 4096,
+    hd 64, fp32, from a zero state; and at its decode call (B=8, T=1)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    H, hd = 40, 64
+    ins = scan_inputs(gen, B, T, H, hd, "zeros", "model")
+    c = rs.CHUNK
+    # per chunk and head: the strictly-lower c x c product, A.v with the
+    # diagonal, r_dec.S, the state update and decay, the diagonal bonus,
+    # and 7 elementwise ops per element (cum, 3 exps, 3 products)
+    per_chunk = (2 * hd * c * (c - 1) // 2 + 2 * hd * c * (c + 1) // 2
+                 + 4 * c * hd * hd + hd * hd + 3 * c * hd + 7 * c * hd)
+    flops = per_chunk * (T // c) * B * H
+    nbytes = 5 * B * T * H * hd * 4 + 2 * B * H * hd * hd * 4 + H * hd * 4
+    bnd, by = bound_ms(nbytes, flops)
+    dec = scan_inputs(gen, 8, 1, H, hd, "random", "model")
+    return {
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:56",
+        "launches": totals["rwkv6_scan"],
+        "max_abs_err": errs["rwkv6_scan"],
+        "shape": [B, T, H, hd], "dtype": "float32",
+        "ms": time_ms(lambda: rs.rwkv6_scan(*ins)),
+        "plain_ms": time_ms(lambda: ref.rwkv6_chunked_ref(*ins, c)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the "
+                        "chunked WKV recurrence",
+        "decode_T1": {"shape": [8, 1, H, hd],
+                      "ms": time_ms(lambda: rs.rwkv6_scan(*dec)),
+                      "plain_ms": time_ms(
+                          lambda: ref.rwkv6_chunked_ref(*dec, 1))}}
+
+
 # ------------------------------------------------------------------- main
 
 def main():
@@ -612,7 +1242,7 @@ def main():
         import repro_torch.fed.experiment  # noqa: F401
     except ImportError as e:
         fail(f"cannot import the port from {ROOT / 'src'}: {e}")
-    from repro_torch.fed.engine import resolve_device
+    from repro_torch.core.device import resolve_device
     from repro_torch.kernels import _build
 
     resolve_device("cuda")
@@ -633,9 +1263,11 @@ def main():
     libs = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in
-                        libs.items()}})
+                        libs.items()},
+          "ptxas": ptxas_usage(_build.BUILD_LOGS)})
 
     errs = kernel_checks()
+    errs.update(lm_kernel_checks())
 
     totals = {k: 0 for k in _build.LAUNCHES}
     topk = {"lbg_variant": "topk", "lbg_kw": {"k_frac": 0.1}}
@@ -673,7 +1305,18 @@ def main():
     profile_round("fcn_topk_int8", fl_spec("fcn", **int8))
     uplink_launches()
 
+    # LM serving: full-width qwen3-1.7b and rwkv6-3b, one model at a time
+    for arch in LM_KERNEL:
+        cfg, params = lm_model(arch)
+        lm_prefill(arch, cfg, params, totals)
+        lm_serve(arch, cfg, params, totals)
+        del params
+        torch.cuda.empty_cache()
+    lm_card_vs_cpu()
+
     kernels = kernel_line(errs, totals)
+    gen = torch.Generator().manual_seed(4)
+    kernels += [flash_entry(gen, errs, totals), scan_entry(gen, errs, totals)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,30 +58,13 @@ from repro_torch.comm.accounting import CommLedger
 from repro_torch.comm.wire import WIRE_KEY, codec_rng, make_codec
 from repro_torch.compression import make_uplink_pipeline
 from repro_torch.core import lbgm as lbgm_lib
+from repro_torch.core.device import resolve_device  # noqa: F401  (re-export)
 from repro_torch.core.tree_math import tree_size
 from repro_torch.fed.flconfig import FLConfig  # noqa: F401  (re-export)
 from repro_torch.fed.registry import (LBG_STORES, SCHEDULERS,
                                       register_aggregator, register_latency,
                                       register_lbg_store, register_scheduler)
 from repro_torch.kernels import ops
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on. ``"cuda"`` (every entry point's
-    default) needs a CUDA card and raises without one; the CPU runs only
-    when asked for by name. On the card TF32 is switched off."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA card by default and none is "
-                "available here; pass device='cpu' to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}; use 'cuda' or "
-                         "'cpu'")
-    return dev
 
 
 def resolve_fused_kernels(cfg: FLConfig) -> bool:

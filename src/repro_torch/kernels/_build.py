@@ -20,12 +20,17 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("lbgm_projection", "lbgm_sparse_decision", "lbgm_dequant_accum")
+SOURCES = ("lbgm_projection", "lbgm_sparse_decision", "lbgm_dequant_accum",
+           "flash_attention", "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: nvcc's output (ptxas registers, shared memory and spills per kernel)
+#: of each library this process built
+BUILD_LOGS: Dict[str, str] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -65,6 +70,7 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(f"nvcc failed for {name}.cu:\n{log}")
+    BUILD_LOGS[name] = log
     os.replace(tmp, out)
 
 
@@ -105,7 +111,8 @@ def load(name: str) -> ctypes.CDLL:
 #: kernel and nowhere else (the CPU path counts nothing)
 LAUNCHES: Dict[str, int] = {"lbgm_projection": 0, "lbgm_sparse_decision": 0,
                             "lbgm_sparse_decision_two_pass": 0,
-                            "lbgm_dequant_accum": 0}
+                            "lbgm_dequant_accum": 0, "flash_attention": 0,
+                            "rwkv6_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -124,7 +131,7 @@ def check_card(*tensors) -> None:
     dev = devs.pop()
     if dev.type != "cuda":
         raise RuntimeError(
-            f"the LBGM kernels take CPU tensors (plain version) or CUDA "
+            f"the port's kernels take CPU tensors (plain version) or CUDA "
             f"tensors (hand-written kernel); got device {dev}")
     if not torch.cuda.is_available():
         raise RuntimeError("a CUDA tensor was given but CUDA is not "
@@ -132,7 +139,7 @@ def check_card(*tensors) -> None:
     cap = torch.cuda.get_device_capability(dev)
     if cap != (9, 0):
         raise RuntimeError(
-            f"the LBGM kernels are built for sm_90a (H100/H200); "
+            f"the port's kernels are built for sm_90a (H100/H200); "
             f"{torch.cuda.get_device_name(dev)} has compute capability "
             f"{cap[0]}.{cap[1]}")
 

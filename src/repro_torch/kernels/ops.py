@@ -1,4 +1,4 @@
-"""Public wrappers of the LBGM kernels, as the engine calls them.
+"""Public wrappers of the port's kernels, as the engine and the LM call them.
 
 Counterpart of ``repro.kernels.ops``. The JAX package routes ``jax.vmap``
 over clients onto its batched kernels with ``custom_vmap`` rules; the port
@@ -16,11 +16,15 @@ from typing import Dict
 
 import torch
 
+# the LM kernels take the JAX ops layout ((B, T, H, hd)) as they are: the
+# wrappers themselves are the public entry points
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.lbgm_projection import lbgm_projection_batched
 # lbgm_dequant_accum takes the chunk's (C, nb, kb) payloads as they are:
 # the wrapper itself is the public entry point (one call per leaf per chunk)
 from repro_torch.kernels.lbgm_sparse import (  # noqa: F401
     lbgm_dequant_accum, lbgm_sparse_decision_batched)
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: F401
 
 #: "1" routes lbgm_sparse_decision through the index-order (two-pass) form
 #: of the decision kernel — the same knob as the JAX package's

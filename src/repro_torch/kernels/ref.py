@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the LBGM kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Counterparts of ``repro.kernels.ref``: the CPU path of every kernel
-wrapper, the engine's arithmetic when its device is the CPU, and what
-``chip_smoke.py`` holds each CUDA kernel against on the card. Every
-function takes an optional leading batch (client) axis.
+wrapper, the engine's and the LM's arithmetic when their device is the
+CPU, and what ``chip_smoke.py`` holds each CUDA kernel against on the
+card. Every LBGM function takes an optional leading batch (client) axis.
 """
 from __future__ import annotations
 
@@ -82,3 +82,133 @@ def lbgm_sparse_decision_two_pass_ref(blocks: torch.Tensor,
     gg, gathered, ti, tv = lbgm_sparse_decision_ref(blocks, idx)
     ti, tv = sort_topk_rows(ti, tv)
     return gg, gathered, ti, tv
+
+
+# ------------------------------------------------------- LM serving kernels
+
+NEG_INF = -1e30
+#: the chunked WKV's overflow clamp on exp(-cum) (``models/rwkv6.py``)
+EXP_CLAMP = 60.0
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0):
+    """Naive softmax attention. q:(BH,Tq,hd), k/v:(BH,Tk,hd).
+
+    fp32 scores scaled by 1/sqrt(hd), masked entries set to -1e30 (causal:
+    ``qpos >= kpos``; window: ``qpos - kpos < window``; ``qpos`` counts
+    from ``q_offset``), softmax and P.V in fp32, output cast to q's dtype.
+    """
+    Tq, Tk = q.shape[1], k.shape[1]
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    qpos = torch.arange(Tq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_gqa_ref(q, k, v, *, causal=True, window=None,
+                            q_offset=0):
+    """:func:`flash_attention_ref` in the ops layout: q (B,Tq,Hq,hd), k/v
+    (B,Tk,Hkv,hd), each kv head repeated for its Hq / Hkv query heads (as
+    ``repro.kernels.ops.flash_attention`` does) -> (B,Tq,Hq,hd)."""
+    B, Tq, Hq, hd = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qf = q.transpose(1, 2).reshape(B * Hq, Tq, hd)
+    kf = k.transpose(1, 2).repeat_interleave(g, dim=1).reshape(B * Hq, Tk, hd)
+    vf = v.transpose(1, 2).repeat_interleave(g, dim=1).reshape(B * Hq, Tk, hd)
+    o = flash_attention_ref(qf, kf, vf, causal=causal, window=window,
+                            q_offset=q_offset)
+    return o.reshape(B, Hq, Tq, hd).transpose(1, 2)
+
+
+def rwkv6_scan_ref(r, k, v, logw, u):
+    """Per-timestep recurrence — the ground-truth RWKV6 semantics.
+    r,k,v,logw: (BH, T, hd); u: (BH, hd). Returns fp32 (BH, T, hd).
+
+        out_t = r_t (S_{t-1} + u * k_t v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    """
+    r, k, v, lw = (a.float() for a in (r, k, v, logw))
+    u = u.float()
+    BH, T, hd = r.shape
+    S = torch.zeros((BH, hd, hd), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(T):
+        kv = torch.einsum("bd,be->bde", k[:, t], v[:, t])
+        outs.append(torch.einsum("bd,bde->be", r[:, t], S + u[..., None] * kv))
+        S = torch.exp(lw[:, t])[..., None] * S + kv
+    return torch.stack(outs, dim=1)
+
+
+#: block length of XLA's running sum on the CPU (see :func:`chunk_cumsum`)
+CUMSUM_BLOCK = 16
+
+
+def chunk_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """fp32 running sum along ``dim`` (at most 256 long), associated as
+    XLA's CPU ``cumsum`` associates it: sequential sums inside blocks of
+    16 steps, plus the sequential sum of the earlier blocks' totals.
+
+    The chunked WKV feeds the running log decay (|cum| up to ~60 and more)
+    to exponentials whose ratios cancel, so one ulp of the sum moves the
+    output by ~1e-5 relative; summing in the reference's order keeps the
+    port within fp32 rounding of the JAX package. ``torch.cumsum`` on the
+    CPU accumulates in double, and the CUDA kernel sums in this order too.
+    """
+    x = x.movedim(dim, -1)
+    outs, pre = [], None
+    for b0 in range(0, x.shape[-1], CUMSUM_BLOCK):
+        acc, blk = None, []
+        for t in range(b0, min(b0 + CUMSUM_BLOCK, x.shape[-1])):
+            acc = x[..., t] if acc is None else acc + x[..., t]
+            blk.append(acc)
+        blk = torch.stack(blk, dim=-1)
+        outs.append(blk if pre is None else blk + pre[..., None])
+        pre = acc if pre is None else pre + acc
+    return torch.cat(outs, dim=-1).movedim(-1, dim)
+
+
+def rwkv6_chunked_ref(r, k, v, logw, u, state0, chunk):
+    """The chunked WKV recurrence of ``models.rwkv6.chunked_wkv``, with a
+    state in and the final state out: the plain version of the port's
+    scan kernel (chunk length at most 64).
+
+    r, k, v, logw: (B, T, H, hd); u: (H, hd); state0: (B, H, hd, hd), the
+    key axis first. Chunks of ``chunk`` steps (the last one may be
+    shorter). Per chunk, with ``cum`` the running sum of logw:
+    ``out = (tril_{-1}((r e^{cum-lw}) (k e^{min(-cum, 60)})^T) + diag(r.u.k)) v
+    + (r e^{cum-lw}) S`` and ``S <- S * e^{total}[key axis] +
+    (k e^{total-cum})^T v``. Returns (out fp32 (B, T, H, hd), state fp32).
+    """
+    B, T, H, hd = r.shape
+    f = lambda a: a.float().permute(0, 2, 1, 3)               # (B,H,T,hd)
+    r, k, v, lw = f(r), f(k), f(v), f(logw)
+    u = u.float()
+    S = state0.float().clone()
+    outs = []
+    for t0 in range(0, T, chunk):
+        rc, kc, vc, lwc = (a[:, :, t0:t0 + chunk] for a in (r, k, v, lw))
+        c = rc.shape[2]
+        tri = torch.tril(torch.ones((c, c), device=r.device), -1)
+        eye = torch.eye(c, device=r.device)
+        cum = chunk_cumsum(lwc, dim=2)
+        cum_in = cum - lwc
+        r_dec = rc * torch.exp(cum_in)
+        k_dec = kc * torch.exp(torch.clamp(-cum, max=EXP_CLAMP))
+        A = torch.einsum("bhid,bhjd->bhij", r_dec, k_dec) * tri
+        A = A + torch.einsum("bhid,bhjd->bhij", rc * u[:, None, :], kc) * eye
+        out = torch.einsum("bhij,bhjd->bhid", A, vc)
+        out = out + torch.einsum("bhid,bhde->bhie", r_dec, S)
+        total = cum[:, :, -1:, :]
+        S = S * torch.exp(total).transpose(2, 3) + torch.einsum(
+            "bhjd,bhje->bhde", kc * torch.exp(total - cum), vc)
+        outs.append(out)
+    out = torch.cat(outs, dim=2).permute(0, 2, 1, 3)
+    return out, S

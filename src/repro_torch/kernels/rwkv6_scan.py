@@ -1,0 +1,77 @@
+"""RWKV6 chunked WKV recurrence with a state in and a state out.
+
+Counterpart of ``repro.kernels.rwkv6_scan`` under the contract of the
+model's ``chunked_wkv`` (``repro.models.rwkv6``): the Pallas kernel starts
+from a zero state and drops the final one; serving needs both, since each
+decode step carries the state to the next. On CUDA tensors
+:func:`rwkv6_scan` launches the hand-written kernel in
+``csrc/rwkv6_scan.cu``; on CPU tensors it returns the plain version
+(:func:`repro_torch.kernels.ref.rwkv6_chunked_ref`).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+CHUNK = 64
+HEAD_DIMS = (32, 64)
+
+
+def _lib():
+    lib = _build.load("rwkv6_scan")
+    f = lib.rwkv6_scan_launch
+    if not f.argtypes:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+        f.restype = ctypes.c_int
+    return lib
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor, state0=None, *,
+               chunk: int = CHUNK):
+    """r, k, v, logw: (B, T, H, hd); u: (H, hd); state0: (B, H, hd, hd)
+    fp32 (key axis first; None: zeros). Chunks of ``min(chunk, T)`` steps,
+    the last one possibly shorter. Returns ``(out fp32 (B, T, H, hd),
+    final state fp32 (B, H, hd, hd))``."""
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
+        raise ValueError(f"want r, k, v, logw of one (B, T, H, hd) shape, "
+                         f"got {[tuple(t.shape) for t in (r, k, v, logw)]}")
+    B, T, H, hd = r.shape
+    if tuple(u.shape) != (H, hd):
+        raise ValueError(f"want u of shape {(H, hd)}, got {tuple(u.shape)}")
+    if state0 is not None and tuple(state0.shape) != (B, H, hd, hd):
+        raise ValueError(f"want state0 of shape {(B, H, hd, hd)}, got "
+                         f"{tuple(state0.shape)}")
+    if not 1 <= chunk <= CHUNK:
+        raise ValueError(f"chunk={chunk} must lie in [1, {CHUNK}]")
+    c = min(chunk, T)
+    if state0 is None:
+        state0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                             device=r.device)
+    ins = (r, k, v, logw, u, state0)
+    if all(t.device.type == "cpu" for t in ins):
+        return ref.rwkv6_chunked_ref(r, k, v, logw, u, state0, c)
+    _build.check_card(*ins)
+    if any(t.dtype != torch.float32 for t in ins):
+        raise TypeError(f"rwkv6_scan takes fp32 inputs, got "
+                        f"{[t.dtype for t in ins]}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ins):
+        raise ValueError("rwkv6_scan takes contiguous, 16-byte aligned "
+                         "inputs")
+    if min(B, T, H) == 0:
+        raise ValueError(f"empty input of shape {tuple(r.shape)}")
+    out = torch.empty_like(r)
+    state = torch.empty_like(state0)
+    with torch.cuda.device(r.device):
+        rc = _lib().rwkv6_scan_launch(
+            *(t.data_ptr() for t in ins), out.data_ptr(), state.data_ptr(),
+            B, T, H, hd, c, _build.stream_ptr(r.device))
+    _build.check_rc("rwkv6_scan", rc)
+    _build.LAUNCHES["rwkv6_scan"] += 1
+    return out, state

@@ -21,14 +21,18 @@ class ParamStore:
     """Collects params + logical axes during model init.
 
     Every draw comes from the explicit ``torch.Generator`` it is given, on
-    the CPU, so the same seed gives the same weights whatever device the
-    params are moved to afterwards. The draws are torch's, not
-    ``jax.random``'s: to run both packages from identical weights, carry
-    the JAX package's params across with :func:`params_from_numpy`.
+    that generator's device: a CPU generator gives the same weights
+    whatever device the params are moved to afterwards, and a CUDA one
+    draws a full-size model on the card without a pass through host
+    memory (other numbers than a CPU generator of the same seed). The
+    draws are torch's, not ``jax.random``'s: to run both packages from
+    identical weights, carry the JAX package's params across with
+    :func:`params_from_numpy`.
     """
 
     def __init__(self, gen: torch.Generator, dtype=torch.float32):
         self._gen = gen
+        self._device = gen.device
         self.dtype = dtype
         self.params: Params = {}
         self.axes: Axes = {}
@@ -44,15 +48,16 @@ class ParamStore:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             s = scale if scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
             arr = torch.randn(shape, generator=self._gen,
-                              dtype=torch.float32) * s
+                              dtype=torch.float32, device=self._device) * s
         elif init == "zeros":
-            arr = torch.zeros(shape, dtype=torch.float32)
+            arr = torch.zeros(shape, dtype=torch.float32, device=self._device)
         elif init == "ones":
-            arr = torch.ones(shape, dtype=torch.float32)
+            arr = torch.ones(shape, dtype=torch.float32, device=self._device)
         elif init == "uniform":
+            # U(-s, s), as jax.random.uniform(minval=-s, maxval=s)
             s = scale if scale is not None else 1.0
-            arr = (torch.rand(shape, generator=self._gen,
-                              dtype=torch.float32) * 2 - 1) * s
+            arr = (torch.rand(shape, generator=self._gen, dtype=torch.float32,
+                              device=self._device) * 2 - 1) * s
         else:
             raise ValueError(init)
         arr = arr.to(dtype)
@@ -61,9 +66,49 @@ class ParamStore:
         return arr
 
 
+def _from_numpy(v) -> torch.Tensor:
+    arr = np.array(v, copy=True)
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.as_tensor does not take: the
+        # same 16 bits, carried across as int16 and viewed as bf16
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(arr)
+
+
 def params_from_numpy(np_params: Mapping[str, np.ndarray], device) -> Params:
     """The JAX package's flat param dict (as numpy arrays, names and
-    layouts unchanged) as torch tensors on ``device`` — how a test runs
-    both packages from identical initial weights."""
-    return {k: torch.as_tensor(np.array(v, copy=True)).to(device)
-            for k, v in np_params.items()}
+    layouts unchanged; fp32 or bf16) as torch tensors on ``device``, bit
+    for bit — how a test runs both packages from identical weights."""
+    return {k: _from_numpy(v).to(device) for k, v in np_params.items()}
+
+
+def subtree(params: Params, prefix: str) -> Params:
+    """Slice a flat dict to keys under ``prefix/`` (prefix stripped)."""
+    pre = prefix + "/"
+    return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """SwiGLU FFN: down( silu(x@gate) * (x@up) )."""
+    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def group_norm_heads(x: torch.Tensor, gamma: torch.Tensor,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm used by RWKV6 output; x: (..., H, hd)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float()).to(x.dtype)

@@ -6,6 +6,7 @@ rather than fall back to its plain version. The tests marked ``gpu`` need
 the card (they run on the H100 through ``chip_smoke.py``'s build) and skip
 here.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -24,6 +25,13 @@ from repro_torch.kernels.lbgm_projection import \
     lbgm_projection_batched  # noqa: E402
 from repro_torch.kernels.lbgm_sparse import (  # noqa: E402
     lbgm_dequant_accum, lbgm_sparse_decision_batched)
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ArchConfig, MoEConfig  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models.transformer import init_lm  # noqa: E402
+from repro_torch.serve.decode import init_decode_state  # noqa: E402
 
 
 def _spec():
@@ -52,6 +60,43 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.fed.run import main
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--rounds", "1"])
+
+
+def test_lm_entry_points_raise_without_cuda(no_cuda):
+    """The serving slice's entry points default to the card too."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lm(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_decode_state(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--reduced", "--gen", "1", "--prompt-len", "1"])
+    params, _ = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+
+
+#: the JAX package's arch configs the serving slice does not run, and why
+UNPORTED = {"mixtral-8x22b": "moe", "qwen2-vl-2b": "mrope",
+            "whisper-base": "encdec", "recurrentgemma-2b": "rglru"}
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_unported_configs_raise(arch):
+    """The port's ArchConfig refuses, by name, the families that come
+    with later slices: each JAX config, carried across field by field."""
+    from repro.configs import get_config as jget
+    jcfg = jget(arch)
+    kw = {f.name: getattr(jcfg, f.name)
+          for f in dataclasses.fields(ArchConfig)
+          if f.name not in ("moe", "lbgm")}
+    kw["moe"] = MoEConfig(**dataclasses.asdict(jcfg.moe))
+    with pytest.raises(ValueError, match="later slices") as err:
+        ArchConfig(**kw)
+    assert {"moe": "moe.num_experts", "mrope": "mrope", "encdec": "encdec",
+            "rglru": "'rglru'"}[UNPORTED[arch]] in str(err.value)
+    with pytest.raises(ValueError, match="later slices"):
+        dataclasses.replace(get_config("qwen3-1.7b"),
+                            block_pattern=("attn", "rglru"))
 
 
 def test_cpu_runs_when_asked():
@@ -84,6 +129,17 @@ def test_kernel_wrappers_refuse_cuda_without_cuda(no_cuda):
             torch.ones(2, 1, 1, device="meta"))
 
 
+def test_lm_kernel_wrappers_refuse_cuda_without_cuda(no_cuda):
+    """The LM kernels, like the LBGM ones, never fall back for a
+    non-CPU tensor."""
+    q = torch.zeros(1, 4, 2, 32, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rwkv6_scan(q, q, q, q, torch.zeros(2, 32, device="meta"),
+                   torch.zeros(1, 2, 32, 32, device="meta"))
+
+
 def test_engine_sets_no_tf32_on_the_card(monkeypatch):
     """resolve_device('cuda') turns TF32 off for matmuls and cuDNN."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -96,15 +152,17 @@ def test_engine_sets_no_tf32_on_the_card(monkeypatch):
 
 def test_build_is_lazy():
     """Importing the kernel modules built nothing and found no compiler;
-    the build sources are the three .cu files of the main path."""
+    the build sources are the five .cu files of the port's paths."""
     assert not _build._libs
     assert _build.SOURCES == ("lbgm_projection", "lbgm_sparse_decision",
-                              "lbgm_dequant_accum")
+                              "lbgm_dequant_accum", "flash_attention",
+                              "rwkv6_scan")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert json.dumps(sorted(_build.LAUNCHES)) == json.dumps(
-        ["lbgm_dequant_accum", "lbgm_projection", "lbgm_sparse_decision",
-         "lbgm_sparse_decision_two_pass"])
+        ["flash_attention", "lbgm_dequant_accum", "lbgm_projection",
+         "lbgm_sparse_decision", "lbgm_sparse_decision_two_pass",
+         "rwkv6_scan"])
 
 
 @pytest.mark.gpu
@@ -135,3 +193,29 @@ def test_kernels_match_plain_versions_on_the_card():
                 torch.rand(10, 16, 1))
         got = lbgm_dequant_accum(acc.cuda(), *(a.cuda() for a in args))
         assert torch.equal(got.cpu(), lbgm_dequant_accum(acc, *args))
+
+
+@pytest.mark.gpu
+def test_lm_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run chip_smoke.py on the H100)")
+    gen = torch.Generator().manual_seed(0)
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        q = torch.randn(2, 300, 16, 128, generator=gen).to(dtype)
+        k, v = (torch.randn(2, 300, 8, 128, generator=gen).to(dtype)
+                for _ in range(2))
+        for window in (None, 100):
+            got = flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                                  window=window)
+            want = flash_attention(q, k, v, window=window)
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       rtol=tol, atol=tol)
+    r, k, v = (torch.randn(2, 100, 40, 64, generator=gen) * 0.5
+               for _ in range(3))
+    logw = -torch.exp(0.04 * torch.randn(2, 100, 40, 64, generator=gen))
+    u = torch.randn(40, 64, generator=gen) * 0.5
+    s0 = torch.randn(2, 40, 64, 64, generator=gen) * 0.5
+    got = rwkv6_scan(*(a.cuda() for a in (r, k, v, logw, u, s0)))
+    want = rwkv6_scan(r, k, v, logw, u, s0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)

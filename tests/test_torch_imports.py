@@ -36,7 +36,12 @@ def test_scan_covers_the_port():
         "fed/engine.py", "core/lbgm.py", "kernels/ops.py",
         "kernels/lbgm_sparse.py", "comm/wire.py", "compression/__init__.py",
         "compression/topk.py", "compression/signsgd.py",
-        "compression/atomo.py", "compression/error_feedback.py")} \
+        "compression/atomo.py", "compression/error_feedback.py",
+        "configs/qwen3_1_7b.py", "configs/rwkv6_3b.py",
+        "kernels/flash_attention.py", "kernels/rwkv6_scan.py",
+        "models/attention.py", "models/rwkv6.py", "models/transformer.py",
+        "serve/decode.py", "train/trainer.py", "launch/serve.py",
+        "core/device.py")} \
         | {"chip_smoke.py"} <= names
 
 
@@ -53,9 +58,27 @@ def test_importing_the_entry_points_loads_neither_jax_nor_repro():
             "repro_torch.fed.engine, repro_torch.kernels.ops, "
             "repro_torch.comm.wire, repro_torch.compression.atomo, "
             "repro_torch.compression.error_feedback, "
-            "repro_torch.compression.signsgd, repro_torch.compression.topk\n"
+            "repro_torch.compression.signsgd, repro_torch.compression.topk, "
+            "repro_torch.launch.serve, repro_torch.serve.decode, "
+            "repro_torch.train.trainer, repro_torch.models.transformer, "
+            "repro_torch.configs.qwen3_1_7b, repro_torch.configs.rwkv6_3b\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin",
+                              "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_lm_serving_path_does_not_load_the_fl_engine():
+    """The model and serving layers sit below the federated engine: they
+    take the device rule from ``core.device``, not from ``fed.engine``."""
+    code = ("import sys, repro_torch.launch.serve, repro_torch.train.trainer\n"
+            "bad = sorted(m for m in sys.modules if m in "
+            "('repro_torch.fed.engine', 'repro_torch.fed.experiment'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
