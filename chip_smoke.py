@@ -7,7 +7,9 @@ From the root of a checkout. Phases, each printed as one JSON line:
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions and
    the TF32 flags the port sets;
 2. the build of every kernel of the main path from ``src/repro_torch/
-   kernels/csrc`` (one ``nvcc`` per source, all started together);
+   kernels/csrc`` (one ``nvcc`` per source, all started together), with
+   ptxas's registers and spills per kernel and the tensor-core
+   instructions (HGMMA, HMMA) in each library's SASS;
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the main path's shapes and at edge shapes (n = 17 and 200001,
    tie rows, all-zero rows, subnormal rows): index sets and orders must be
@@ -15,7 +17,8 @@ From the root of a checkout. Phases, each printed as one JSON line:
    kernel, int8 and fp8, must equal its plain version bit for bit
    (``torch.equal``), on the card and on the CPU, at every leaf shape of
    the FCN and CNN and with phantom NaN clients, w = 0 clients, every
-   client on the same positions, kb = 1 and a 10-wide block;
+   client on the same positions, kb = 1, a 10-wide block, and indices at
+   the edges of its 4096-float segments and 8192-entry windows;
 4. the main path: ``run_experiment`` for ``paper-fcn`` at the paper's
    cohort (K=100, tau=2, lr=0.05, b=16, label skew with 3 classes per
    client, chunked scheduler) with the dense store, the top-k store and the
@@ -35,7 +38,9 @@ From the root of a checkout. Phases, each printed as one JSON line:
    that took the most device time;
 6. LM serving (``lm_*`` phases), after the flash-attention and RWKV6-scan
    kernels were held against their plain versions (``lm_kernel_checks``,
-   with phase 3): full-width qwen3-1.7b and rwkv6-3b in bf16, weights
+   with phase 3; flash in bf16 on the tensor-core kernel, in fp32 on the
+   CUDA-core kernel, at the edges of its 128-query and 64-key tiles too):
+   full-width qwen3-1.7b and rwkv6-3b in bf16, weights
    drawn on the card from seed 0, one model at a time. ``make_prefill_step``
    at B=4, T=4096 must launch its kernel once per layer, and every block
    must give the plain kernels' output on the same input (qwen3's
@@ -47,12 +52,15 @@ From the root of a checkout. Phases, each printed as one JSON line:
    layer, with its carried state).
    Then both archs at full width, depth 2, fp32: the card's logits
    against the port's CPU run;
-7. one ``kernels`` line: per kernel (six: the dequant-accumulate, flash
+7. ``flash_single_bf16_p``, a finding and not a check: on the main path's
+   flash call, the error that rounding p to bf16 once before P.V would
+   give, beside the kernel's hi/lo split and the kernel itself;
+8. one ``kernels`` line: per kernel (six: the dequant-accumulate, flash
    attention and the RWKV6 scan last), its launches on the main path, its
    median time over 25 launches (CUDA events, L2 flushed before each),
    its plain version's time, one PyTorch call's time as a yardstick where
    there is one, and the least time the card could take for the same
-   work.
+   work (flash also its achieved TFLOP/s).
 
 It exits non-zero, with no result line, when there is no CUDA card, when a
 kernel does not build, launch or agree, or when any phase fails. The last
@@ -133,21 +141,37 @@ def bound_ms(bytes_moved, flops, peak_flops=FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_label(mangled):
+    """``name<types,ints>`` of a kernel's mangled name (``_Z...``), also
+    one nested in a namespace (``_ZN...E``)."""
+    import re
+    rest, name = mangled[2:], "?"
+    nested = rest.startswith("N")
+    rest = rest[1:] if nested else rest
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+        if not nested:
+            break
+    types = {"I13__nv_bfloat16": "bf16", "If": "f32", "Ia": "int8",
+             "I13__nv_fp8_e4m3": "e4m3"}
+    args = [v for k, v in types.items() if rest.startswith(k)]
+    args += re.findall(r"Li(\d+)E", rest)
+    return f"{name}<{','.join(args)}>"
+
+
 def ptxas_usage(logs):
-    """``{library: {kernel<type,ints>: {"registers", "spill_bytes"}}}``
-    from nvcc's ``-Xptxas -v`` output."""
+    """``{library: {kernel<types,ints>: {"registers", "spill_bytes",
+    "static_smem_bytes"}}}`` from nvcc's ``-Xptxas -v`` output (dynamic
+    shared memory, which the launches request, is not ptxas's to see)."""
     import re
     out = {}
     for lib, log in logs.items():
         cur, kernels = None, {}
         for line in log.splitlines():
-            m = re.search(r"entry function '_Z(\d+)(\w+)'", line)
+            m = re.search(r"entry function '(_Z\w+)'", line)
             if m:
-                n, rest = int(m.group(1)), m.group(2)
-                args = (["bf16"] if rest[n:].startswith("I13__nv_bfloat16")
-                        else ["f32"] if rest[n:].startswith("If") else [])
-                args += re.findall(r"Li(\d+)E", rest[n:])
-                cur = f"{rest[:n]}<{','.join(args)}>"
+                cur = kernel_label(m.group(1))
                 kernels[cur] = {}
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -157,7 +181,28 @@ def ptxas_usage(logs):
             m = re.search(r"Used (\d+) registers", line)
             if m and cur:
                 kernels[cur]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                kernels[cur]["static_smem_bytes"] = int(m.group(1)) if m \
+                    else 0
         out[lib] = kernels
+    return out
+
+
+def tensor_core_instructions(libs):
+    """``{library: {"HGMMA": n, "HMMA": n}}``: tensor-core instructions in
+    each library's SASS (``cuobjdump -sass``), evidence of which kernels
+    use the tensor cores; None where the toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = {}
+    for lib, path in libs.items():
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True, timeout=300).stdout
+        out[lib] = {op: sum(1 for line in sass.splitlines()
+                            if f" {op}." in line or f" {op} " in line)
+                    for op in ("HGMMA", "HMMA")}
     return out
 
 
@@ -233,13 +278,20 @@ def dequant_inputs(gen, C, nb, block, kb, qdtype, kind="normal"):
     """CPU inputs of one dequant-accumulate call. ``kind``: "phantom"
     gives client 1 w = 0, a NaN gscale and (fp8) NaN values; "zero_w"
     gives every other client w = 0; "shared" puts every client on the
-    same positions."""
+    same positions; "edges" puts positions SEG - 1, SEG, block - 1 and 0
+    (those inside the row) first in every client's indices, SEG being the
+    kernel's segment of a row."""
     import torch
+    from repro_torch.kernels.lbgm_sparse import DEQUANT_SEG
     acc = torch.randn((nb, block), generator=gen)
     w = torch.rand(C, generator=gen) / C
     gscale = torch.rand(C, generator=gen) * 2 - 0.5
     keys = torch.rand((1 if kind == "shared" else C, nb, block),
                       generator=gen)
+    if kind == "edges":
+        for pos in (DEQUANT_SEG - 1, DEQUANT_SEG, block - 1, 0):
+            if pos < block:
+                keys[..., pos] = -1.0
     idx = torch.argsort(keys, dim=-1)[..., :kb].to(torch.int32)
     idx = idx.expand(C, nb, kb).contiguous()
     if qdtype == torch.int8:
@@ -284,6 +336,16 @@ def check_dequant(gen, C, nb, block, kb, qdtype, kind="normal"):
 DEQUANT_SHAPES = [(10, 16, 65536, 627), (10, 1, 1280, 128),
                   (10, 1, 128, 12), (10, 1, 10, 1), (10, 1, 36864, 3686),
                   (10, 1, 31360, 3136)]
+#: (C, nb, block, kb, kind) at the edges of the kernel's segments (SEG =
+#: 4096 floats of a row per CTA) and windows (8192 entries of a row's
+#: payload): indices at SEG - 1, SEG and block - 1; block == SEG and SEG +
+#: 1; one-row leaves with block < SEG; every client on one position; a
+#: client of more than a window; more clients than a window holds
+DEQUANT_EDGES = [(10, 2, 8193, 5, "edges"), (10, 1, 4096, 3, "edges"),
+                 (10, 3, 4097, 4, "edges"), (10, 1, 100, 7, "edges"),
+                 (10, 1, 10, 1, "shared"), (10, 3, 9000, 1, "shared"),
+                 (3, 2, 200000, 20000, "edges"), (300, 2, 5000, 3, "edges"),
+                 (2, 3, 4097, 4097, "shared")]
 
 
 def kernel_checks():
@@ -329,6 +391,11 @@ def kernel_checks():
                     errs["lbgm_dequant_accum"],
                     check_dequant(gen, *shp, qdtype, kind))
                 cases += 1
+        for *shp, kind in DEQUANT_EDGES:
+            errs["lbgm_dequant_accum"] = max(
+                errs["lbgm_dequant_accum"],
+                check_dequant(gen, *shp, qdtype, kind))
+            cases += 1
     from repro_torch.kernels import lbgm_sparse as ks
     emit({"phase": "kernel_checks", "cases": cases,
           "max_abs_err": errs,
@@ -455,10 +522,24 @@ def lm_kernel_checks():
                   (2, 300, 100, 16, 8, 128, dtype, True, None),
                   (2, 32, 64, 4, 2, 32, dtype, True, 50),
                   (2, 100, 100, 4, 4, 64, dtype, True, 50)]
+        # the tiles' edges: one row into a second 128-query tile; windows
+        # across 64-key tiles; hd 32 and 64 at odd lengths; one key past a
+        # tile; 1,280 CTAs, so the heaviest-first grid runs many waves
+        flash += [(2, 129, 129, 4, 2, 128, dtype, True, None),
+                  (1, 200, 200, 8, 8, 64, dtype, True, 150),
+                  (3, 257, 257, 12, 4, 128, dtype, True, 200),
+                  (2, 300, 300, 4, 2, 32, dtype, True, 130),
+                  (2, 260, 260, 4, 1, 64, dtype, True, None),
+                  (2, 64, 65, 4, 2, 64, dtype, False, None),
+                  (8, 640, 640, 32, 8, 64, dtype, True, None)]
         for case in flash:
             errs["flash_attention"] = max(errs["flash_attention"],
                                           check_flash(gen, *case))
             cases += 1
+        # Tq != Tk, Tq % 128 != 0, and a q_offset: the last 130 rows of 700
+        errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+            gen, 2, 130, 700, 16, 8, 128, dtype, True, None, q_offset=570))
+        cases += 1
         # a query block continuing a cache: absolute positions 200..299
         errs["flash_attention"] = max(errs["flash_attention"], check_flash(
             gen, 2, 100, 300, 16, 8, 128, dtype, True, 150, q_offset=200))
@@ -783,6 +864,10 @@ def dequant_entry(gen, errs, totals):
     entries = C * nb * kb
     bnd, by = bound_ms(entries * 5 + C * nb * 4 + 2 * C * 4 + touched * 8,
                        2 * entries + 2 * C * nb)
+    # the same with every accumulator element read and written, as the
+    # kernel's segments move them
+    bnd_rows, _ = bound_ms(entries * 5 + C * nb * 4 + 2 * C * 4
+                           + nb * block * 8, 2 * entries + 2 * C * nb)
     coeff = torch.where(w > 0, w * gscale, 0.0).reshape(C, 1, 1) * scale
     vals = (coeff * qv.float()).reshape(-1)
     acc_lib = acc.clone().reshape(-1)
@@ -801,6 +886,7 @@ def dequant_entry(gen, errs, totals):
         "plain_ms": time_ms(lambda: ref.lbgm_dequant_accum_ref(
             acc_plain, *args[1:])),
         "bound_ms": bnd, "bound_by": by,
+        "bound_ms_every_element": bnd_rows,
         "library_ms": time_ms(lambda: acc_lib.scatter_add_(0, flat, vals)),
         "library_call": "torch.Tensor.scatter_add_ of the pre-dequantized "
                         "values (adds in no fixed order; no widening, no "
@@ -1159,7 +1245,8 @@ def lm_card_vs_cpu(T=256):
 
 def flash_entry(gen, errs, totals, B=4, T=4096):
     """The flash kernel at qwen3-1.7b's prefill call: B=4, Hq 16, Hkv 8,
-    T 4096, hd 128, bf16, causal."""
+    T 4096, hd 128, bf16, causal (the tensor-core kernel; fp32 inputs run
+    the CUDA-core kernel of flash_attention.cu)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1177,21 +1264,85 @@ def flash_entry(gen, errs, totals, B=4, T=4096):
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (x.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
               for x in (k, v))
+    ms = time_ms(lambda: fa.flash_attention(q, k, v))
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:64",
         "launches": totals["flash_attention"],
         "max_abs_err": errs["flash_attention"],
         "shape": [B, T, Hq, Hkv, hd], "dtype": "bfloat16",
-        "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+        "ms": ms,
+        "tflops_counted": flops / ms / 1e9,
+        "note": "tflops_counted: the causal mask's q.k and p.v flops over "
+                "ms; the kernel issues 1.5x them (P.V as hi.V + lo.V)",
         "plain_ms": time_ms(lambda: ref.flash_attention_gqa_ref(q, k, v)),
         "bound_ms": bnd, "bound_by": by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         "library_call": "torch.nn.functional.scaled_dot_product_attention "
                         "(is_causal; kv heads repeated before timing; "
-                        "bf16 P.V)"}
+                        "bf16 P.V)",
+        "fp32_kernel": {"source": "src/repro_torch/kernels/csrc/"
+                                  "flash_attention.cu",
+                        "ms": time_ms(lambda: fa.flash_attention(
+                            q.float(), k.float(), v.float()), n=5)}}
+
+
+def flash_single_bf16_p(B=4, T=4096):
+    """A finding, not a check, and not on the main path: on the main
+    path's flash call (qwen3: Hq 16, Hkv 8, hd 128, bf16, causal), the
+    largest error and the elements past the bf16 check's tolerance of P.V
+    with p rounded once to bf16 (as scaled_dot_product_attention and the
+    JAX model path do), beside the kernel's hi/lo split emulated the same
+    way and the kernel itself, all against the fp32 plain version.
+    Plain PyTorch on the card, one batch row at a time."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    Hq, Hkv, hd = 16, 8, 128
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((B, T, Hq, hd), generator=gen).bfloat16().cuda()
+    k, v = (torch.randn((B, T, Hkv, hd), generator=gen).bfloat16().cuda()
+            for _ in range(2))
+    kern = fa.flash_attention(q, k, v)
+    out = {"single_bf16_p": [0.0, 0], "hi_lo_split": [0.0, 0],
+           "kernel": [0.0, 0]}
+    mask = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+    for b in range(B):
+        want = ref.flash_attention_gqa_ref(q[b:b + 1].float(),
+                                           k[b:b + 1].float(),
+                                           v[b:b + 1].float())[0]
+        qf = q[b].float().transpose(0, 1)
+        kf, vf = (x[b].float().transpose(0, 1).repeat_interleave(
+            Hq // Hkv, 0) for x in (k, v))
+        s = (qf @ kf.transpose(1, 2)) / hd ** 0.5
+        s = torch.where(mask, s, ref.NEG_INF)
+        p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        del s
+        l = p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        emul = {"single_bf16_p": (hi @ vf) / l,
+                "hi_lo_split": (hi @ vf + (p - hi).bfloat16().float() @ vf)
+                / l}
+        del p, hi
+        emul = {n: o.transpose(0, 1).bfloat16() for n, o in emul.items()}
+        emul["kernel"] = kern[b]
+        for name, got in emul.items():
+            d = (got.float() - want).abs()
+            bad = d > FLASH_ATOL_BF16 + FLASH_RTOL_BF16 * want.abs()
+            out[name][0] = max(out[name][0], float(d.max()))
+            out[name][1] += int(bad.sum())
+        del emul, want
+    torch.cuda.synchronize()
+    rec = {"phase": "flash_single_bf16_p", "check": False,
+           "shape": [B, T, Hq, Hkv, hd], "elements": B * T * Hq * hd,
+           "tolerance": f"rtol 2^-7, atol {FLASH_ATOL_BF16} per element vs "
+                        f"the fp32 plain version (the kernel's check)"}
+    for name, (err, bad) in out.items():
+        rec[name] = {"max_abs_err": err, "elements_past_tolerance": bad}
+    emit(rec)
+    return rec
 
 
 def scan_entry(gen, errs, totals, B=4, T=4096):
@@ -1264,7 +1415,8 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in
                         libs.items()},
-          "ptxas": ptxas_usage(_build.BUILD_LOGS)})
+          "ptxas": ptxas_usage(_build.BUILD_LOGS),
+          "sass_tensor_core_instructions": tensor_core_instructions(libs)})
 
     errs = kernel_checks()
     errs.update(lm_kernel_checks())
@@ -1314,6 +1466,7 @@ def main():
         torch.cuda.empty_cache()
     lm_card_vs_cpu()
 
+    flash_single_bf16_p()
     kernels = kernel_line(errs, totals)
     gen = torch.Generator().manual_seed(4)
     kernels += [flash_entry(gen, errs, totals), scan_entry(gen, errs, totals)]

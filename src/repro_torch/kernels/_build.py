@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("lbgm_projection", "lbgm_sparse_decision", "lbgm_dequant_accum",
-           "flash_attention", "rwkv6_scan")
+           "flash_attention", "flash_attention_sm90", "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")

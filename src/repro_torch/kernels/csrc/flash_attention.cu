@@ -1,25 +1,29 @@
-// Flash attention forward: causal (+ optional sliding window) GQA attention
-// with an online softmax, fp32 arithmetic throughout.
+// Flash attention forward for fp32 inputs: causal (+ optional sliding
+// window) GQA attention with an online softmax, fp32 arithmetic throughout,
+// on the CUDA cores. bf16 inputs go to the tensor-core kernel of
+// flash_attention_sm90.cu; the wrapper dispatches by dtype
+// (kernels/flash_attention.py: kernel_for).
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py:64) together with the GQA head
 // broadcast of its ops wrapper (src/repro/kernels/ops.py:140). It computes
 // the Pallas kernel's function: s = (q . k) / sqrt(hd) in fp32, masked
 // scores -1e30, running fp32 max, sum and accumulator, and
-// out = acc / max(sum, 1e-30) cast to q's dtype. p stays fp32 before the
-// P.V product, as in the Pallas kernel (the JAX *model* path rounds p to
-// v's dtype; see models/attention.py).
+// out = acc / max(sum, 1e-30). p stays fp32 before the P.V product, as in
+// the Pallas kernel (the JAX *model* path rounds p to v's dtype; see
+// models/attention.py).
 //
 // Bound on an H100: operations. A causal (B, Hq, T, hd = 128) call does
 // 4 * B * Hq * T^2 * hd / 2 flops on 2 * B * T * (Hq + Hkv) * hd elements:
-// thousands of flops per byte, far above the card's ratio, so the least
-// time is the flops over the tensor cores' bf16 rate. This kernel runs on
-// the CUDA cores in fp32 (no wgmma, no TMA): a first kernel that is right,
-// whose distance from that bound is recorded in PERF.md.
+// thousands of flops per byte, far above the card's ratio. In fp32 the
+// tensor cores offer nothing exact, so the least time is the flops over
+// the CUDA cores' 67 TFLOP/s. Only the fp32 checks and the depth-2 fp32
+// comparison of the card with the CPU run this kernel; the main path's
+// bf16 prefill runs the tensor-core kernel.
 //
 // Design: one CTA of 256 threads per (batch * q head, tile of 64 queries).
 // The query tile, then each 64-key tile of K and V, is staged in shared
-// memory as fp32 (bf16 widens on load). GQA is an index map: q head h
+// memory. GQA is an index map: q head h
 // reads kv head h / (Hq / Hkv); nothing is repeated in memory. Thread
 // (ty, tx) of a 16 x 16 grid owns query rows ty + 16 i (i < 4): it computes
 // the scores of key columns tx + 16 j (j < 4) with float4 loads along hd,
@@ -42,19 +46,7 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Rows [t0, t0 + ROWS) of one head of a (B, T, H, HD) tensor (src points at
 // row 0 of that head; rows are row_stride elements apart) into dst as fp32,
@@ -279,24 +271,19 @@ static cudaError_t dispatch_hd(int hd, const void* q, const void* k,
   }
 }
 
-// q: (B, Tq, Hq, hd); k, v: (B, Tk, Hkv, hd); o: (B, Tq, Hq, hd); all
-// contiguous, of one dtype (DT_F32 or DT_BF16), 16-byte aligned. hd in
-// {32, 64, 128}; Hq a multiple of Hkv; window <= 0 means no window.
-// Returns a cudaError_t.
+// q: (B, Tq, Hq, hd); k, v: (B, Tk, Hkv, hd); o: (B, Tq, Hq, hd); all fp32
+// (bf16 runs flash_attention_sm90.cu's kernel), contiguous, 16-byte
+// aligned. hd in {32, 64, 128}; Hq a multiple of Hkv; window <= 0 means no
+// window. Returns a cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
-                                      int B, int Tq, int Tk, int Hq, int Hkv,
-                                      int hd, int causal, int window,
+                                      const void* v, void* o, int B, int Tq,
+                                      int Tk, int Hq, int Hkv, int hd,
+                                      int causal, int window,
                                       long long q_offset, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || Hkv < 1 || Hq % Hkv != 0 ||
       (long long)B * Hq > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return dispatch_hd<float>(hd, q, k, v, o, B, Tq, Tk, Hq, Hkv, causal,
-                              window, q_offset, s);
-  if (dtype == DT_BF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Tq, Tk, Hq, Hkv,
-                                      causal, window, q_offset, s);
-  return cudaErrorInvalidValue;
+  return dispatch_hd<float>(hd, q, k, v, o, B, Tq, Tk, Hq, Hkv, causal,
+                            window, q_offset, s);
 }

@@ -2,9 +2,12 @@
 
 Counterpart of ``repro.kernels.flash_attention`` together with the GQA
 head broadcast of ``repro.kernels.ops.flash_attention``. On CUDA tensors
-:func:`flash_attention` launches the hand-written kernel in
-``csrc/flash_attention.cu``, which maps each query head onto its kv head
-instead of repeating k and v; on CPU tensors it returns the plain version
+:func:`flash_attention` launches a hand-written kernel, chosen by dtype
+(:func:`kernel_for`): bf16 runs the tensor-core kernel of
+``csrc/flash_attention_sm90.cu`` (wgmma, TMA), fp32 the CUDA-core kernel
+of ``csrc/flash_attention.cu``. Both map each query head onto its kv head
+instead of repeating k and v. There is no fallback from one to the other.
+On CPU tensors it returns the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_gqa_ref`).
 """
 from __future__ import annotations
@@ -15,19 +18,34 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+#: dtype -> (library under csrc/, C entry point) of the kernel that takes it
+KERNELS = {torch.bfloat16: ("flash_attention_sm90",
+                            "flash_attention_sm90_launch"),
+           torch.float32: ("flash_attention", "flash_attention_launch")}
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    f = lib.flash_attention_launch
+def kernel_for(dtype: torch.dtype):
+    """``(library, entry point)`` of the kernel that takes ``dtype``: bf16
+    the tensor-core kernel, fp32 the CUDA-core kernel; any other dtype
+    raises."""
+    if dtype not in KERNELS:
+        raise TypeError(f"flash_attention takes fp32 or bf16, got {dtype}")
+    return KERNELS[dtype]
+
+
+def _launcher(dtype: torch.dtype):
+    """The C entry point for ``dtype``, its library built on first use. Both
+    take (q, k, v, o, B, Tq, Tk, Hq, Hkv, hd, causal, window, q_offset,
+    stream)."""
+    lib_name, fn_name = kernel_for(dtype)
+    f = getattr(_build.load(lib_name), fn_name)
     if not f.argtypes:
         P, I = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, I,
-                      ctypes.c_longlong, P]
+        f.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_longlong,
+                      P]
         f.restype = ctypes.c_int
-    return lib
+    return f
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -51,7 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_gqa_ref(q, k, v, causal=causal,
                                            window=window, q_offset=q_offset)
     _build.check_card(q, k, v)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"want fp32 or bf16 q, k, v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
@@ -65,9 +83,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        rc = _lib().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, Tq, Tk, Hq, Hkv, hd, int(bool(causal)),
+        rc = _launcher(q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq,
+            Tk, Hq, Hkv, hd, int(bool(causal)),
             -1 if window is None else int(window), int(q_offset),
             _build.stream_ptr(q.device))
     _build.check_rc("flash_attention", rc)

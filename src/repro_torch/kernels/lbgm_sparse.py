@@ -105,6 +105,9 @@ def lbgm_sparse_decision(blocks: torch.Tensor, idx: torch.Tensor,
 # ------------------------------------------ fused dequant + accumulate
 
 _QV_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+#: accumulator floats per CTA of the dequant kernel (csrc: SEG); a row of
+#: ``block`` floats is split over ceil(block / DEQUANT_SEG) CTAs
+DEQUANT_SEG = 4096
 
 
 def _dequant_lib():

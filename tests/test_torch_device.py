@@ -152,11 +152,13 @@ def test_engine_sets_no_tf32_on_the_card(monkeypatch):
 
 def test_build_is_lazy():
     """Importing the kernel modules built nothing and found no compiler;
-    the build sources are the five .cu files of the port's paths."""
+    the build sources are the six .cu files of the port's paths (flash
+    attention has two: bf16 on the tensor cores, fp32 on the CUDA
+    cores)."""
     assert not _build._libs
     assert _build.SOURCES == ("lbgm_projection", "lbgm_sparse_decision",
                               "lbgm_dequant_accum", "flash_attention",
-                              "rwkv6_scan")
+                              "flash_attention_sm90", "rwkv6_scan")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert json.dumps(sorted(_build.LAUNCHES)) == json.dumps(
