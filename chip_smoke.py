@@ -12,8 +12,9 @@ From the root of a checkout. Phases, each printed as one JSON line:
    instructions (HGMMA, HMMA) in each library's SASS;
 3. each kernel against its plain PyTorch version on the card, fp32 and
    bf16, at the main path's shapes and at edge shapes (n = 17 and 200001,
-   tie rows, all-zero rows, subnormal rows): index sets and orders must be
-   equal, values within the stated tolerance. The dequant-accumulate
+   tie rows, all-zero rows, subnormal rows; value order past the decision
+   kernel's shared-memory sort, kb 16385 to 65536): index sets and orders
+   must be equal, values within the stated tolerance. The dequant-accumulate
    kernel, int8 and fp8, must equal its plain version bit for bit
    (``torch.equal``), on the card and on the CPU, at every leaf shape of
    the FCN and CNN and with phantom NaN clients, w = 0 clients, every
@@ -39,7 +40,9 @@ From the root of a checkout. Phases, each printed as one JSON line:
 6. LM serving (``lm_*`` phases), after the flash-attention and RWKV6-scan
    kernels were held against their plain versions (``lm_kernel_checks``,
    with phase 3; flash in bf16 on the tensor-core kernel, in fp32 on the
-   CUDA-core kernel, at the edges of its 128-query and 64-key tiles too):
+   CUDA-core kernel, at the edges of its 128-query and 64-key tiles too;
+   the scan at chunk edges, hd 32, B * H = 1 and 8 * 40, decays past the
+   clamp, and with the state updated in place):
    full-width qwen3-1.7b and rwkv6-3b in bf16, weights
    drawn on the card from seed 0, one model at a time. ``make_prefill_step``
    at B=4, T=4096 must launch its kernel once per layer, and every block
@@ -58,9 +61,12 @@ From the root of a checkout. Phases, each printed as one JSON line:
 8. one ``kernels`` line: per kernel (six: the dequant-accumulate, flash
    attention and the RWKV6 scan last), its launches on the main path, its
    median time over 25 launches (CUDA events, L2 flushed before each),
-   its plain version's time, one PyTorch call's time as a yardstick where
-   there is one, and the least time the card could take for the same
-   work (flash also its achieved TFLOP/s).
+   the device kernels one call runs (``device_kernels_per_call``, counted
+   in a ``torch.profiler`` trace of that call), its plain version's time,
+   one PyTorch call's time as a yardstick where there is one, and the
+   least time the card could take for the same work (flash also its
+   achieved TFLOP/s). The times and counts are taken right after phase 3,
+   before the main path; the line is printed last.
 
 It exits non-zero, with no result line, when there is no CUDA card, when a
 kernel does not build, launch or agree, or when any phase fails. The last
@@ -348,6 +354,16 @@ DEQUANT_EDGES = [(10, 2, 8193, 5, "edges"), (10, 1, 4096, 3, "edges"),
                  (2, 3, 4097, 4097, "shared")]
 
 
+#: (B, nb, block, kb, kind): value-order decisions past the kernel's
+#: shared-memory sort (kb > 16384)
+DECISION_PAST_SHARED_SORT = [(2, 2, 65536, 16385, "normal"),
+                             (2, 2, 65536, 32768, "ties"),
+                             (1, 3, 65536, 65536, "normal"),
+                             (2, 2, 65536, 20000, "zeros"),
+                             (2, 2, 40000, 30000, "sparse"),
+                             (10, 16, 65536, 32768, "normal")]
+
+
 def kernel_checks():
     import torch
     gen = torch.Generator().manual_seed(0)
@@ -379,6 +395,15 @@ def kernel_checks():
                     errs[name] = max(errs[name], check_decision(
                         gen, *shp, dtype, two_pass, kind))
                     cases += 1
+    # value order past the kernel's shared-memory sort of 16384 keys: the
+    # keys sorted in global scratch (tiles, then merge passes); ties,
+    # all-zero rows, rows with fewer nonzeros than kb, the whole row
+    for dtype in (torch.float32, torch.bfloat16):
+        for *shp, kind in DECISION_PAST_SHARED_SORT:
+            errs["lbgm_sparse_decision"] = max(
+                errs["lbgm_sparse_decision"],
+                check_decision(gen, *shp, dtype, False, kind))
+            cases += 1
     for qdtype in (torch.int8, torch.float8_e4m3fn):
         for shp in DEQUANT_SHAPES:
             errs["lbgm_dequant_accum"] = max(errs["lbgm_dequant_accum"],
@@ -402,7 +427,9 @@ def kernel_checks():
           "note": "decision: selected and gathered values equal the plain "
                   "version exactly; its error is ||g||^2's (rtol 1e-5). "
                   "dequant: equal to the plain version bit for bit",
-          "value_order_kb_ceiling": ks.max_value_order_kb()})
+          "value_order_shared_sort_kb": ks.shared_sort_kb(),
+          "value_order_past_shared_sort": [
+              list(c) for c in DECISION_PAST_SHARED_SORT]})
     return errs
 
 
@@ -458,21 +485,39 @@ def scan_inputs(gen, B, T, H, hd, state, decay):
     """r, k, v, logw, u, state0 on the card. ``decay``: "model" draws the
     log decay around the LM's initial -1 per step (-exp(N(0, 0.04^2))),
     which reaches the chunked form's clamp (|cum| > 60) in the last steps
-    of a 64-step chunk; "mild" is the JAX kernel test's -0.7 sigmoid(N),
+    of a 64-step chunk; "strong" doubles it, past the clamp from step 30
+    (-cum up to 128); "mild" is the JAX kernel test's -0.7 sigmoid(N),
     which never does. ``state``: "zeros" or "random"."""
     import torch
     r, k, v = (torch.randn((B, T, H, hd), generator=gen) * 0.5
                for _ in range(3))
     z = torch.randn((B, T, H, hd), generator=gen)
-    logw = (-torch.exp(0.04 * z) if decay == "model"
-            else -0.7 * torch.sigmoid(z))
+    logw = {"model": -torch.exp(0.04 * z),
+            "strong": -2 * torch.exp(0.04 * z),
+            "mild": -0.7 * torch.sigmoid(z)}[decay]
     u = torch.randn((H, hd), generator=gen) * 0.5
     s0 = (torch.zeros((B, H, hd, hd)) if state == "zeros"
           else torch.randn((B, H, hd, hd), generator=gen) * 0.5)
     return [t.cuda() for t in (r, k, v, logw, u, s0)]
 
 
-def check_scan(gen, B, T, H, hd, state, decay):
+#: (B, T, H, hd, state, decay, in_place) edge calls of the scan kernels
+SCAN_EDGES = [(2, 63, 40, 64, "zeros", "mild", False),
+              (2, 64, 40, 64, "random", "model", False),
+              (2, 65, 40, 64, "random", "model", True),
+              (2, 129, 4, 32, "random", "strong", False),
+              (1, 4096, 1, 64, "random", "model", False),
+              (1, 1, 1, 64, "random", "model", True),
+              (8, 65, 40, 64, "random", "strong", True),
+              (8, 1, 40, 64, "random", "strong", True),
+              (2, 4096, 40, 32, "random", "model", False)]
+
+
+def check_scan(gen, B, T, H, hd, state, decay, in_place=False):
+    """The scan against its chunked plain version (and the per-step
+    recurrence where that applies); ``in_place``: also the state updated in
+    place (``state_out=state0``), which must equal the fresh one bit for
+    bit."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rs
@@ -483,6 +528,13 @@ def check_scan(gen, B, T, H, hd, state, decay):
     what = f"scan B={B} T={T} H={H} hd={hd} state={state} decay={decay}"
     if not (torch.isfinite(out).all() and torch.isfinite(st).all()):
         fail(f"{what}: non-finite output or state")
+    if in_place:
+        cache = s0.clone()
+        out2, _ = rs.rwkv6_scan(r, k, v, logw, u, cache, state_out=cache)
+        torch.cuda.synchronize()
+        if not (torch.equal(out2, out) and torch.equal(cache, st)):
+            fail(f"{what}: the in-place state update differs from the "
+                 f"fresh state")
     err = max(float((out - ro).abs().max()), float((st - rst).abs().max()))
     tol = SCAN_TOL_CHUNKED
     if not (torch.allclose(out, ro, rtol=tol, atol=tol)
@@ -548,28 +600,51 @@ def lm_kernel_checks():
     errs["flash_attention"] = max(errs["flash_attention"], check_flash(
         gen, 4, 4096, 4096, 16, 8, 128, torch.bfloat16, True, None))
     cases += 1
+    # the scan's largest error against the chunked plain version by decay
+    # and at T = 4096, so that a drift toward the tolerance shows where
+    by_case = {}
+
+    def scan_case(e, T, decay, label=None):
+        errs["rwkv6_scan"] = max(errs["rwkv6_scan"], e)
+        for key in (f"decay_{decay}", "T_4096" if T == 4096 else None,
+                    label):
+            if key:
+                by_case[key] = max(by_case.get(key, 0.0), e)
+
     for T in (1, 37, 64, 100, 4096):
         for state in ("zeros", "random"):
             for decay in ("model", "mild"):
                 e, es = check_scan(gen, 2, T, 40, 64, state, decay)
-                errs["rwkv6_scan"] = max(errs["rwkv6_scan"], e)
+                scan_case(e, T, decay)
                 if es is not None:
                     errs["rwkv6_scan_vs_per_step"] = max(
                         errs["rwkv6_scan_vs_per_step"], es)
                 cases += 1
     for T in (37, 128):
         e, es = check_scan(gen, 2, T, 4, 32, "zeros", "mild")
-        errs["rwkv6_scan"] = max(errs["rwkv6_scan"], e)
+        scan_case(e, T, "mild")
         errs["rwkv6_scan_vs_per_step"] = max(errs["rwkv6_scan_vs_per_step"],
                                              es)
+        cases += 1
+    # the redesigned kernels' edges: a chunk one row short, full, one row
+    # over; a short last chunk at hd 32; B * H = 1 and 8 * 40; decays past
+    # the clamp; the state updated in place at decode and prefill
+    for case in SCAN_EDGES:
+        e, es = check_scan(gen, *case)
+        scan_case(e, case[1], case[5])
+        if es is not None:
+            errs["rwkv6_scan_vs_per_step"] = max(
+                errs["rwkv6_scan_vs_per_step"], es)
         cases += 1
     # the calls lm_prefill_rwkv6 (B=4, T=4096, zero state) and lm_serve_rwkv6
     # (B=8, T=1, a carried state) make
     for B, T, state in ((4, 4096, "zeros"), (8, 1, "random")):
-        e, _ = check_scan(gen, B, T, 40, 64, state, "model")
-        errs["rwkv6_scan"] = max(errs["rwkv6_scan"], e)
+        e, _ = check_scan(gen, B, T, 40, 64, state, "model",
+                          in_place=T == 1)
+        scan_case(e, T, "model", f"main_path_{B}x{T}")
         cases += 1
     emit({"phase": "lm_kernel_checks", "cases": cases, "max_abs_err": errs,
+          "rwkv6_scan_max_abs_err_by_case": by_case,
           "tolerances": {
               "flash_attention": f"vs flash_attention_gqa_ref in fp32 on "
                                  f"the same inputs: rtol = atol = "
@@ -578,7 +653,9 @@ def lm_kernel_checks():
               "rwkv6_scan": f"rtol = atol = {SCAN_TOL_CHUNKED} (output "
                             f"and final state) vs rwkv6_chunked_ref; "
                             f"{SCAN_TOL_STEPWISE} vs rwkv6_scan_ref (T <= "
-                            f"256, zero state, mild decay)"}})
+                            f"256, zero state, mild decay); the in-place "
+                            f"state equal to the fresh one bit for bit"},
+          "scan_edges": [list(c) for c in SCAN_EDGES]})
     return errs
 
 
@@ -675,6 +752,39 @@ def device_events(prof):
             else ev.cuda_time_total
         us[1] += 1
     return by_name, n_kernels, sum(v[0] for v in by_name.values()) / 1e3
+
+
+def kernels_per_call(fn, tries=5):
+    """Device kernels one call of ``fn`` runs, counted in a
+    ``torch.profiler`` trace. A wrapper adds one to its launch count per
+    call, however many kernels the call runs; this is that number. The
+    profiler now and then records none or only some of a short window's
+    kernels, so the call sits between spin kernels: a trace that lacks
+    one of them is not read, and a count stands once two traces agree."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    seen = []
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        spins = sum(ev.device_type == DeviceType.CUDA
+                    and "spin_kernel" in ev.name for ev in prof.events())
+        if spins != 3:
+            continue
+        _, n, _ = device_events(prof)
+        if n in seen:
+            return n
+        seen.append(n)
+    return "not measured"
 
 
 def uplink_launches():
@@ -781,7 +891,7 @@ def profile_round(label, spec, device="cuda"):
 
 # ------------------------------------------------------------ kernel line
 
-def kernel_line(errs, totals):
+def kernel_line(errs):
     import torch
     from repro_torch.kernels import lbgm_projection as kp
     from repro_torch.kernels import lbgm_sparse as ks
@@ -798,6 +908,8 @@ def kernel_line(errs, totals):
         return {
             "shape": [B, n], "dtype": "float32",
             "ms": time_ms(lambda: kp.lbgm_projection_batched(g, l)),
+            "device_kernels_per_call": kernels_per_call(
+                lambda: kp.lbgm_projection_batched(g, l)),
             "plain_ms": time_ms(lambda: ref.lbgm_projection_ref(g, l)),
             "bound_ms": bnd, "bound_by": by,
             "library_ms": time_ms(lambda: torch.bmm(gl2,
@@ -807,7 +919,7 @@ def kernel_line(errs, totals):
         "name": "lbgm_projection", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lbgm_projection.cu",
         "replaces": "src/repro/kernels/lbgm_projection.py:112",
-        "launches": totals["lbgm_projection"],
+        "launches": None,
         "max_abs_err": errs["lbgm_projection"],
         **projection(10, 100352),
         "unbatched": {"replaces": "src/repro/kernels/lbgm_projection.py:54",
@@ -822,6 +934,21 @@ def kernel_line(errs, totals):
     t_bytes = B * nb * block * 4 + B * nb * kb * 4 + 3 * B * nb * kb * 4 \
         + B * 4
     bnd, by = bound_ms(t_bytes, 2 * B * nb * block)
+    # value order past the shared-memory sort, not on the main path (no
+    # spec reaches kb > 16384): fc1/w's layout at k_frac 0.5, both orders
+    idx_half = torch.randint(0, block, (B, nb, 32768), generator=gen,
+                             dtype=torch.int32).cuda()
+    past_shared_sort = {
+        "shape": [B, nb, block, 32768],
+        "ms": time_ms(lambda: ks.lbgm_sparse_decision_batched(
+            blocks, idx_half)),
+        "device_kernels_per_call": kernels_per_call(
+            lambda: ks.lbgm_sparse_decision_batched(blocks, idx_half)),
+        "index_order_ms": time_ms(lambda: ks.lbgm_sparse_decision_batched(
+            blocks, idx_half, two_pass=True)),
+        "index_order_device_kernels_per_call": kernels_per_call(
+            lambda: ks.lbgm_sparse_decision_batched(blocks, idx_half,
+                                                    two_pass=True))}
     for two_pass, name, line in ((False, "lbgm_sparse_decision", 69),
                                  (True, "lbgm_sparse_decision_two_pass",
                                   224)):
@@ -831,21 +958,25 @@ def kernel_line(errs, totals):
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lbgm_sparse_decision.cu",
             "replaces": f"src/repro/kernels/lbgm_sparse.py:{line}",
-            "launches": totals[name], "max_abs_err": errs[name],
+            "launches": None, "max_abs_err": errs[name],
             "shape": [B, nb, block, kb], "dtype": "float32",
             "ms": time_ms(lambda: ks.lbgm_sparse_decision_batched(
                 blocks, idx, two_pass=two_pass)),
+            "device_kernels_per_call": kernels_per_call(
+                lambda: ks.lbgm_sparse_decision_batched(
+                    blocks, idx, two_pass=two_pass)),
             "plain_ms": time_ms(lambda: fn(blocks, idx)),
             "bound_ms": bnd, "bound_by": by,
             "library_ms": time_ms(lambda: torch.topk(blocks.abs(), kb,
                                                      dim=-1)),
             "library_call": "torch.topk of |g| per row (the selection "
                             "only: no gather, no ||g||^2, no tie rule)"})
-    out.append(dequant_entry(gen, errs, totals))
+    out[-2]["value_order_past_shared_sort"] = past_shared_sort
+    out.append(dequant_entry(gen, errs))
     return out
 
 
-def dequant_entry(gen, errs, totals):
+def dequant_entry(gen, errs):
     """The dequant-accumulate kernel at the codec fold's largest call:
     fc1/w's int8 payloads at a chunk of 10 clients."""
     import torch
@@ -876,11 +1007,13 @@ def dequant_entry(gen, errs, totals):
         "name": "lbgm_dequant_accum", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lbgm_dequant_accum.cu",
         "replaces": "src/repro/kernels/lbgm_sparse.py:324",
-        "launches": totals["lbgm_dequant_accum"],
+        "launches": None,
         "max_abs_err": errs["lbgm_dequant_accum"],
         "shape": [C, nb, block, kb], "dtype": "int8 values, float32 acc",
         "touched_elements": touched,
         "ms": time_ms(lambda: ks.lbgm_dequant_accum(acc, *args[1:])),
+        "device_kernels_per_call": kernels_per_call(
+            lambda: ks.lbgm_dequant_accum(acc, *args[1:])),
         "ms_inputs_in_l2": time_ms(
             lambda: ks.lbgm_dequant_accum(acc, *args[1:]), flush=False),
         "plain_ms": time_ms(lambda: ref.lbgm_dequant_accum_ref(
@@ -930,12 +1063,13 @@ def plain_lm_kernels():
         return ref.flash_attention_gqa_ref(q, k, v, causal=causal,
                                            window=window, q_offset=q_offset)
 
-    def scan(r, k, v, logw, u, state0=None, *, chunk=64):
+    def scan(r, k, v, logw, u, state0=None, *, chunk=64, state_out=None):
         if state0 is None:
             B, _, H, hd = r.shape
             state0 = torch.zeros((B, H, hd, hd), device=r.device)
-        return ref.rwkv6_chunked_ref(r, k, v, logw, u, state0,
-                                     min(chunk, r.shape[1]))
+        out, st = ref.rwkv6_chunked_ref(r, k, v, logw, u, state0,
+                                        min(chunk, r.shape[1]))
+        return out, st if state_out is None else state_out.copy_(st)
     ops.flash_attention, ops.rwkv6_scan = flash, scan
     try:
         yield
@@ -1243,7 +1377,7 @@ def lm_card_vs_cpu(T=256):
     return out
 
 
-def flash_entry(gen, errs, totals, B=4, T=4096):
+def flash_entry(gen, errs, B=4, T=4096):
     """The flash kernel at qwen3-1.7b's prefill call: B=4, Hq 16, Hkv 8,
     T 4096, hd 128, bf16, causal (the tensor-core kernel; fp32 inputs run
     the CUDA-core kernel of flash_attention.cu)."""
@@ -1269,10 +1403,12 @@ def flash_entry(gen, errs, totals, B=4, T=4096):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:64",
-        "launches": totals["flash_attention"],
+        "launches": None,
         "max_abs_err": errs["flash_attention"],
         "shape": [B, T, Hq, Hkv, hd], "dtype": "bfloat16",
         "ms": ms,
+        "device_kernels_per_call": kernels_per_call(
+            lambda: fa.flash_attention(q, k, v)),
         "tflops_counted": flops / ms / 1e9,
         "note": "tflops_counted: the causal mask's q.k and p.v flops over "
                 "ms; the kernel issues 1.5x them (P.V as hi.V + lo.V)",
@@ -1345,9 +1481,11 @@ def flash_single_bf16_p(B=4, T=4096):
     return rec
 
 
-def scan_entry(gen, errs, totals, B=4, T=4096):
-    """The scan kernel at rwkv6-3b's prefill call: B=4, H 40, T 4096,
-    hd 64, fp32, from a zero state; and at its decode call (B=8, T=1)."""
+def scan_entry(gen, errs, B=4, T=4096):
+    """The scan kernels at rwkv6-3b's prefill call: B=4, H 40, T 4096,
+    hd 64, fp32, from a zero state; and at its decode call (B=8, T=1, a
+    random state), as serving makes it: the state updated in place."""
+    import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rs
     H, hd = 40, 64
@@ -1355,18 +1493,29 @@ def scan_entry(gen, errs, totals, B=4, T=4096):
     c = rs.CHUNK
     # per chunk and head: the strictly-lower c x c product, A.v with the
     # diagonal, r_dec.S, the state update and decay, the diagonal bonus,
-    # and 7 elementwise ops per element (cum, 3 exps, 3 products)
+    # and 7 elementwise ops per element (cum, 3 exps, 3 products); fp32
+    # work, at the fp32 rate (the kernel runs the products as three TF32
+    # tensor-core products each: hi.hi, hi.lo, lo.hi)
     per_chunk = (2 * hd * c * (c - 1) // 2 + 2 * hd * c * (c + 1) // 2
                  + 4 * c * hd * hd + hd * hd + 3 * c * hd + 7 * c * hd)
     flops = per_chunk * (T // c) * B * H
     nbytes = 5 * B * T * H * hd * 4 + 2 * B * H * hd * hd * 4 + H * hd * 4
     bnd, by = bound_ms(nbytes, flops)
-    dec = scan_inputs(gen, 8, 1, H, hd, "random", "model")
+    Bd = 8
+    dec = scan_inputs(gen, Bd, 1, H, hd, "random", "model")
+    cache = dec[5].clone()
+    # decode: the state in and out, r, k, v, log decay in, u, out; per head
+    # r.S and the update S e^lw + k v^T (5 hd^2), the bonus and exps
+    dec_bnd, dec_by = bound_ms(
+        2 * Bd * H * hd * hd * 4 + 5 * Bd * H * hd * 4 + H * hd * 4,
+        Bd * H * (5 * hd * hd + 6 * hd))
     return {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:56",
-        "launches": totals["rwkv6_scan"],
+        "launches": None,
+        "device_kernels_per_call": kernels_per_call(
+            lambda: rs.rwkv6_scan(*ins)),
         "max_abs_err": errs["rwkv6_scan"],
         "shape": [B, T, H, hd], "dtype": "float32",
         "ms": time_ms(lambda: rs.rwkv6_scan(*ins)),
@@ -1375,10 +1524,18 @@ def scan_entry(gen, errs, totals, B=4, T=4096):
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes the "
                         "chunked WKV recurrence",
-        "decode_T1": {"shape": [8, 1, H, hd],
-                      "ms": time_ms(lambda: rs.rwkv6_scan(*dec)),
-                      "plain_ms": time_ms(
-                          lambda: ref.rwkv6_chunked_ref(*dec, 1))}}
+        "decode_T1": {
+            "shape": [Bd, 1, H, hd],
+            "ms": time_ms(lambda: rs.rwkv6_scan(*dec[:5], cache,
+                                                state_out=cache)),
+            "device_kernels_per_call": kernels_per_call(
+                lambda: rs.rwkv6_scan(*dec[:5], cache, state_out=cache)),
+            "ms_fresh_state": time_ms(lambda: rs.rwkv6_scan(*dec)),
+            "plain_ms": time_ms(lambda: ref.rwkv6_chunked_ref(*dec, 1)),
+            "bound_ms": dec_bnd, "bound_by": dec_by,
+            "note": "ms: state updated in place (state_out=state0), as "
+                    "serve_step calls it; ms_fresh_state writes a new "
+                    "state tensor"}}
 
 
 # ------------------------------------------------------------------- main
@@ -1420,6 +1577,11 @@ def main():
 
     errs = kernel_checks()
     errs.update(lm_kernel_checks())
+    # the kernels line's times and kernel counts, taken here on a card that
+    # has run nothing else yet; its launches are the main path's, below
+    kernels = kernel_line(errs)
+    gen = torch.Generator().manual_seed(4)
+    kernels += [flash_entry(gen, errs), scan_entry(gen, errs)]
 
     totals = {k: 0 for k in _build.LAUNCHES}
     topk = {"lbg_variant": "topk", "lbg_kw": {"k_frac": 0.1}}
@@ -1467,9 +1629,8 @@ def main():
     lm_card_vs_cpu()
 
     flash_single_bf16_p()
-    kernels = kernel_line(errs, totals)
-    gen = torch.Generator().manual_seed(4)
-    kernels += [flash_entry(gen, errs, totals), scan_entry(gen, errs, totals)]
+    for k in kernels:
+        k["launches"] = totals[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,15 +4,17 @@ P3), batched over a chunk's clients. Counterpart of
 
 Each client's leaf is reshaped to 2-D and approximated at rank r, by an
 exact truncated SVD (``method="svd"``) or by subspace (power) iteration
-(``method="power"``). The power method starts from a fixed draw of a
-seeded CPU generator, the same on every device; it cannot replay the JAX
-package's ``jax.random.normal(PRNGKey(0))`` start, so the two packages'
-power iterates differ (each is held to the SVD's error in the tests).
+(``method="power"``). The power method starts every leaf from the JAX
+package's draw, ``jax.random.normal(PRNGKey(0), (n, r), float32)``,
+replayed in NumPy by :mod:`repro_torch.core.jax_prng` and moved to the
+leaf's device, so its iterates are the reference's.
 Uplink cost: r * (m + n) floats per leaf.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import jax_prng
 
 
 def _to_2d(g: torch.Tensor) -> torch.Tensor:
@@ -34,10 +36,9 @@ def lowrank_leaf(g: torch.Tensor, rank: int, method: str = "svd",
     if method == "svd":
         u, s, vt = torch.linalg.svd(m2, full_matrices=False)
         approx = (u[..., :r] * s[..., None, :r]) @ vt[..., :r, :]
-    else:  # power iteration
-        gen = torch.Generator().manual_seed(0)
-        q = torch.randn((n, r), generator=gen).to(m2.device)
-        q = q.expand(m2.shape[0], n, r)
+    else:  # power iteration from the reference's start, for every client
+        q = torch.from_numpy(jax_prng.normal(jax_prng.prng_key(0), (n, r)))
+        q = q.to(m2.device).expand(m2.shape[0], n, r)
         for _ in range(iters):
             p = m2 @ q                              # (C, m, r)
             p, _ = torch.linalg.qr(p)

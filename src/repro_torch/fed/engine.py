@@ -725,13 +725,15 @@ class RoundPrefetcher:
 
     def next(self):
         """The next round's (batch, mask, copy event); raises if the
-        thread died or after ``close()``."""
+        thread died or after ``close()`` (whatever the queue still holds:
+        a producer blocked in ``put()`` may land a round after the
+        drain)."""
         while True:
+            if self._stop.is_set():
+                raise RuntimeError("RoundPrefetcher used after close()")
             if self._err is not None and self._q.empty():
                 raise RuntimeError(
                     "round prefetch thread failed") from self._err
-            if self._stop.is_set() and self._q.empty():
-                raise RuntimeError("RoundPrefetcher used after close()")
             try:
                 item = self._q.get(timeout=0.05)
             except queue.Empty:
@@ -741,14 +743,20 @@ class RoundPrefetcher:
                     "round prefetch thread failed") from self._err
             return item
 
-    def close(self):
-        self._stop.set()
-        while True:  # drain so a blocked put() observes the stop flag
+    def _drain(self):
+        while True:
             try:
                 self._q.get_nowait()
             except queue.Empty:
                 break
+
+    def close(self):
+        self._stop.set()
+        self._drain()  # so a blocked put() observes the stop flag
         self._thread.join(timeout=10)
+        # a put() that landed after the first drain: no staged batch (device
+        # memory) outlives close()
+        self._drain()
         if self._thread.is_alive():
             warnings.warn(
                 "RoundPrefetcher thread did not exit within 10s of close(); "

@@ -30,17 +30,18 @@ def _lib():
     if not f.argtypes:
         P, L = ctypes.c_void_p, ctypes.c_longlong
         f.argtypes = [P, ctypes.c_int, P, L, L, L, L, ctypes.c_int,
-                      P, P, P, P, P, P]
+                      P, P, P, P, P, P, P]
         f.restype = ctypes.c_int
-        lib.lbgm_sparse_decision_max_kb.argtypes = []
-        lib.lbgm_sparse_decision_max_kb.restype = ctypes.c_longlong
+        lib.lbgm_sparse_decision_shared_sort_kb.argtypes = []
+        lib.lbgm_sparse_decision_shared_sort_kb.restype = ctypes.c_longlong
     return lib
 
 
-def max_value_order_kb() -> int:
-    """The kernel's ceiling on kb in descending-value order (its shared
-    memory sort); index order has none beyond kb <= block."""
-    return int(_lib().lbgm_sparse_decision_max_kb())
+def shared_sort_kb() -> int:
+    """The largest kb whose value-order keys the kernel sorts in one CTA's
+    shared memory; past it the row's keys are sorted in a global scratch
+    buffer (tiles in shared memory, then merge passes). Not a ceiling."""
+    return int(_lib().lbgm_sparse_decision_shared_sort_kb())
 
 
 def lbgm_sparse_decision_batched(blocks: torch.Tensor, idx: torch.Tensor,
@@ -68,11 +69,6 @@ def lbgm_sparse_decision_batched(blocks: torch.Tensor, idx: torch.Tensor,
     if not (blocks.is_contiguous() and idx.is_contiguous()):
         raise ValueError("lbgm_sparse_decision takes contiguous tensors")
     lib = _lib()
-    if not two_pass and kb > max_value_order_kb():
-        raise ValueError(
-            f"kb={kb} exceeds the value-order kernel's ceiling of "
-            f"{max_value_order_kb()} (its shared-memory sort); use the "
-            "index-order form (two_pass=True)")
     dev = blocks.device
     f32 = dict(dtype=torch.float32, device=dev)
     gg_partial = torch.empty((B, nb), **f32)
@@ -80,12 +76,17 @@ def lbgm_sparse_decision_batched(blocks: torch.Tensor, idx: torch.Tensor,
     gathered = torch.empty((B, nb, kb), **f32)
     top_idx = torch.empty((B, nb, kb), dtype=torch.int32, device=dev)
     top_val = torch.empty((B, nb, kb), **f32)
+    # value order past the shared-memory sort: two buffers of 64-bit keys
+    scratch = (torch.empty((2 * B * nb * kb,), dtype=torch.int64, device=dev)
+               if not two_pass and kb > shared_sort_kb() else None)
     with torch.cuda.device(dev):
         rc = lib.lbgm_sparse_decision_launch(
             blocks.data_ptr(), _DTYPES[blocks.dtype], idx.data_ptr(), B, nb,
             block, kb, int(not two_pass), gg_partial.data_ptr(),
             gg.data_ptr(), gathered.data_ptr(), top_idx.data_ptr(),
-            top_val.data_ptr(), _build.stream_ptr(dev))
+            top_val.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            _build.stream_ptr(dev))
     name = ("lbgm_sparse_decision_two_pass" if two_pass
             else "lbgm_sparse_decision")
     _build.check_rc(name, rc)

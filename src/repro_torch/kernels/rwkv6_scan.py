@@ -4,9 +4,12 @@ Counterpart of ``repro.kernels.rwkv6_scan`` under the contract of the
 model's ``chunked_wkv`` (``repro.models.rwkv6``): the Pallas kernel starts
 from a zero state and drops the final one; serving needs both, since each
 decode step carries the state to the next. On CUDA tensors
-:func:`rwkv6_scan` launches the hand-written kernel in
-``csrc/rwkv6_scan.cu``; on CPU tensors it returns the plain version
-(:func:`repro_torch.kernels.ref.rwkv6_chunked_ref`).
+:func:`rwkv6_scan` launches the hand-written kernels in
+``csrc/rwkv6_scan.cu`` (a chunked prefill kernel, and a T = 1 decode
+kernel with no chunk machinery); on CPU tensors it returns the plain
+version (:func:`repro_torch.kernels.ref.rwkv6_chunked_ref`). Either way
+the final state may be written into a caller's buffer (``state_out``),
+``state0`` itself included: decode updates its cache in place.
 """
 from __future__ import annotations
 
@@ -32,20 +35,26 @@ def _lib():
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                logw: torch.Tensor, u: torch.Tensor, state0=None, *,
-               chunk: int = CHUNK):
+               chunk: int = CHUNK, state_out=None):
     """r, k, v, logw: (B, T, H, hd); u: (H, hd); state0: (B, H, hd, hd)
     fp32 (key axis first; None: zeros). Chunks of ``min(chunk, T)`` steps,
     the last one possibly shorter. Returns ``(out fp32 (B, T, H, hd),
-    final state fp32 (B, H, hd, hd))``."""
+    final state fp32 (B, H, hd, hd))``. ``state_out``: a contiguous fp32
+    (B, H, hd, hd) buffer the final state is written into and returned
+    as; it may be ``state0`` (an in-place update, with the same result)."""
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"want r, k, v, logw of one (B, T, H, hd) shape, "
                          f"got {[tuple(t.shape) for t in (r, k, v, logw)]}")
     B, T, H, hd = r.shape
     if tuple(u.shape) != (H, hd):
         raise ValueError(f"want u of shape {(H, hd)}, got {tuple(u.shape)}")
-    if state0 is not None and tuple(state0.shape) != (B, H, hd, hd):
-        raise ValueError(f"want state0 of shape {(B, H, hd, hd)}, got "
-                         f"{tuple(state0.shape)}")
+    for name, s in (("state0", state0), ("state_out", state_out)):
+        if s is not None and tuple(s.shape) != (B, H, hd, hd):
+            raise ValueError(f"want {name} of shape {(B, H, hd, hd)}, got "
+                             f"{tuple(s.shape)}")
+    if state_out is not None and (state_out.dtype != torch.float32
+                                  or not state_out.is_contiguous()):
+        raise ValueError("state_out must be a contiguous fp32 tensor")
     if not 1 <= chunk <= CHUNK:
         raise ValueError(f"chunk={chunk} must lie in [1, {CHUNK}]")
     c = min(chunk, T)
@@ -53,21 +62,27 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
                              device=r.device)
     ins = (r, k, v, logw, u, state0)
-    if all(t.device.type == "cpu" for t in ins):
-        return ref.rwkv6_chunked_ref(r, k, v, logw, u, state0, c)
-    _build.check_card(*ins)
+    if all(t.device.type == "cpu" for t in ins) and (
+            state_out is None or state_out.device.type == "cpu"):
+        out, state = ref.rwkv6_chunked_ref(r, k, v, logw, u, state0, c)
+        if state_out is None:
+            return out, state
+        return out, state_out.copy_(state)
+    outs = () if state_out is None else (state_out,)
+    _build.check_card(*ins, *outs)
     if any(t.dtype != torch.float32 for t in ins):
         raise TypeError(f"rwkv6_scan takes fp32 inputs, got "
                         f"{[t.dtype for t in ins]}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ins):
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in ins + outs):
         raise ValueError("rwkv6_scan takes contiguous, 16-byte aligned "
                          "inputs")
     if min(B, T, H) == 0:
         raise ValueError(f"empty input of shape {tuple(r.shape)}")
     out = torch.empty_like(r)
-    state = torch.empty_like(state0)
+    state = torch.empty_like(state0) if state_out is None else state_out
     with torch.cuda.device(r.device):
         rc = _lib().rwkv6_scan_launch(
             *(t.data_ptr() for t in ins), out.data_ptr(), state.data_ptr(),

@@ -58,17 +58,19 @@ def _mix(x, xs, mu):
     return x + (xs - x) * mu
 
 
-def chunked_wkv(r, k, v, logw, u, *, chunk: int = CHUNK, state0=None):
+def chunked_wkv(r, k, v, logw, u, *, chunk: int = CHUNK, state0=None,
+                state_out=None):
     """Chunked RWKV6 recurrence.
 
     r,k,v: (B, T, H, hd); logw: (B, T, H, hd) (log decay, <= 0); u: (H, hd).
-    Returns (out (B,T,H,hd) fp32, final state (B,H,hd,hd) fp32).
+    Returns (out (B,T,H,hd) fp32, final state (B,H,hd,hd) fp32); the state
+    is written into ``state_out`` when given (it may be ``state0``).
     """
     B, T, H, hd = r.shape
     assert T % chunk == 0 or T < chunk, (T, chunk)
     r, k, v, logw = (a.float().contiguous() for a in (r, k, v, logw))
     return ops.rwkv6_scan(r, k, v, logw, u.float().contiguous(), state0,
-                          chunk=min(chunk, T))
+                          chunk=min(chunk, T), state_out=state_out)
 
 
 def rwkv6_decay(p, xw: torch.Tensor) -> torch.Tensor:
@@ -79,8 +81,9 @@ def rwkv6_decay(p, xw: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rwkv6(p, x: torch.Tensor, cfg: ArchConfig, state=None,
-                shifted=None):
-    """Time-mixing. x: (B,T,d). state/shifted given in decode mode.
+                shifted=None, state_out=None):
+    """Time-mixing. x: (B,T,d). state/shifted given in decode mode;
+    ``state_out`` (may be ``state``) receives the new state in place.
 
     Returns (out, (new_state, last_x)) — the carries are used by serve_step.
     """
@@ -103,7 +106,7 @@ def apply_rwkv6(p, x: torch.Tensor, cfg: ArchConfig, state=None,
     u = p["u"].float().reshape(H, hd)
     out, new_state = chunked_wkv(r, k, v, logw.reshape(B, T, H, hd), u,
                                  chunk=CHUNK if T >= CHUNK else T,
-                                 state0=state)
+                                 state0=state, state_out=state_out)
     # the JAX block normalises with unit gamma and leaves ln_g unused
     out = group_norm_heads(out, torch.ones((hd,), device=x.device))
     out = out.reshape(B, T, d).to(x.dtype) * silu(proj["g"])
@@ -112,7 +115,9 @@ def apply_rwkv6(p, x: torch.Tensor, cfg: ArchConfig, state=None,
 
 
 def rwkv6_decode_step(p, x1: torch.Tensor, cfg: ArchConfig, state, last_x):
-    """Single-token decode: x1 (B,1,d); O(1) per token (recurrent form)."""
+    """Single-token decode: x1 (B,1,d); O(1) per token (recurrent form).
+    The new state is written over ``state`` (in place) and returned."""
     out, (new_state, new_last) = apply_rwkv6(p, x1, cfg, state=state,
-                                             shifted=last_x)
+                                             shifted=last_x,
+                                             state_out=state)
     return out, (new_state, new_last)

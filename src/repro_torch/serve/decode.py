@@ -111,9 +111,9 @@ def _decode_block(p, x1, cfg: ArchConfig, kind, cache, pos: int):
     if kind in ("attn", "swa"):
         h, cache = _decode_attn(p, h, cfg, cache, pos, kind)
     elif kind == "rwkv6":
-        h, (s, last) = rwkv6_lib.rwkv6_decode_step(
+        # the scan writes the new state over the cache's (in place)
+        h, (_, last) = rwkv6_lib.rwkv6_decode_step(
             subtree(p, "tmix"), h, cfg, cache["s"], cache["last"])
-        cache["s"].copy_(s)
         cache["last"].copy_(last)
     else:
         raise ValueError(kind)

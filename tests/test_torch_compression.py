@@ -7,9 +7,10 @@ exact (top-K keeps ``lax.top_k``'s tie rule: the lowest index wins);
 SignSGD's per-leaf mean |g| is a sum in another order (rtol 1e-6); ATOMO's
 SVD is another LAPACK path, held at rtol 1e-4 on inputs with a gap after
 rank r (atol 1e-5 for entries that cancel). The power method starts from
-another random draw, so it is held to the SVD's error, as
-``tests/test_compression.py`` holds the JAX package's. Every uplink cost
-is exact.
+the JAX package's draw (replayed by ``repro_torch.core.jax_prng``); here
+it is held to the SVD's error, as ``tests/test_compression.py`` holds the
+JAX package's, and ``tests/test_torch_faults.py`` holds its iterates
+against the JAX package. Every uplink cost is exact.
 """
 import numpy as np
 import pytest

@@ -41,7 +41,7 @@ def test_scan_covers_the_port():
         "kernels/flash_attention.py", "kernels/rwkv6_scan.py",
         "models/attention.py", "models/rwkv6.py", "models/transformer.py",
         "serve/decode.py", "train/trainer.py", "launch/serve.py",
-        "core/device.py")} \
+        "core/device.py", "core/jax_prng.py")} \
         | {"chip_smoke.py"} <= names
 
 

@@ -14,7 +14,19 @@ never the import) and run on the H100 with
 - the dequant-accumulate fold (``csrc/lbgm_dequant_accum.cu``) against its
   plain version bit for bit (``torch.equal``): indices at SEG - 1, SEG and
   block - 1, one-row leaves with block < SEG, every client on one position,
-  a NaN phantom client.
+  a NaN phantom client;
+- the RWKV6 scan (``csrc/rwkv6_scan.cu``: the tensor-core prefill kernel
+  and the T = 1 decode kernel) against its chunked plain version at rtol =
+  atol = 1e-4, output and final state (``chip_smoke.py``'s tolerance), and
+  against the per-step recurrence at 1e-3 where that applies: T = 1, 63,
+  64, 65, 129 and 4096 (chunk edges, a short last chunk), hd 32, B * H = 1
+  and 8 * 40, a random state, decays that reach the exp(-cum) clamp and go
+  far past it; the state updated in place (``state_out=state0``) equals the
+  fresh state bit for bit;
+- the value-order sparse decision past its shared-memory sort (kb = 16385,
+  32768, 65536: the keys sorted in a global scratch buffer by tiles and
+  merge passes) against its plain version exactly, with ties, all-zero rows
+  and rows with fewer nonzeros than kb.
 """
 import numpy as np
 import pytest
@@ -24,6 +36,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lbgm_sparse as ks  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 
 RTOL_BF16, ATOL_BF16 = 2.0 ** -7, 1e-5
 
@@ -132,3 +145,116 @@ def test_dequant_edges_bit_equal(card, case, qdtype):
     assert torch.isfinite(got).all()
     assert torch.equal(got, plain_card)
     assert torch.equal(got.cpu(), plain_cpu)
+
+
+# ------------------------------------------------------------ RWKV6 scan
+
+SCAN_TOL_CHUNKED, SCAN_TOL_STEPWISE = 1e-4, 1e-3
+
+
+def _scan_inputs(rng, B, T, H, hd, decay, state):
+    """``mild``: -0.7 sigmoid(N), never at the clamp; ``model``: about -1 a
+    step, at the clamp from step 60 of a chunk; ``strong``: about -2 a
+    step, past it from step 30 (-cum up to 128)."""
+    r, k, v = (rng.randn(B, T, H, hd).astype(np.float32) * 0.5
+               for _ in range(3))
+    z = rng.randn(B, T, H, hd)
+    logw = {"mild": -0.7 / (1 + np.exp(-z)), "model": -np.exp(0.04 * z),
+            "strong": -2 * np.exp(0.04 * z)}[decay].astype(np.float32)
+    u = (rng.randn(H, hd) * 0.5).astype(np.float32)
+    s0 = (np.zeros((B, H, hd, hd), np.float32) if state == "zeros"
+          else (rng.randn(B, H, hd, hd) * 0.5).astype(np.float32))
+    return [torch.from_numpy(a) for a in (r, k, v, logw, u, s0)]
+
+
+# (B, T, H, hd, decay, state)
+SCAN_EDGES = [
+    (8, 1, 40, 64, "model", "random"),     # decode: B * H = 320
+    (1, 1, 1, 64, "model", "random"),      # B * H = 1
+    (3, 1, 5, 32, "strong", "random"),
+    (2, 63, 4, 64, "mild", "zeros"),       # one short chunk
+    (2, 64, 4, 64, "mild", "zeros"),       # one full chunk
+    (2, 65, 4, 64, "model", "random"),     # a one-row last chunk
+    (2, 129, 4, 32, "mild", "zeros"),      # hd 32, a one-row last chunk
+    (2, 129, 4, 32, "strong", "random"),
+    (8, 65, 40, 64, "model", "random"),    # prefill at B * H = 320
+    (1, 4096, 1, 64, "model", "zeros"),    # B * H = 1, 64 chunks
+    (2, 4096, 40, 64, "strong", "random"),
+    (1, 4096, 2, 32, "model", "random"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_EDGES, ids=str)
+def test_scan_edges(card, case):
+    B, T, H, hd, decay, state = case
+    rng = np.random.RandomState(B * 1000 + T + hd)
+    cpu = _scan_inputs(rng, B, T, H, hd, decay, state)
+    r, k, v, lw, u, s0 = (t.to(card) for t in cpu)
+    out, st = rs.rwkv6_scan(r, k, v, lw, u, s0)
+    ro, rst = ref.rwkv6_chunked_ref(r, k, v, lw, u, s0, min(64, T))
+    torch.cuda.synchronize()
+    assert out.shape == r.shape and st.shape == s0.shape
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    tol = SCAN_TOL_CHUNKED
+    torch.testing.assert_close(out, ro, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, rst, rtol=tol, atol=tol)
+    if T <= 256 and state == "zeros" and decay == "mild":
+        flat = lambda a: a.permute(0, 2, 1, 3).reshape(B * H, T, hd)
+        step = ref.rwkv6_scan_ref(flat(r), flat(k), flat(v), flat(lw),
+                                  u.repeat(B, 1))
+        step = step.reshape(B, H, T, hd).permute(0, 2, 1, 3)
+        torch.testing.assert_close(out, step, rtol=SCAN_TOL_STEPWISE,
+                                   atol=SCAN_TOL_STEPWISE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 65])
+def test_scan_state_in_place_equals_fresh_state(card, T):
+    rng = np.random.RandomState(T)
+    r, k, v, lw, u, s0 = (t.to(card) for t in _scan_inputs(
+        rng, 8, T, 40, 64, "model", "random"))
+    out, st = rs.rwkv6_scan(r, k, v, lw, u, s0)
+    cache = s0.clone()
+    out2, st2 = rs.rwkv6_scan(r, k, v, lw, u, cache, state_out=cache)
+    torch.cuda.synchronize()
+    assert st2.data_ptr() == cache.data_ptr()
+    assert torch.equal(out, out2) and torch.equal(st, cache)
+
+
+# ----------------------------------------- value order past 16384 keys
+
+# (B, nb, block, kb, kind)
+DECISION_EDGES = [
+    (2, 2, 65536, 16385, "normal"),   # one key past the shared-memory sort
+    (2, 2, 65536, 32768, "ties"),     # few magnitudes: the index decides
+    (1, 3, 65536, 65536, "normal"),   # the whole row
+    (2, 2, 65536, 20000, "zeros"),    # all-zero rows
+    (2, 2, 40000, 30000, "sparse"),   # fewer nonzeros than kb
+    (1, 2, 65536, 65536, "ties"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECISION_EDGES, ids=str)
+def test_value_order_decision_past_the_shared_sort(card, case, dtype):
+    B, nb, block, kb, kind = case
+    rng = np.random.RandomState(kb + block)
+    x = rng.randn(B, nb, block).astype(np.float32)
+    if kind == "ties":
+        x = np.round(x * 2) / 2
+    elif kind == "zeros":
+        x[:] = 0.0
+    elif kind == "sparse":
+        x = np.where(rng.rand(B, nb, block) < 0.001, x, 0.0)
+    blocks = torch.from_numpy(x.astype(np.float32)).to(
+        getattr(torch, dtype)).to(card)
+    idx = torch.from_numpy(np.argsort(rng.rand(B, nb, block), -1)[..., :kb]
+                           .astype(np.int32)).to(card)
+    gg, gath, ti, tv = ks.lbgm_sparse_decision_batched(blocks, idx)
+    rgg, rgath, rti, rtv = ref.lbgm_sparse_decision_ref(blocks, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(ti, rti)
+    assert torch.equal(tv, rtv) and torch.equal(gath, rgath)
+    torch.testing.assert_close(gg, rgg, rtol=1e-5, atol=0)

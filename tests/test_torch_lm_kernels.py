@@ -15,7 +15,10 @@ scan 1e-3 against the per-step recurrence. The chunked form with a state
 in and out (``chunked_wkv``) is held against
 ``repro.models.rwkv6.chunked_wkv`` at rtol 1e-4 / atol 1e-5: the port sums
 the running log decay in XLA's association (``ref.chunk_cumsum``, pinned
-bit for bit below), so only dot-product order differs.
+bit for bit below, and the CUDA kernel's blockwise order emulated against
+it), so only dot-product order differs. The wrapper may write the final
+state into a caller's buffer, ``state0`` included (decode's in-place
+update): the same bits either way.
 """
 import numpy as np
 import pytest
@@ -214,6 +217,103 @@ def test_chunk_cumsum_is_xla_cumsum_bit_for_bit(n):
     np.testing.assert_array_equal(got, want)
 
 
+def _kernel_running_sum(lw: torch.Tensor, c: int):
+    """The scan kernel's running log decay over one chunk's rows, in its
+    order (``csrc/rwkv6_scan.cu``, passes 1 and 2): a 64-row tile with rows
+    past ``c`` zero-filled; four threads per channel, each summing its
+    16-step block in sequence from 0; then the earlier blocks' totals added
+    in sequence. Returns (cum over the c rows, total = the last row's)."""
+    x = torch.zeros((64,) + lw.shape[1:], dtype=torch.float32)
+    x[:c] = lw[:c]
+    runs, tots = [], []
+    for s in range(4):
+        acc = torch.zeros(lw.shape[1:], dtype=torch.float32)
+        run = []
+        for j in range(16):
+            acc = acc + x[16 * s + j]
+            run.append(acc)
+        runs.append(torch.stack(run))
+        tots.append(acc)
+    last = (c - 1) // 16
+    pre, pl = [torch.zeros_like(tots[0])], None
+    for j in range(last):
+        pl = tots[0] if j == 0 else pl + tots[j]
+        pre.append(pl)
+    total = tots[0] if last == 0 else tots[last] + pl
+    cum = torch.cat([runs[s] if s == 0 else runs[s] + pre[s]
+                     for s in range(last + 1)])[:c]
+    return cum, total
+
+
+@pytest.mark.parametrize("c", [1, 5, 16, 17, 37, 48, 63, 64])
+def test_kernel_running_sum_order_is_chunk_cumsum(c):
+    """The kernel's blockwise running sum (4 threads per channel, then the
+    blocks' prefix) equals ``ref.chunk_cumsum`` (XLA's association) bit for
+    bit, its total the last row's."""
+    lw = -torch.from_numpy(np.abs(np.random.RandomState(c).randn(
+        c, 3, 64)).astype(np.float32))
+    cum, total = _kernel_running_sum(lw, c)
+    want = tref.chunk_cumsum(lw, dim=0)
+    assert torch.equal(cum, want)
+    assert torch.equal(total, want[-1])
+
+
+@pytest.mark.parametrize("T", [1, 37, 64, 128])
+def test_scan_state_out_updates_in_place(T):
+    """``state_out=state0`` (decode's in-place update) gives the same output
+    and state as a fresh state, and both agree with the plain version and
+    the JAX package's ``chunked_wkv``."""
+    B, H, hd = 2, 3, 32
+    arrs = _scan_inputs(3, B, T, H, hd, "model")
+    s0 = (np.random.RandomState(6).randn(B, H, hd, hd) * 0.5).astype(
+        np.float32)
+    r, k, v, logw, u = (torch.from_numpy(a) for a in arrs)
+    chunk = min(64, T)
+    out, st = ops.rwkv6_scan(r, k, v, logw, u, torch.from_numpy(s0))
+    cache = torch.from_numpy(s0.copy())
+    out2, st2 = ops.rwkv6_scan(r, k, v, logw, u, cache, state_out=cache)
+    assert st2 is cache
+    assert torch.equal(out, out2) and torch.equal(st, st2)
+    buf = torch.empty_like(cache)
+    out3, st3 = ops.rwkv6_scan(r, k, v, logw, u, torch.from_numpy(s0),
+                               state_out=buf)
+    assert st3 is buf and torch.equal(st3, st) and torch.equal(out3, out)
+    ro, rst = tref.rwkv6_chunked_ref(r, k, v, logw, u, torch.from_numpy(s0),
+                                     chunk)
+    assert torch.equal(out, ro) and torch.equal(st, rst)
+    jo, js = jrwkv6.chunked_wkv(*(jnp.asarray(a) for a in arrs), chunk=chunk,
+                                state0=jnp.asarray(s0))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jo), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), np.asarray(js), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_decode_step_updates_the_state_in_place():
+    """The model's decode step writes the new state over the cache tensor
+    itself, equal to what ``apply_rwkv6`` returns in a fresh tensor."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm, layer_params
+    from repro_torch.models.common import subtree
+    cfg = dataclasses.replace(get_config("rwkv6-3b").reduced(),
+                              dtype="float32")
+    params, _ = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    _, p = next(iter(layer_params(params, cfg)))
+    p = subtree(p, "tmix")
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 1, cfg.d_model), generator=g)
+    state = torch.randn((2, H, hd, hd), generator=g) * 0.5
+    last = torch.randn((2, cfg.d_model), generator=g)
+    y, (s_new, _) = trwkv6.apply_rwkv6(p, x, cfg, state=state.clone(),
+                                       shifted=last)
+    cache = state.clone()
+    y2, (s2, _) = trwkv6.rwkv6_decode_step(p, x, cfg, cache, last)
+    assert s2 is cache
+    assert torch.equal(y, y2) and torch.equal(cache, s_new)
+
+
 def test_cpu_tensors_take_plain_versions_and_count_nothing():
     before = dict(_build.LAUNCHES)
     (_, q), (_, k), (_, v) = _qkv(4, 1, 8, 8, 2, 1, 32, "f32")
@@ -241,3 +341,12 @@ def test_wrappers_refuse_bad_shapes():
                        torch.zeros(1, 2, 32, 16))
     with pytest.raises(ValueError, match="chunk"):
         ops.rwkv6_scan(r, r, r, r, torch.zeros(2, 32), chunk=65)
+    with pytest.raises(ValueError, match="state_out"):
+        ops.rwkv6_scan(r, r, r, r, torch.zeros(2, 32),
+                       state_out=torch.zeros(1, 2, 32, 16))
+    with pytest.raises(ValueError, match="state_out"):
+        ops.rwkv6_scan(r, r, r, r, torch.zeros(2, 32),
+                       state_out=torch.zeros(1, 2, 32, 32).double())
+    with pytest.raises(ValueError, match="state_out"):
+        ops.rwkv6_scan(r, r, r, r, torch.zeros(2, 32),
+                       state_out=torch.zeros(1, 2, 32, 64)[..., ::2])

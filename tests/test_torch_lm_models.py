@@ -266,7 +266,7 @@ def test_rwkv6_block_matches_jax(decode):
         jo, (js, jl) = jrwkv6.rwkv6_decode_step(
             jblk, jnp.asarray(x), jcfg, jnp.asarray(state), jnp.asarray(last))
         to, (ts, tl) = trwkv6.rwkv6_decode_step(
-            tblk, torch.from_numpy(x), tcfg, torch.from_numpy(state),
+            tblk, torch.from_numpy(x), tcfg, torch.tensor(state),
             torch.from_numpy(last))
     else:
         jo, (js, jl) = jrwkv6.apply_rwkv6(jblk, jnp.asarray(x), jcfg)
