@@ -14,7 +14,13 @@ From the root of a checkout. Phases, each printed as one JSON line:
    bf16, at the main path's shapes and at edge shapes (n = 17 and 200001,
    tie rows, all-zero rows, subnormal rows; value order past the decision
    kernel's shared-memory sort, kb 16385 to 65536): index sets and orders
-   must be equal, values within the stated tolerance. The dequant-accumulate
+   must be equal, values within the stated tolerance. The decision also on
+   flat leaves, the main path's form (``DECISION_FLAT``: the FCN's leaves,
+   the cluster's slice edges, ties across its CTAs, ragged slices, partly
+   live rows, kb = 1 and kb = block), equal bit for bit to the padded
+   layout's call and to a second call; the projection over leaf tables
+   (``PROJECTION_TABLES``) equal bit for bit to the left-to-right sum of
+   one-leaf calls and to a second call. The dequant-accumulate
    kernel, int8 and fp8, must equal its plain version bit for bit
    (``torch.equal``), on the card and on the CPU, at every leaf shape of
    the FCN and CNN and with phantom NaN clients, w = 0 clients, every
@@ -29,7 +35,9 @@ From the root of a checkout. Phases, each printed as one JSON line:
    fp8 wire codec, and the dense store under top-K 0.1 with error
    feedback (delta 0.75) and under ATOMO rank 2 (delta 0.5). The launch
    counters are set to 0 just before each phase and read just after;
-   every kernel of a phase must have launched. The same spec then runs
+   every kernel of a phase must have launched, and a dense phase must call
+   the projection once per chunk (one call over every leaf), and the record
+   splits the launches by call shape. The same spec then runs
    with ``device="cpu"`` (the plain versions): uplink floats, scalar
    fraction, wire bytes and savings must be identical, loss and params
    within tolerance, and no client's sin² may lie within 1e-5 of delta (a
@@ -60,7 +68,10 @@ From the root of a checkout. Phases, each printed as one JSON line:
    give, beside the kernel's hi/lo split and the kernel itself;
 8. one ``kernels`` line: per kernel (six: the dequant-accumulate, flash
    attention and the RWKV6 scan last), its launches on the main path, its
-   median time over 25 launches (CUDA events, L2 flushed before each),
+   median time over 25 launches (CUDA events, L2 flushed before each); the
+   projection and the decision at every call shape of the main path
+   (``shapes``: each leaf table, each top-k leaf), each with its launches
+   there, the decision with its live bound and its padded layout's,
    the device kernels one call runs (``device_kernels_per_call``, counted
    in a ``torch.profiler`` trace of that call), its plain version's time,
    one PyTorch call's time as a yardstick where there is one, and the
@@ -280,6 +291,120 @@ def check_decision(gen, B, nb, block, kb, dtype, two_pass, kind="normal"):
     return err
 
 
+def flat_leaf(gen, B, size, block, kind):
+    """A flat (B, size) fp32 leaf of ``kind`` on the CPU: "normal", "ties",
+    "sparse" (fewer nonzeros than kb), "dense_zeros" (6% zeros), "zero_row"
+    (client 0's first row zero), "slice_edges" (the largest values on both sides of each 8192-
+    element slice edge of the first row), "straddle" (one magnitude spread
+    over every slice, ties across CTAs)."""
+    import torch
+    if kind in ("normal", "ties", "sparse"):
+        return rand_inputs(gen, (B, size), torch.float32, "cpu", kind)
+    x = torch.randn((B, size), generator=gen)
+    if kind == "zero_row":
+        x[0, :block] = 0.0
+    elif kind == "slice_edges":
+        for e in range(8192, min(block, size), 8192):
+            x[:, e - 1:e + 1] = 50.0 + e / block
+    elif kind == "dense_zeros":
+        x = torch.where(torch.rand((B, size), generator=gen) < 0.06, 0.0, x)
+    elif kind == "straddle":
+        x = torch.where(torch.rand((B, size), generator=gen) < 0.03, 1.0, 0.0)
+        x[:, ::4096] = -1.0
+    return x
+
+
+def check_decision_flat(gen, B, size, block, kb, kind, dtype, two_pass):
+    """The decision on a flat leaf (the main path's form) against its plain
+    version on the same flat leaf: index sets and orders, selected and
+    gathered values exactly, ||g||^2 to rtol 1e-5; against the same call
+    on the zero-padded layout and against a second call (the per-client
+    tickets reset) bit for bit."""
+    import torch
+    from repro_torch.kernels import lbgm_sparse as ks
+    from repro_torch.kernels import ref
+    nb = -(-size // block)
+    nb = -(-nb // 16) * 16 if nb > 1 else nb
+    g = flat_leaf(gen, B, size, block, kind).to(dtype).cuda()
+    idx = torch.argsort(torch.rand((B, nb, block), generator=gen),
+                        dim=-1)[..., :kb].to(torch.int32).cuda()
+    got = ks.lbgm_sparse_decision_batched(g, idx, two_pass, block=block)
+    fn = (ref.lbgm_sparse_decision_two_pass_ref if two_pass
+          else ref.lbgm_sparse_decision_ref)
+    want = fn(g, idx, block=block)
+    padded = ks.lbgm_sparse_decision_batched(
+        ref.flat_to_blocks(g, nb, block).contiguous(), idx, two_pass)
+    again = ks.lbgm_sparse_decision_batched(g, idx, two_pass, block=block)
+    torch.cuda.synchronize()
+    what = (f"flat decision B={B} size={size} block={block} kb={kb} "
+            f"{dtype} {kind} two_pass={two_pass}")
+    if not torch.equal(got[2], want[2]):
+        fail(f"{what}: {int((got[2] != want[2]).sum())} top-k indices "
+             f"differ from the plain version")
+    if not torch.equal(got[3], want[3]) or not torch.equal(got[1], want[1]):
+        fail(f"{what}: selected or gathered values differ")
+    err = float((got[0] - want[0]).abs().max())
+    if not torch.allclose(got[0], want[0], rtol=1e-5, atol=0.0):
+        fail(f"{what}: ||g||^2 off by {err:.3g}")
+    for a, b, c in zip(got, padded, again):
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            fail(f"{what}: differs from the padded layout's call or from "
+                 f"a second call")
+    return err
+
+
+def check_projection_table(gen, B, ns, dtype, misaligned=False):
+    """One call over a table of leaves (B, n_i) against the left-to-right
+    sum of one-leaf calls and a second call, bit for bit, and against the
+    plain version within 1e-5 of the sum of |terms|. ``misaligned`` leaves
+    start one element past an allocation (no 16-byte loads)."""
+    import torch
+    from repro_torch.kernels import lbgm_projection as kp
+    from repro_torch.kernels import ref
+
+    def leaves():
+        out = []
+        for n in ns:
+            x = rand_inputs(gen, (B * n + int(misaligned),), dtype,
+                            "cuda") * 0.1
+            out.append(x[int(misaligned):].view(B, n))
+        return out
+    gs, ls = leaves(), leaves()
+    got = kp.lbgm_projection_leaves(gs, ls)
+    again = kp.lbgm_projection_leaves(gs, ls)
+    per_leaf = None
+    for g, l in zip(gs, ls):
+        part = kp.lbgm_projection_batched(g, l)
+        per_leaf = part if per_leaf is None else tuple(
+            a + b for a, b in zip(per_leaf, part))
+    want = sum_leaves(ref.lbgm_projection_ref, gs, ls)
+    scale = sum_leaves(ref.lbgm_projection_ref, [g.abs() for g in gs],
+                       [l.abs() for l in ls])
+    torch.cuda.synchronize()
+    what = f"projection table B={B} n={list(ns)[:6]} {dtype}"
+    err = 0.0
+    for a, p, c, w, s in zip(got, per_leaf, again, want, scale):
+        if not (torch.equal(a, p) and torch.equal(a, c)):
+            fail(f"{what}: differs from the per-leaf calls or a second "
+                 f"call")
+        d = (a - w).abs()
+        err = max(err, float(d.max()))
+        if bool((d > 1e-5 * s + 1e-30).any()):
+            fail(f"{what}: error {float(d.max())} beyond 1e-5 of the sum "
+                 f"of |terms|")
+    return err
+
+
+def sum_leaves(fn, gs, ls):
+    """``fn``'s (gl, gg, ll) per leaf, added over the leaves in order."""
+    out = None
+    for g, l in zip(gs, ls):
+        part = fn(g, l)
+        out = part if out is None else tuple(a + b for a, b in zip(out,
+                                                                   part))
+    return out
+
+
 def dequant_inputs(gen, C, nb, block, kb, qdtype, kind="normal"):
     """CPU inputs of one dequant-accumulate call. ``kind``: "phantom"
     gives client 1 w = 0, a NaN gscale and (fp8) NaN values; "zero_w"
@@ -364,6 +489,44 @@ DECISION_PAST_SHARED_SORT = [(2, 2, 65536, 16385, "normal"),
                              (10, 16, 65536, 32768, "normal")]
 
 
+#: (B, size, block, kb, kind): the decision on flat leaves — the FCN's
+#: four leaves at a chunk of 10 (a cluster of 8, then clusters of 1), a
+#: size that is not a multiple of 4 (ragged slices), the cluster's slice
+#: edges, ties across CTAs, partly live rows with fewer nonzeros than kb,
+#: kb = 1 and kb = block, an all-zero live row (CNN conv3/w: 5 CTAs), a
+#: cluster of 2 one element past a slice, and a threshold of 0 whose zeros
+#: (100 of them past `size`) rank 0 gathers
+DECISION_FLAT = [(10, 100352, 65536, 627, "normal"),
+                 (10, 1280, 1280, 128, "normal"), (10, 128, 128, 12, "normal"),
+                 (10, 10, 10, 1, "normal"), (3, 100353, 65536, 627, "normal"),
+                 (2, 70001, 65536, 2000, "ties"),
+                 (2, 131072, 65536, 900, "slice_edges"),
+                 (2, 131072, 65536, 700, "straddle"),
+                 (2, 65636, 65536, 300, "sparse"),
+                 (2, 65541, 65536, 40, "normal"),
+                 (2, 131072, 65536, 1, "normal"),
+                 (2, 65536, 65536, 65536, "ties"),
+                 (2, 36864, 36864, 3686, "zero_row"),
+                 (1, 8193, 8193, 77, "straddle"),
+                 (1, 130972, 65536, 62000, "dense_zeros")]
+#: (B, leaf lengths, misaligned): projection leaf tables — the FCN's and
+#: the CNN's leaves in sorted key order, leaves without 16-byte loads,
+#: more leaves than one launch's table (70 > 64), the unbatched form
+#: value order with each placement of the kept keys forced (B, nb, block,
+#: kb, kind): the main path's largest call, the CNN's conv3/w, ties, and
+#: the largest kb of the shared-memory sort
+PLACEMENT_CHECKS = [(10, 16, 65536, 627, "normal"), (4, 1, 36864, 3686,
+                                                      "normal"),
+                    (2, 2, 65536, 627, "ties"), (2, 1, 9216, 921, "ties"),
+                    (2, 2, 65536, 16384, "ties")]
+
+PROJECTION_TABLES = [
+    (10, (128, 100352, 10, 1280), False),
+    (10, (800, 32, 18432, 64, 36864, 64, 31360, 10, 1, 4096), False),
+    (3, (17, 4097, 100352, 5), True), (2, tuple(range(1, 140, 2)), False),
+    (1, (100352,), False)]
+
+
 def kernel_checks():
     import torch
     gen = torch.Generator().manual_seed(0)
@@ -404,6 +567,35 @@ def kernel_checks():
                 errs["lbgm_sparse_decision"],
                 check_decision(gen, *shp, dtype, False, kind))
             cases += 1
+    # value order's two placements of a row's kept keys, each forced on
+    # both sides of the default's choice: ranks counted in every CTA of
+    # the cluster, and rank 0's bitonic sort
+    from repro_torch.kernels import lbgm_sparse as ks
+    for how in ("rank", "sort"):
+        ks.set_placement(how)
+        try:
+            for *shp, kind in PLACEMENT_CHECKS:
+                errs["lbgm_sparse_decision"] = max(
+                    errs["lbgm_sparse_decision"],
+                    check_decision(gen, *shp, torch.float32, False, kind))
+                cases += 1
+        finally:
+            ks.set_placement("rule")
+    # the main path's form: flat leaves on clusters, and leaf tables
+    for two_pass in (False, True):
+        name = ("lbgm_sparse_decision_two_pass" if two_pass
+                else "lbgm_sparse_decision")
+        for dtype in (torch.float32, torch.bfloat16):
+            for case in DECISION_FLAT:
+                errs[name] = max(errs[name], check_decision_flat(
+                    gen, *case, dtype, two_pass))
+                cases += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, ns, mis in PROJECTION_TABLES:
+            errs["lbgm_projection"] = max(
+                errs["lbgm_projection"],
+                check_projection_table(gen, B, ns, dtype, mis))
+            cases += 1
     for qdtype in (torch.int8, torch.float8_e4m3fn):
         for shp in DEQUANT_SHAPES:
             errs["lbgm_dequant_accum"] = max(errs["lbgm_dequant_accum"],
@@ -421,15 +613,19 @@ def kernel_checks():
                 errs["lbgm_dequant_accum"],
                 check_dequant(gen, *shp, qdtype, kind))
             cases += 1
-    from repro_torch.kernels import lbgm_sparse as ks
     emit({"phase": "kernel_checks", "cases": cases,
           "max_abs_err": errs,
           "note": "decision: selected and gathered values equal the plain "
                   "version exactly; its error is ||g||^2's (rtol 1e-5). "
                   "dequant: equal to the plain version bit for bit",
           "value_order_shared_sort_kb": ks.shared_sort_kb(),
+          "decision_flat": [list(c) for c in DECISION_FLAT],
+          "projection_tables": [[B, list(ns), mis] for B, ns, mis in
+                                PROJECTION_TABLES],
           "value_order_past_shared_sort": [
-              list(c) for c in DECISION_PAST_SHARED_SORT]})
+              list(c) for c in DECISION_PAST_SHARED_SORT],
+          "value_order_placements_forced": [list(c) for c in
+                                            PLACEMENT_CHECKS]})
     return errs
 
 
@@ -676,6 +872,11 @@ def fl_spec(model, **fl):
         "eval": {"every": 0, "final": True, "verbose": False}})
 
 
+#: the main path's launches per kernel and call shape (the wrappers' keys),
+#: summed over the FL phases
+SHAPE_TOTALS = {}
+
+
 def run_phase(label, spec, two_pass, want_kernels, totals):
     import numpy as np
     import torch
@@ -696,10 +897,22 @@ def run_phase(label, spec, two_pass, want_kernels, totals):
     gpu = run_experiment(spec, device="cuda", params=params)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    by_shape = {k: dict(v) for k, v in _build.LAUNCH_SHAPES.items() if v}
     for k in want_kernels:
         if launches[k] <= 0:
             fail(f"{label}: kernel {k} never launched on the main path")
         totals[k] += launches[k]
+    for k, shapes in by_shape.items():
+        for shp, c in shapes.items():
+            SHAPE_TOTALS.setdefault(k, {})
+            SHAPE_TOTALS[k][shp] = SHAPE_TOTALS[k].get(shp, 0) + c
+    chunks = spec.rounds * -(-spec.fl.num_clients
+                             // pick_chunk(spec.fl.num_clients,
+                                           spec.fl.chunk_size))
+    if "lbgm_projection" in want_kernels and \
+            launches["lbgm_projection"] != chunks:
+        fail(f"{label}: {launches['lbgm_projection']} projection calls for "
+             f"{chunks} chunks (one call per chunk)")
     cpu = run_experiment(spec, device="cpu", params=params)
     for r, (a, b) in enumerate(zip(gpu.history, cpu.history)):
         for k in ("uplink_floats", "frac_scalar", "wire_bytes", "savings"):
@@ -733,7 +946,9 @@ def run_phase(label, spec, two_pass, want_kernels, totals):
            "wire_bytes": [h["wire_bytes"] for h in gpu.history],
            "savings": gpu.savings, "sin2_margin": margin,
            "test_acc": gpu.final_eval.get("test_acc"),
-           "launches": {k: v for k, v in launches.items() if v}}
+           "launches": {k: v for k, v in launches.items() if v},
+           "launches_by_shape": {k: [[list(shp), c] for shp, c in v.items()]
+                                 for k, v in by_shape.items()}}
     emit(rec)
     return rec
 
@@ -891,87 +1106,184 @@ def profile_round(label, spec, device="cuda"):
 
 # ------------------------------------------------------------ kernel line
 
-def kernel_line(errs):
+def leaf_sizes(model):
+    """Element counts of ``model``'s parameter leaves, in sorted key order
+    (the order the FL phases visit them)."""
+    from repro_torch.fed.experiment import build_experiment
+    eng, _ = build_experiment(fl_spec(model), device="cpu")
+    return [int(eng.params[k].numel()) for k in sorted(eng.params)]
+
+
+def projection_record(gen, B, ns):
+    """The projection over one leaf table (B, n_i) fp32: time, device
+    kernels a call, the plain version's time (per-leaf sums added in
+    order), the bound, and torch.bmm's time on the leaves concatenated."""
     import torch
     from repro_torch.kernels import lbgm_projection as kp
+    from repro_torch.kernels import ref
+    gs = [torch.randn((B, n), generator=gen).cuda() for n in ns]
+    ls = [torch.randn((B, n), generator=gen).cuda() for n in ns]
+    gl2 = torch.stack([torch.cat(gs, 1), torch.cat(ls, 1)], 1)
+    n = sum(ns)
+    bnd, by = bound_ms(2 * B * n * 4 + 3 * B * 4, 6 * B * n)
+    return {
+        "shape": [[B, m] for m in ns], "dtype": "float32",
+        "ms": time_ms(lambda: kp.lbgm_projection_leaves(gs, ls)),
+        "device_kernels_per_call": kernels_per_call(
+            lambda: kp.lbgm_projection_leaves(gs, ls)),
+        "plain_ms": time_ms(lambda: sum_leaves(ref.lbgm_projection_ref,
+                                               gs, ls)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.bmm(gl2, gl2.transpose(1, 2))),
+        "library_call": "torch.bmm of the stacked [g;l] Gram matrix, the "
+                        "leaves concatenated before timing"}
+
+
+def decision_records(gen, B, size, k_frac=0.1, kb=None):
+    """The decision at one leaf of the top-k store: the flat (B, size)
+    fp32 leaf as the main path passes it, both orders. Each record: time,
+    device kernels a call, the plain version's time, the live bound (the
+    leaf read once, the live rows' indices read, the three outputs
+    written) and the padded layout's (every row of (B, nb, block) and of
+    the indices read), and torch.topk's time on the padded layout."""
+    import torch
+    from repro_torch.core.lbgm import _block_layout
     from repro_torch.kernels import lbgm_sparse as ks
     from repro_torch.kernels import ref
-    gen = torch.Generator().manual_seed(1)
-    out = []
-    # projection at the dense store's largest call: fc1/w, chunk of 10;
-    # B = 1 is the unbatched form (lbgm_projection_pallas), the same kernel
-    def projection(B, n):
-        g = torch.randn((B, n), generator=gen).cuda()
-        l = torch.randn((B, n), generator=gen).cuda()
-        gl2 = torch.stack([g, l], 1)
-        bnd, by = bound_ms(2 * B * n * 4 + 3 * B * 4, 6 * B * n)
-        return {
-            "shape": [B, n], "dtype": "float32",
-            "ms": time_ms(lambda: kp.lbgm_projection_batched(g, l)),
-            "device_kernels_per_call": kernels_per_call(
-                lambda: kp.lbgm_projection_batched(g, l)),
-            "plain_ms": time_ms(lambda: ref.lbgm_projection_ref(g, l)),
+    nb, block, kb0 = _block_layout(size, k_frac)
+    kb = kb or kb0
+    flat = torch.randn((B, size), generator=gen).cuda()
+    idx = torch.randint(0, block, (B, nb, kb), generator=gen,
+                        dtype=torch.int32).cuda()
+    padded = ref.flat_to_blocks(flat, nb, block).contiguous()
+    # the three outputs of every row and gg written; the indices read of
+    # the live rows only (a pad row's outputs do not depend on them), of
+    # every row on the padded layout (the JAX kernel's contract)
+    live = -(-size // block)
+    outs = B * nb * kb * 3 * 4 + B * 4
+    bnd, by = bound_ms(B * size * 4 + B * live * kb * 4 + outs, 2 * B * size)
+    bnd_pad, _ = bound_ms(B * nb * block * 4 + B * nb * kb * 4 + outs,
+                          2 * B * nb * block)
+    lib = time_ms(lambda: torch.topk(padded.abs(), kb, dim=-1))
+    recs = {}
+    for two_pass in (False, True):
+        fn = (ref.lbgm_sparse_decision_two_pass_ref if two_pass
+              else ref.lbgm_sparse_decision_ref)
+        call = (lambda tp: lambda: ks.lbgm_sparse_decision_batched(
+            flat, idx, tp, block=block))(two_pass)
+        recs[two_pass] = {
+            "shape": [B, size, nb, block, kb], "dtype": "float32",
+            "cluster_ctas": ks.cluster_size(block),
+            "ms": time_ms(call),
+            "device_kernels_per_call": kernels_per_call(call),
+            "plain_ms": time_ms(lambda: fn(flat, idx, block=block)),
             "bound_ms": bnd, "bound_by": by,
-            "library_ms": time_ms(lambda: torch.bmm(gl2,
-                                                    gl2.transpose(1, 2))),
-            "library_call": "torch.bmm of the stacked [g;l] Gram matrix"}
+            "bound_ms_padded_layout": bnd_pad,
+            "library_ms": lib,
+            "library_call": "torch.topk of |g| per row of the padded "
+                            "layout (the selection only: no gather, no "
+                            "||g||^2, no tie rule)"}
+    return recs
+
+
+#: value order's placements, timed (B, size, block, kb): fc1/w's layout
+#: over kb (clusters of 8), the CNN's four leaves past one CTA at k_frac 0.1
+#: (clusters of 2-5), fc2/w and rows of one CTA and of two
+PLACEMENT_SWEEP = ([(10, 100352, 65536, kb) for kb in
+                    (627, 1254, 2048, 3072, 4096, 8192)] +
+                   [(10, n, n, kb) for n, kb in
+                    ((9216, 921), (18432, 1843), (31360, 3136),
+                     (36864, 3686))] +
+                   [(10, 1280, 1280, 128), (10, 4096, 4096, 410),
+                    (10, 8192, 8192, 300), (10, 8192, 8192, 819),
+                    (10, 9216, 9216, 200), (10, 16384, 16384, 400)])
+
+
+def placement_record(gen):
+    """Value order's two placements of a row's kept keys timed on the same
+    inputs: ranks counted in every CTA of the cluster, and rank 0's bitonic
+    sort. Each shape: both times, the rule's pick, and whether it picked
+    the faster; the whole record is checked to give equal outputs."""
+    import torch
+    from repro_torch.kernels import lbgm_sparse as ks
+    rows = []
+    for B, size, block, kb in PLACEMENT_SWEEP:
+        nb = -(-size // block)
+        nb = -(-nb // 16) * 16 if nb > 1 else nb
+        g = torch.randn((B, size), generator=gen).cuda()
+        idx = torch.randint(0, block, (B, nb, kb), generator=gen,
+                            dtype=torch.int32).cuda()
+        call = (lambda g, idx, block: lambda: ks.lbgm_sparse_decision_batched(
+            g, idx, False, block=block))(g, idx, block)
+        ms, outs = {}, {}
+        for how in ("rank", "sort"):
+            ks.set_placement(how)
+            try:
+                outs[how] = call()
+                ms[how] = time_ms(call)
+            finally:
+                ks.set_placement("rule")
+        if not all(torch.equal(a, b) for a, b in zip(outs["rank"],
+                                                     outs["sort"])):
+            fail(f"value order at {(B, size, block, kb)}: the two "
+                 f"placements differ")
+        pick = "rank" if ks.places_by_rank(block, kb) else "sort"
+        rows.append({"shape": [B, size, nb, block, kb],
+                     "cluster_ctas": ks.cluster_size(block),
+                     "rank_ms": ms["rank"], "sort_ms": ms["sort"],
+                     "rule": pick, "rule_faster": ms[pick] == min(
+                         ms.values())})
+    return {"shapes": rows,
+            "rule_faster_at": sum(r["rule_faster"] for r in rows),
+            "of": len(rows)}
+
+
+def kernel_line(errs):
+    import torch
+    gen = torch.Generator().manual_seed(1)
+    # the timing method's own floor: one 1-element kernel, timed as the
+    # kernels are (a call at the floor is launch and event latency)
+    one = torch.zeros(1, device="cuda")
+    emit({"phase": "timing_floor", "what": "one 1-element add_",
+          "ms": time_ms(lambda: one.add_(1)),
+          "ms_no_flush": time_ms(lambda: one.add_(1), flush=False)})
+    out = []
+    # the projection at every call of the dense store: one leaf table per
+    # chunk of 10, the FCN's and the CNN's; the single fc1/w leaf and the
+    # unbatched form (lbgm_projection_pallas) are one-leaf tables
+    tables = [projection_record(gen, 10, leaf_sizes(m))
+              for m in ("fcn", "cnn")]
     out.append({
         "name": "lbgm_projection", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lbgm_projection.cu",
         "replaces": "src/repro/kernels/lbgm_projection.py:112",
         "launches": None,
         "max_abs_err": errs["lbgm_projection"],
-        **projection(10, 100352),
+        **tables[0], "shapes": tables,
+        "single_leaf": projection_record(gen, 10, [100352]),
         "unbatched": {"replaces": "src/repro/kernels/lbgm_projection.py:54",
-                      **projection(1, 100352)}})
-    # decision at the top-k store's largest call: fc1/w, chunk of 10
-    B, nb, block, kb = 10, 16, 65536, 627
-    flat = torch.randn((B, 100352), generator=gen)
-    blocks = torch.nn.functional.pad(flat, (0, nb * block - 100352)) \
-        .reshape(B, nb, block).cuda()
-    idx = torch.randint(0, block, (B, nb, kb), generator=gen,
-                        dtype=torch.int32).cuda()
-    t_bytes = B * nb * block * 4 + B * nb * kb * 4 + 3 * B * nb * kb * 4 \
-        + B * 4
-    bnd, by = bound_ms(t_bytes, 2 * B * nb * block)
+                      **projection_record(gen, 1, [100352])}})
+    # the decision at every leaf of the top-k store (the FCN's, k_frac 0.1,
+    # a chunk of 10), both orders; the first is the largest call
+    per_shape = [decision_records(gen, 10, n) for n in leaf_sizes("fcn")]
+    per_shape.sort(key=lambda r: -r[False]["shape"][1])
     # value order past the shared-memory sort, not on the main path (no
-    # spec reaches kb > 16384): fc1/w's layout at k_frac 0.5, both orders
-    idx_half = torch.randint(0, block, (B, nb, 32768), generator=gen,
-                             dtype=torch.int32).cuda()
-    past_shared_sort = {
-        "shape": [B, nb, block, 32768],
-        "ms": time_ms(lambda: ks.lbgm_sparse_decision_batched(
-            blocks, idx_half)),
-        "device_kernels_per_call": kernels_per_call(
-            lambda: ks.lbgm_sparse_decision_batched(blocks, idx_half)),
-        "index_order_ms": time_ms(lambda: ks.lbgm_sparse_decision_batched(
-            blocks, idx_half, two_pass=True)),
-        "index_order_device_kernels_per_call": kernels_per_call(
-            lambda: ks.lbgm_sparse_decision_batched(blocks, idx_half,
-                                                    two_pass=True))}
+    # spec reaches kb > 16384): fc1/w's layout at kb 32768, both orders
+    past = decision_records(gen, 10, 100352, kb=32768)
     for two_pass, name, line in ((False, "lbgm_sparse_decision", 69),
                                  (True, "lbgm_sparse_decision_two_pass",
                                   224)):
-        fn = (ref.lbgm_sparse_decision_two_pass_ref if two_pass
-              else ref.lbgm_sparse_decision_ref)
+        recs = [r[two_pass] for r in per_shape]
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lbgm_sparse_decision.cu",
             "replaces": f"src/repro/kernels/lbgm_sparse.py:{line}",
             "launches": None, "max_abs_err": errs[name],
-            "shape": [B, nb, block, kb], "dtype": "float32",
-            "ms": time_ms(lambda: ks.lbgm_sparse_decision_batched(
-                blocks, idx, two_pass=two_pass)),
-            "device_kernels_per_call": kernels_per_call(
-                lambda: ks.lbgm_sparse_decision_batched(
-                    blocks, idx, two_pass=two_pass)),
-            "plain_ms": time_ms(lambda: fn(blocks, idx)),
-            "bound_ms": bnd, "bound_by": by,
-            "library_ms": time_ms(lambda: torch.topk(blocks.abs(), kb,
-                                                     dim=-1)),
-            "library_call": "torch.topk of |g| per row (the selection "
-                            "only: no gather, no ||g||^2, no tie rule)"})
-    out[-2]["value_order_past_shared_sort"] = past_shared_sort
+            **recs[0], "shapes": recs,
+            "past_shared_sort": {k: v for k, v in past[two_pass].items()
+                                 if "library" not in k},
+            **({"placements": placement_record(gen)} if not two_pass
+               else {})})
     out.append(dequant_entry(gen, errs))
     return out
 
@@ -1631,6 +1943,11 @@ def main():
     flash_single_bf16_p()
     for k in kernels:
         k["launches"] = totals[k["name"]]
+        for rec in k.get("shapes", []):
+            shp = rec["shape"]
+            key = tuple(tuple(x) for x in shp) if isinstance(shp[0], list) \
+                else tuple(shp)
+            rec["launches"] = SHAPE_TOTALS.get(k["name"], {}).get(key, 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

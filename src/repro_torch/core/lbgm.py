@@ -24,7 +24,7 @@ import torch
 from repro_torch.core.tree_math import (per_client, tree_scale, tree_select,
                                         tree_sq_norm, tree_vdot)
 from repro_torch.kernels.ops import lbgm_projection, lbgm_sparse_decision
-from repro_torch.kernels.ref import topk_abs_rows
+from repro_torch.kernels.ref import flat_to_blocks, topk_abs_rows
 
 EPS = 1e-20
 
@@ -63,8 +63,8 @@ def topk_uplink_stats(sin2, rho, scalar, gg, total_k: int) -> LBGMStats:
 
 def lbgm_stats(grad, lbg, fused: bool = False):
     """(sin2, rho, gg) per client. ``fused=True`` computes <g,l>, ||g||^2
-    and ||l||^2 with the one-pass projection kernel (one batched launch per
-    leaf) instead of three separate passes."""
+    and ||l||^2 with the one-pass projection kernel (one launch over every
+    leaf of the chunk) instead of three separate passes."""
     if fused:
         gl, gg, ll = lbgm_projection(grad, lbg)
     else:
@@ -111,11 +111,7 @@ def _block_layout(size: int, k_frac: float) -> Tuple[int, int, int]:
 
 def _to_blocks(g: torch.Tensor, nb: int, block: int) -> torch.Tensor:
     """(C, *shape) -> (C, nb, block) fp32, zero-padded at the end."""
-    flat = g.reshape(g.shape[0], -1).float()
-    pad = nb * block - flat.shape[1]
-    if pad:
-        flat = torch.nn.functional.pad(flat, (0, pad))
-    return flat.reshape(g.shape[0], nb, block)
+    return flat_to_blocks(g.reshape(g.shape[0], -1).float(), nb, block)
 
 
 def _live_rows(size: int, block: int) -> int:
@@ -192,7 +188,8 @@ def topk_step_core(grad: Dict[str, torch.Tensor], lbg, delta_threshold,
     grad: dict of dense (C, ...) leaves. lbg: dict of {idx, val}, each
     (C, nb, kb). ``fused=True`` replaces the three dense passes over each
     leaf (sparse gather, ||g||^2, block-wise top-k) with one launch of the
-    fused decision kernel (``kernels.ops.lbgm_sparse_decision``).
+    fused decision kernel (``kernels.ops.lbgm_sparse_decision``) on the
+    flat leaf.
 
     ``sparse_out=True`` skips the dense scatter of g_tilde and returns
     ``((send, gscale), new_lbg, stats)``: ``send`` is the per-leaf sparse
@@ -208,9 +205,11 @@ def topk_step_core(grad: Dict[str, torch.Tensor], lbg, delta_threshold,
         g, sl = grad[name], lbg[name]
         size = int(g[0].numel())
         if fused:
-            nb, block, _ = _block_layout(size, k_frac)
+            # the flat leaf in its own dtype: the kernel reads the live
+            # rows only and treats the layout's padding as zeros
+            _, block, _ = _block_layout(size, k_frac)
             gg_leaf, gv, ti, tv = lbgm_sparse_decision(
-                _to_blocks(g, nb, block), sl["idx"])
+                g.reshape(g.shape[0], -1), sl["idx"], block=block)
             fresh[name] = {"idx": ti, "val": tv}
         else:
             gv = leaf_sparse_gather(g, sl, k_frac, trim_pad=trim)

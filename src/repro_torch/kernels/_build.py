@@ -115,9 +115,42 @@ LAUNCHES: Dict[str, int] = {"lbgm_projection": 0, "lbgm_sparse_decision": 0,
                             "rwkv6_scan": 0}
 
 
+#: the same launches by the shape of the call (a wrapper's own key: the
+#: decision's (B, size, nb, block, kb), the projection's leaf table, the
+#: fold's (C, nb, block, kb), flash's (B, Tq, Tk, Hq, Hkv, hd), the scan's
+#: (B, T, H, hd))
+LAUNCH_SHAPES: Dict[str, Dict[tuple, int]] = {k: {} for k in LAUNCHES}
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_SHAPES[k] = {}
+
+
+def count_launch(name: str, shape: tuple) -> None:
+    """One launch of ``name``'s kernel, at ``shape``."""
+    LAUNCHES[name] += 1
+    by_shape = LAUNCH_SHAPES[name]
+    by_shape[shape] = by_shape.get(shape, 0) + 1
+
+
+_tickets: Dict[tuple, object] = {}
+
+
+def tickets(name: str, device, n: int):
+    """``n`` int32 counters on ``device`` for ``name``'s kernel, zero
+    between its calls: the kernel's last CTA of a client finds itself by
+    one and sets it back to 0. Kept across calls (made once, zeroed once,
+    grown as needed), so a call launches nothing but its kernel; calls of
+    one kernel on one device are ordered on the current stream."""
+    import torch
+    key = (name, str(device))
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def check_card(*tensors) -> None:

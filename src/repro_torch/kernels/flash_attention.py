@@ -89,5 +89,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             -1 if window is None else int(window), int(q_offset),
             _build.stream_ptr(q.device))
     _build.check_rc("flash_attention", rc)
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.count_launch("flash_attention", (B, Tq, Tk, Hq, Hkv, hd))
     return out

@@ -19,7 +19,7 @@ import torch
 # the LM kernels take the JAX ops layout ((B, T, H, hd)) as they are: the
 # wrappers themselves are the public entry points
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
-from repro_torch.kernels.lbgm_projection import lbgm_projection_batched
+from repro_torch.kernels.lbgm_projection import lbgm_projection_leaves
 # lbgm_dequant_accum takes the chunk's (C, nb, kb) payloads as they are:
 # the wrapper itself is the public entry point (one call per leaf per chunk)
 from repro_torch.kernels.lbgm_sparse import (  # noqa: F401
@@ -39,24 +39,21 @@ def _default_two_pass() -> bool:
 def lbgm_projection(g_tree: Dict[str, torch.Tensor],
                     l_tree: Dict[str, torch.Tensor]):
     """Per-client fused (<g,l>, ||g||^2, ||l||^2) over a pair of batched
-    dicts (leaves ``(C, ...)``): one batched launch per leaf, the per-leaf
-    scalars added in sorted key order. Returns three (C,) fp32 tensors."""
-    gl = gg = ll = None
-    for name in sorted(g_tree):
-        g, l = g_tree[name], l_tree[name]
-        a, b, c = lbgm_projection_batched(g.reshape(g.shape[0], -1),
-                                          l.reshape(l.shape[0], -1))
-        if gl is None:
-            gl, gg, ll = a, b, c
-        else:
-            gl, gg, ll = gl + a, gg + b, ll + c
-    return gl, gg, ll
+    dicts (leaves ``(C, ...)``, one dtype and one C): one launch over every
+    leaf, the per-leaf sums added in sorted key order. Returns three (C,)
+    fp32 tensors."""
+    names = sorted(g_tree)
+    return lbgm_projection_leaves(
+        [g_tree[k].reshape(g_tree[k].shape[0], -1) for k in names],
+        [l_tree[k].reshape(l_tree[k].shape[0], -1) for k in names])
 
 
 def lbgm_sparse_decision(blocks: torch.Tensor, idx: torch.Tensor,
-                         two_pass=None):
-    """One fused pass over a ``(C, nb, block)`` block layout: returns
-    ``(gg (C,), gathered, top_idx, top_val)``. ``two_pass=None`` reads the
+                         two_pass=None, block=None):
+    """One fused pass over a ``(C, nb, block)`` block layout, or over the
+    flat leaf ``(C, size)`` with ``block=``: returns ``(gg (C,), gathered,
+    top_idx, top_val)``. ``two_pass=None`` reads the
     ``REPRO_LBGM_TWO_PASS_TOPK`` knob."""
     two_pass = _default_two_pass() if two_pass is None else bool(two_pass)
-    return lbgm_sparse_decision_batched(blocks, idx, two_pass=two_pass)
+    return lbgm_sparse_decision_batched(blocks, idx, two_pass=two_pass,
+                                        block=block)

@@ -30,14 +30,27 @@ def topk_abs_rows(rows: torch.Tensor, kb: int):
     return idx.to(torch.int32), torch.gather(rows, -1, idx)
 
 
-def lbgm_sparse_decision_ref(blocks: torch.Tensor, idx: torch.Tensor):
+def flat_to_blocks(g: torch.Tensor, nb: int, block: int) -> torch.Tensor:
+    """A flat leaf (..., size) as its (..., nb, block) layout, zero-padded
+    at the end, in its own dtype."""
+    pad = nb * block - g.shape[-1]
+    if pad:
+        g = torch.nn.functional.pad(g, (0, pad))
+    return g.reshape(g.shape[:-1] + (nb, block))
+
+
+def lbgm_sparse_decision_ref(blocks: torch.Tensor, idx: torch.Tensor,
+                             block=None):
     """The three dense passes the fused sparse kernel replaces.
 
-    blocks: (..., nb, block); idx: (..., nb, kb) int32 block-local
-    positions. Returns ``(gg (...), gathered (..., nb, kb), top_idx
-    (..., nb, kb) int32, top_val (..., nb, kb))``: top-k by |value| per
-    block row in descending |value| order, values kept signed.
+    blocks: (..., nb, block), or the flat leaf (..., size) with ``block=``
+    given (padded with zeros to idx's nb rows first); idx: (..., nb, kb)
+    int32 block-local positions. Returns ``(gg (...), gathered (..., nb,
+    kb), top_idx (..., nb, kb) int32, top_val (..., nb, kb))``: top-k by
+    |value| per block row in descending |value| order, values kept signed.
     """
+    if block is not None:
+        blocks = flat_to_blocks(blocks, idx.shape[-2], block)
     b32 = blocks.float()
     gg = (b32 * b32).sum((-2, -1))
     gathered = torch.gather(b32, -1, idx.long())
@@ -75,11 +88,11 @@ def sort_topk_rows(idx: torch.Tensor, val: torch.Tensor):
 
 
 def lbgm_sparse_decision_two_pass_ref(blocks: torch.Tensor,
-                                      idx: torch.Tensor):
+                                      idx: torch.Tensor, block=None):
     """The two-pass (threshold-select) decision: the same (idx, val) set
     per row as :func:`lbgm_sparse_decision_ref`, in ascending index
     order."""
-    gg, gathered, ti, tv = lbgm_sparse_decision_ref(blocks, idx)
+    gg, gathered, ti, tv = lbgm_sparse_decision_ref(blocks, idx, block)
     ti, tv = sort_topk_rows(ti, tv)
     return gg, gathered, ti, tv
 

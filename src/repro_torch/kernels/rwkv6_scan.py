@@ -88,5 +88,5 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *(t.data_ptr() for t in ins), out.data_ptr(), state.data_ptr(),
             B, T, H, hd, c, _build.stream_ptr(r.device))
     _build.check_rc("rwkv6_scan", rc)
-    _build.LAUNCHES["rwkv6_scan"] += 1
+    _build.count_launch("rwkv6_scan", (B, T, H, hd))
     return out, state

@@ -26,7 +26,17 @@ never the import) and run on the H100 with
 - the value-order sparse decision past its shared-memory sort (kb = 16385,
   32768, 65536: the keys sorted in a global scratch buffer by tiles and
   merge passes) against its plain version exactly, with ties, all-zero rows
-  and rows with fewer nonzeros than kb.
+  and rows with fewer nonzeros than kb;
+- the decision's clusters on flat leaves (``csrc/lbgm_sparse_decision.cu``)
+  against its plain version exactly, both orders, fp32 and bf16: the FCN's
+  four leaves, the cluster's slice edges, ties across CTAs, a size that is
+  not a multiple of 4, partly live rows with fewer nonzeros than kb, kb = 1
+  and kb = block, an all-zero live row; the flat form equal to the padded
+  layout and a second call to the first, bit for bit; value order with
+  each placement of the kept keys forced (ranks or rank 0's bitonic sort);
+- the projection's leaf table (``csrc/lbgm_projection.cu``): one call equal
+  to the left-to-right sum of one-leaf calls bit for bit, with misaligned
+  leaves and more leaves than one launch's table.
 """
 import numpy as np
 import pytest
@@ -258,3 +268,162 @@ def test_value_order_decision_past_the_shared_sort(card, case, dtype):
     assert torch.equal(ti, rti)
     assert torch.equal(tv, rtv) and torch.equal(gath, rgath)
     torch.testing.assert_close(gg, rgg, rtol=1e-5, atol=0)
+
+
+# ------------------------------------ the decision's clusters, flat leaves
+
+def _decision_case(rng, B, size, block, kb, kind):
+    """A flat leaf (B, size) of ``kind``, its nb (rounded up to 16 past one
+    row, as the engine's layout), and idx (B, nb, kb)."""
+    nb = -(-size // block)
+    nb = -(-nb // 16) * 16 if nb > 1 else nb
+    x = rng.randn(B, size).astype(np.float32)
+    if kind == "ties":
+        x = np.round(x * 2) / 2
+    elif kind == "zero_row":          # client 0's first row all zero
+        x[0, :block] = 0.0
+    elif kind == "sparse":            # fewer nonzeros than kb in a row
+        x = np.where(rng.rand(B, size) < 0.002, x, 0.0)
+    elif kind == "slice_edges":       # the largest at the cluster's edges
+        for e in range(8192, block, 8192):
+            for p in (e - 1, e):
+                if p < size:
+                    x[:, p] = 50.0 + p / block
+    elif kind == "dense_zeros":       # zeros few enough to be gathered
+        x = np.where(rng.rand(B, size) < 0.06, 0.0, x)
+    elif kind == "straddle":          # one magnitude across CTA slices
+        x = np.where(rng.rand(B, size) < 0.03, 1.0, 0.0)
+        x[:, ::4096] = -1.0
+    idx = np.argsort(rng.rand(B, nb, block), -1)[..., :kb]
+    return x.astype(np.float32), idx.astype(np.int32), nb
+
+
+# (B, size, block, kb, kind)
+CLUSTER_EDGES = [
+    (10, 100352, 65536, 627, "normal"),    # fc1/w at a chunk of 10
+    (10, 1280, 1280, 128, "normal"),       # fc2/w: a cluster of 1
+    (10, 128, 128, 12, "normal"),          # fc1/b
+    (10, 10, 10, 1, "normal"),             # fc2/b: 40-byte rows
+    (3, 100353, 65536, 627, "normal"),     # size % 4 != 0: ragged slices
+    (2, 70001, 65536, 2000, "ties"),
+    (2, 131072, 65536, 900, "slice_edges"),
+    (2, 131072, 65536, 700, "straddle"),   # ties across CTAs
+    (2, 65536 + 100, 65536, 300, "sparse"),  # virtual zeros fill the row
+    (2, 65536 + 5, 65536, 40, "normal"),   # 5 live elements, kb > 5
+    (2, 131072, 65536, 1, "normal"),       # kb = 1
+    (2, 65536, 65536, 65536, "ties"),      # kb = block
+    (2, 36864, 36864, 3686, "zero_row"),   # CNN conv3/w: 5 CTAs
+    (1, 8193, 8193, 77, "straddle"),       # a cluster of 2, one past 8192
+    # kb past the nonzeros: the threshold is 0, and the zeros, 100 of them
+    # virtual, are few enough for rank 0 to gather
+    (1, 131072 - 100, 65536, 62000, "dense_zeros"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("two_pass", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CLUSTER_EDGES, ids=str)
+def test_decision_clusters_match_plain(card, case, dtype, two_pass):
+    """The flat-leaf decision on the card against its plain version: the
+    index sets and orders exactly, the values exactly, ||g||^2 to rtol
+    1e-5; the flat form equals the zero-padded layout bit for bit, and a
+    second call (the per-client tickets reset) the first."""
+    B, size, block, kb, kind = case
+    rng = np.random.RandomState(size + kb)
+    x, idx, nb = _decision_case(rng, B, size, block, kb, kind)
+    g = torch.from_numpy(x).to(getattr(torch, dtype)).to(card)
+    ti_ = torch.from_numpy(idx).to(card)
+    got = ks.lbgm_sparse_decision_batched(g, ti_, two_pass, block=block)
+    fn = (ref.lbgm_sparse_decision_two_pass_ref if two_pass
+          else ref.lbgm_sparse_decision_ref)
+    want = fn(g, ti_, block=block)
+    padded = ks.lbgm_sparse_decision_batched(
+        ref.flat_to_blocks(g, nb, block).contiguous(), ti_, two_pass)
+    again = ks.lbgm_sparse_decision_batched(g, ti_, two_pass, block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[3], want[3]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    for a, b, c in zip(got, padded, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("placement", ["rank", "sort"])
+@pytest.mark.parametrize("case", [c for c in CLUSTER_EDGES
+                                  if c[3] <= 16384], ids=str)
+def test_value_order_placements_match_plain(card, case, placement):
+    """Value order with each placement of a row's kept keys forced (ranks
+    counted in every CTA of the cluster, or rank 0's bitonic sort) against
+    the plain version exactly, on the cluster edge cases."""
+    B, size, block, kb, kind = case
+    rng = np.random.RandomState(size + kb + 1)
+    x, idx, nb = _decision_case(rng, B, size, block, kb, kind)
+    g = torch.from_numpy(x).to(card)
+    ti_ = torch.from_numpy(idx).to(card)
+    ks.set_placement(placement)
+    try:
+        got = ks.lbgm_sparse_decision_batched(g, ti_, block=block)
+    finally:
+        ks.set_placement("rule")
+    want = ref.lbgm_sparse_decision_ref(g, ti_, block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[3], want[3]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+
+
+# ---------------------------------------- the projection's leaf table
+
+def _leaves(rng, B, ns, dtype, card, misaligned=False):
+    out = []
+    for n in ns:
+        if misaligned:   # contiguous views one element past an alignment
+            flat = torch.from_numpy(rng.randn(B * n + 1).astype(np.float32))
+            t = flat.to(dtype).to(card)[1:].view(B, n)
+        else:
+            t = torch.from_numpy(rng.randn(B, n).astype(np.float32)).to(
+                dtype).to(card)
+        out.append(t)
+    return out
+
+
+# (B, leaf lengths, misaligned)
+PROJ_TABLES = [
+    (10, (128, 100352, 10, 1280), False),          # the FCN, sorted keys
+    (10, (800, 32, 18432, 64, 36864, 64, 31360, 10, 1, 4096), False),
+    (3, (17, 4097, 100352, 5), True),              # no 16-byte loads
+    (2, tuple(range(1, 140, 2)), False),           # 70 leaves: 2 launches
+    (1, (100352,), False),                         # the unbatched form
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PROJ_TABLES, ids=str)
+def test_projection_leaf_table_equals_per_leaf_calls(card, case, dtype):
+    """One call over a leaf table equals, bit for bit, the left-to-right
+    sum of one-leaf calls, and a second call the first; both hold against
+    the plain version to 1e-5 of the sum of |terms|."""
+    from repro_torch.kernels import lbgm_projection as kp
+    B, ns, misaligned = case
+    rng = np.random.RandomState(len(ns) + B)
+    dt = getattr(torch, dtype)
+    gs = _leaves(rng, B, ns, dt, card, misaligned)
+    ls = _leaves(rng, B, ns, dt, card, misaligned)
+    got = kp.lbgm_projection_leaves(gs, ls)
+    again = kp.lbgm_projection_leaves(gs, ls)
+    want = None
+    for g, l in zip(gs, ls):
+        part = kp.lbgm_projection_batched(g, l)
+        want = part if want is None else tuple(
+            a + b for a, b in zip(want, part))
+    plain = kp.lbgm_projection_leaves([g.cpu() for g in gs],
+                                      [l.cpu() for l in ls])
+    scale = kp.lbgm_projection_leaves([g.abs().cpu() for g in gs],
+                                      [l.abs().cpu() for l in ls])
+    torch.cuda.synchronize()
+    for a, w, c, p, s in zip(got, want, again, plain, scale):
+        assert torch.equal(a, w) and torch.equal(a, c)
+        assert bool(((a.cpu() - p).abs() <= 1e-5 * s + 1e-30).all())
