@@ -63,10 +63,43 @@ From the root of a checkout. Phases, each printed as one JSON line:
    layer, with its carried state).
    Then both archs at full width, depth 2, fp32: the card's logits
    against the port's CPU run;
-7. ``flash_single_bf16_p``, a finding and not a check: on the main path's
+7. LM training (``lm_train_*`` phases), after
+   ``lm_train_kernel_checks`` (each differentiable kernel's forward +
+   backward against the plain forward under autograd on the card: flash in
+   bf16 at qwen3's training call, B=2, T=2048, each gradient within 2e-2
+   of its max against the fp32 plain version, and in fp32 at B=1, T=512;
+   the scan in fp32 at rwkv6's, within 1e-3; the two backwards' times
+   beside their bounds and SDPA's backward; the projection over one
+   client's table of every leaf of each LM, rwkv6's 3.60 billion
+   elements included, against its plain version). ``lm_train_topk_qwen3``
+   (``make_train_step``, fsdp, the top-k store at k_frac 0.01, K=4, b=2,
+   T=2048, 2 steps: the decision kernel on every leaf, the ``embed``
+   leaf's decision on step 2's own gradient equal to the plain version's),
+   ``lm_train_qwen3_layers`` and ``lm_train_rwkv6_layers`` (every block
+   forward and backward on step 1's hidden states through the kernels
+   and through their plain versions, teacher forced: rwkv6 in bf16 is
+   chaotic end to end), then
+   ``lm_train_qwen3`` and ``lm_train_rwkv6``: ``launch.train.main`` at full
+   width (``--clients 4`` / ``2 --batch 2 --seq 2048 --steps 3 --pool 1
+   --delta 0.6 --lr 0.05``, replicated, dense LBGs): per step the loss,
+   scalar fraction and uplink floats, ms per step, tokens/s, peak memory
+   and launches per kernel (flash or the scan twice per layer per client,
+   forward and remat recompute; the projection once per client), one step
+   profiled with the backwards' device time; qwen3's 3 steps again under
+   the plain kernels (step 1's loss within rtol 2e-3, its aggregated update
+   within 2e-2 relative L2 or twice the model's own floor, the plain step
+   against itself with attention outputs moved by half a bf16 ulp,
+   whichever is larger; decisions equal where sin² lies farther than 1e-2
+   from delta). ``lm_train_card_vs_cpu``: both archs at depth 2 in
+   fp32, 2 steps of K=2, b=1, T=256 on the card and on the CPU (step 1's
+   loss within rtol 1e-4 and update within 1e-3 relative L2, decisions
+   equal where sin² lies farther than 1e-5 from delta). The training
+   launches are reported in these records, not in the kernels line;
+8. ``flash_single_bf16_p``, a finding and not a check: on the main path's
    flash call, the error that rounding p to bf16 once before P.V would
    give, beside the kernel's hi/lo split and the kernel itself;
-8. one ``kernels`` line: per kernel (six: the dequant-accumulate, flash
+9. the script's total seconds, then one ``kernels`` line: per kernel
+   (six: the dequant-accumulate, flash
    attention and the RWKV6 scan last), its launches on the main path, its
    median time over 25 launches (CUDA events, L2 flushed before each); the
    projection and the decision at every call shape of the main path
@@ -90,6 +123,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -955,16 +989,17 @@ def run_phase(label, spec, two_pass, want_kernels, totals):
 
 def device_events(prof):
     """``({name: [device us, count]}, kernels, busy ms)`` of a profile,
-    leaving out the spin kernel of ``torch.cuda._sleep``."""
+    leaving out the spin kernel of ``torch.cuda._sleep``. Read from the
+    profiler's raw events: ``prof.events()`` builds an event tree in
+    Python, which takes minutes for a training step's 250,000 kernels."""
     from torch.autograd import DeviceType
     by_name, n_kernels = {}, 0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA or "spin_kernel" in ev.name:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or "spin_kernel" in ev.name():
             continue
         n_kernels += 1
-        us = by_name.setdefault(ev.name, [0.0, 0])
-        us[0] += ev.device_time_total if hasattr(ev, "device_time_total") \
-            else ev.cuda_time_total
+        us = by_name.setdefault(ev.name(), [0.0, 0])
+        us[0] += ev.duration_ns() / 1e3
         us[1] += 1
     return by_name, n_kernels, sum(v[0] for v in by_name.values()) / 1e3
 
@@ -1401,12 +1436,12 @@ def lm_model(arch):
 
 
 def profile_device(fn):
-    """Wall ms, device busy ms, idle share and top kernels of one call."""
+    """Wall ms, device busy ms, idle share and top kernels of one call
+    (the device's activity only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1850,10 +1885,722 @@ def scan_entry(gen, errs, B=4, T=4096):
                     "state tensor"}}
 
 
+# ------------------------------------------------------------ LM training
+
+#: the training phases' flags for ``launch.train.main`` (replicated, the
+#: dense "full" store); --clients per arch (dense LBG banks of K clients)
+TRAIN_ARGV = ["--batch", "2", "--seq", "2048", "--steps", "3", "--pool", "1",
+              "--delta", "0.6", "--lr", "0.05", "--log-every", "1"]
+TRAIN_CLIENTS = {"qwen3-1.7b": 4, "rwkv6-3b": 2}
+TRAIN_DELTA = 0.6
+#: the Function's forward + backward against the plain forward + autograd:
+#: bf16 (the plain side in fp32 on the bf16 inputs) each gradient within
+#: 2e-2 of its max |.|; fp32 within 1e-3 of its max |.|
+TRAIN_GRAD_TOL_BF16 = 2e-2
+TRAIN_GRAD_TOL_FP32 = 1e-3
+#: a bf16 training step against the plain kernels' run: step 1's loss
+#: (rtol) and aggregated update (relative L2); decisions are held where
+#: sin² lies farther than TRAIN_MARGIN from delta in both runs. The
+#: update is held at TRAIN_UPDATE_RTOL or, where larger, at twice the
+#: model's own floor measured in the same call: the plain run against
+#: itself with every attention output moved by 2^-9 relative (half a bf16
+#: ulp), which moves qwen3's step-1 update by 2.6% (NVIDIA H100, 700 W)
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_UPDATE_RTOL = 2e-2
+TRAIN_UPDATE_FLOOR_FACTOR = 2.0
+TRAIN_NUDGE = 2.0 ** -9
+TRAIN_MARGIN = 1e-2
+#: card against CPU in fp32 at depth 2
+TRAIN_CPU_LOSS_RTOL = 1e-4
+TRAIN_CPU_UPDATE_RTOL = 1e-3
+TRAIN_CPU_MARGIN = 1e-5
+#: the projection and the decision per client, the LM kernels per layer
+#: per client (forward, and again in the block's remat recompute)
+TRAIN_KERNELS = ("lbgm_projection", "lbgm_sparse_decision", "flash_attention",
+                 "rwkv6_scan")
+
+
+def grads_vs_plain(kernel_fn, plain_fn, ins, ups, plain_ins=None,
+                   plain_ups=None):
+    """Outputs and input gradients of ``kernel_fn`` (the autograd
+    Function) and of ``plain_fn`` under autograd, each on its own copies
+    of the inputs and upstream gradients."""
+    import torch
+
+    def run(fn, xs, gs):
+        xs = [x.detach().clone().requires_grad_() for x in xs]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return ([o.detach() for o in outs],
+                torch.autograd.grad(outs, xs, gs))
+    return (run(kernel_fn, ins, ups),
+            run(plain_fn, plain_ins or ins, plain_ups or ups))
+
+
+def lbgm_table_check(arch):
+    """The projection over one client's table of every leaf of the
+    full-width model (rwkv6-3b: 3.60 billion bf16 elements, past 2^31),
+    the params as g and a random l, against its plain version (each
+    leaf's sums added in sorted key order) within 1e-5 of the sum of
+    |terms|; and its time against the bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.transformer import init_lm
+    cfg = get_config(arch)
+    g, _ = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
+                   device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    l = {k: torch.randn(v.shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * 0.02 for k, v in g.items()}
+    g1 = {k: v[None] for k, v in g.items()}
+    l1 = {k: v[None] for k, v in l.items()}
+    got = ops.lbgm_projection(g1, l1)
+    names = sorted(g)
+    want = scale = None
+    for k in names:
+        a, b = g[k].reshape(1, -1), l[k].reshape(1, -1)
+        part = ref.lbgm_projection_ref(a, b)
+        sc = ref.lbgm_projection_ref(a.abs(), b.abs())
+        want = part if want is None else tuple(x + y for x, y in
+                                               zip(want, part))
+        scale = sc if scale is None else tuple(x + y for x, y in
+                                               zip(scale, sc))
+    torch.cuda.synchronize()
+    n = sum(int(v.numel()) for v in g.values())
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    ok = all(bool(((a - w).abs() <= 1e-5 * s).all())
+             for a, w, s in zip(got, want, scale))
+    bnd, by = bound_ms(2 * n * 2 + 3 * 4, 6 * n)
+    rec = {"arch": arch, "elements": n, "leaves": len(names),
+           "dtype": "bfloat16", "max_abs_err": err,
+           "ms": time_ms(lambda: ops.lbgm_projection(g1, l1), n=5),
+           "bound_ms": bnd, "bound_by": by,
+           "tolerance": "1e-5 of the sum of |terms|"}
+    if not ok:
+        fail(f"lm_train_kernel_checks: the projection over {arch}'s table "
+             f"of {n} elements is off its plain version by {err:.3g}")
+    del g, l, g1, l1
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_train_kernel_checks():
+    """The two differentiable LM kernels (forward: the kernel; backward:
+    plain PyTorch) against the plain forward under autograd on the card,
+    at the training shapes (qwen3: B=2, T=2048, Hq 16, Hkv 8, hd 128,
+    bf16; rwkv6: B=2, T=2048, H 40, hd 64, fp32) and flash in fp32; the
+    backward passes' times beside their bounds (and SDPA's backward as a
+    yardstick); the projection over both LMs' leaf tables."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    gen = torch.Generator().manual_seed(11)
+    rec = {"phase": "lm_train_kernel_checks"}
+    B, T, Hq, Hkv, hd = 2, 2048, 16, 8, 128
+    for dtype, shape in ((torch.bfloat16, (B, T, Hq, Hkv, hd)),
+                         (torch.float32, (1, 512, 16, 8, 64))):
+        b, t, hq, hkv, d = shape
+        q = torch.randn((b, t, hq, d), generator=gen).to(dtype).cuda()
+        k, v = (torch.randn((b, t, hkv, d), generator=gen).to(dtype).cuda()
+                for _ in range(2))
+        do = torch.randn((b, t, hq, d), generator=gen).to(dtype).cuda()
+        (o, gk), (po, gp) = grads_vs_plain(
+            fa.flash_attention, ref.flash_attention_gqa_ref, [q, k, v],
+            [do], [x.float() for x in (q, k, v)], [do.float()])
+        errs = {n: norm_err(a, w) for n, a, w in zip(("dq", "dk", "dv"),
+                                                     gk, gp)}
+        tol = TRAIN_GRAD_TOL_BF16 if dtype == torch.bfloat16 \
+            else TRAIN_GRAD_TOL_FP32
+        name = "flash_bf16" if dtype == torch.bfloat16 else "flash_fp32"
+        rec[name] = {"shape": list(shape), "grad_err": errs,
+                     "out_err": norm_err(o[0], po[0]),
+                     "tolerance": f"max|a-b| <= {tol} max|b|, each gradient"}
+        if max(errs.values()) > tol:
+            fail(f"lm_train_kernel_checks {name}: gradients off the plain "
+                 f"autograd by {errs} of their max (tolerance {tol})")
+    # the backward at qwen3's training call: time, bound, the plain
+    # autograd's time and SDPA's backward (kv heads repeated) as yardsticks
+    q = torch.randn((B, T, Hq, hd), generator=gen).bfloat16().cuda()
+    k, v = (torch.randn((B, T, Hkv, hd), generator=gen).bfloat16().cuda()
+            for _ in range(2))
+    do = torch.randn((B, T, Hq, hd), generator=gen).bfloat16().cuda()
+    pairs = B * Hq * T * (T + 1) // 2
+    # per kept (q, k) pair: s = q.k again, dp = do.v, dq += ds.k,
+    # dk += ds.q, dv += p.do: 5 products of 2 hd flops (2.5x the forward)
+    bnd, by = bound_ms(2 * (2 * B * T * Hq * hd + 2 * B * T * Hkv * hd) * 2,
+                       10 * hd * pairs, BF16_FLOPS)
+    xs = [x.float().requires_grad_() for x in (q, k, v)]
+    po = ref.flash_attention_gqa_ref(*xs)
+    g = Hq // Hkv
+    st = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    st = [st[0]] + [x.repeat_interleave(g, dim=1) for x in st[1:]]
+    st = [x.requires_grad_() for x in st]
+    so = F.scaled_dot_product_attention(*st, is_causal=True)
+    sdo = do.transpose(1, 2).contiguous()
+    rec["flash_backward"] = {
+        "shape": [B, T, Hq, Hkv, hd], "dtype": "bfloat16",
+        "ms": time_ms(lambda: fa.flash_attention_backward(q, k, v, do), n=5),
+        "bound_ms": bnd, "bound_by": by,
+        "bound_ms_fp32_cuda_cores": bound_ms(0, 10 * hd * pairs)[0],
+        "plain_autograd_ms": time_ms(lambda: torch.autograd.grad(
+            po, xs, do.float(), retain_graph=True), n=5),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            so, st, sdo, retain_graph=True), n=5),
+        "library_call": "autograd backward of scaled_dot_product_attention "
+                        "(is_causal, kv heads repeated, bf16 P.V), a "
+                        "yardstick only",
+        "note": "plain PyTorch in fp32 per block of 1024 query rows, keys "
+                "cut to the causal band"}
+    del xs, po, st, so
+    # the scan at rwkv6's training call, with upstream gradients on the
+    # output and the final state
+    H, hd = 40, 64
+    ins = scan_inputs(gen, B, T, H, hd, "zeros", "model")
+    ups = [torch.randn((B, T, H, hd), generator=gen).cuda(),
+           torch.randn((B, H, hd, hd), generator=gen).cuda()]
+
+    def plain_scan(*a):
+        return ref.rwkv6_chunked_ref(*a, rs.CHUNK)
+    (o, gk), (po, gp) = grads_vs_plain(rs.rwkv6_scan, plain_scan, ins, ups)
+    errs = {n: norm_err(a, w) for n, a, w in zip(
+        ("dr", "dk", "dv", "dlogw", "du", "dstate0"), gk, gp)}
+    rec["scan_fp32"] = {"shape": [B, T, H, hd], "grad_err": errs,
+                        "out_err": max(norm_err(a, w) for a, w in zip(o, po)),
+                        "tolerance": f"max|a-b| <= {TRAIN_GRAD_TOL_FP32} "
+                                     f"max|b|, each gradient"}
+    if max(errs.values()) > TRAIN_GRAD_TOL_FP32:
+        fail(f"lm_train_kernel_checks scan: gradients off the plain autograd "
+             f"by {errs} (tolerance {TRAIN_GRAD_TOL_FP32})")
+    c = rs.CHUNK
+    per_chunk = (2 * hd * c * (c - 1) // 2 + 2 * hd * c * (c + 1) // 2
+                 + 4 * c * hd * hd + hd * hd + 3 * c * hd + 7 * c * hd)
+    # the forward's recompute plus two products per forward product
+    bnd, by = bound_ms(9 * B * T * H * hd * 4 + 3 * B * H * hd * hd * 4
+                       + 2 * H * hd * 4, 3 * per_chunk * (T // c) * B * H)
+    rec["scan_backward"] = {
+        "shape": [B, T, H, hd], "dtype": "float32",
+        "ms": time_ms(lambda: rs.rwkv6_scan_backward(*ins, *ups), n=5),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "note": "plain PyTorch: the chunked plain version recomputed under "
+                "autograd and differentiated"}
+    rec["projection_lm_tables"] = [lbgm_table_check(a) for a in LM_KERNEL]
+    emit(rec)
+    return rec
+
+
+@contextlib.contextmanager
+def backward_timer():
+    """CUDA events around every call of the two Functions' backwards:
+    yields a dict whose "ms" (per Function) the caller reads after a
+    synchronise."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rs
+    import torch
+    spans = {"flash_attention": [], "rwkv6_scan": []}
+    saved = {}
+    for name, cls in (("flash_attention", fa.FlashAttention),
+                      ("rwkv6_scan", rs.RWKV6Scan)):
+        real = cls.backward
+        saved[cls] = real
+
+        def timed(ctx, *grads, _real=real, _name=name):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = _real(ctx, *grads)
+            e.record()
+            spans[_name].append((s, e))
+            return out
+        cls.backward = staticmethod(timed)
+    res = {"spans": spans}
+    try:
+        yield res
+    finally:
+        for cls, real in saved.items():
+            cls.backward = staticmethod(real)
+
+
+def backward_ms(res):
+    return {k: sum(s.elapsed_time(e) for s, e in v)
+            for k, v in res["spans"].items() if v}
+
+
+@contextlib.contextmanager
+def train_probe(profiled=None, keep_update=False, compare_update=None,
+                capture=None):
+    """Wrap the trainer (``train.trainer.make_train_step``, looked up at
+    call time by ``launch.train.main``) for one run: per step, host ms
+    around the synchronised step, launches per kernel (the counters set to
+    0 at each step's start), and every client's sin² and decision (the
+    stats of ``lbgm_client_step`` / ``lbgm_topk_client_step``). Step 1's
+    aggregated update (the gradient handed to ``sgd_update``) is kept on
+    the host (``keep_update``) or held against a kept one
+    (``compare_update``: relative L2). ``profiled``: that step (from 0) is
+    profiled (and its backwards timed) instead of timed alone.
+    ``capture(step, client, grad, lbg)`` sees each client's inputs."""
+    import torch
+    from repro_torch.core import lbgm as lbgm_lib
+    from repro_torch.kernels import _build
+    from repro_torch.train import trainer as tr
+    rec = {"ms": [], "launches": [], "sin2": [], "sent": [], "update": None,
+           "update_rel_l2": None, "profile": None}
+    real_make, real_sgd = tr.make_train_step, tr.sgd_update
+    names = ("lbgm_client_step", "lbgm_topk_client_step")
+    real_steps = {n: getattr(lbgm_lib, n) for n in names}
+
+    def client_step(name):
+        real = real_steps[name]
+
+        def wrapped(grad, lbg, *a, **kw):
+            if capture is not None:
+                capture(len(rec["sin2"]) - 1, len(rec["sin2"][-1]), grad,
+                        lbg)
+            out = real(grad, lbg, *a, **kw)
+            rec["sin2"][-1].extend(out[2].sin2.tolist())
+            rec["sent"][-1].extend(out[2].sent_scalar.tolist())
+            return out
+        return wrapped
+
+    def sgd(params, grads, *a, **kw):
+        if len(rec["sin2"]) == 1:
+            if keep_update:
+                rec["update"] = {k: v.cpu() for k, v in grads.items()}
+            if compare_update is not None:
+                num = den = 0.0
+                for k, v in grads.items():
+                    w = compare_update[k].to(v.device)
+                    num += float(((v - w) ** 2).sum(dtype=torch.float64))
+                    den += float((w ** 2).sum(dtype=torch.float64))
+                rec["update_rel_l2"] = (num / max(den, 1e-300)) ** 0.5
+        return real_sgd(params, grads, *a, **kw)
+
+    def make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def timed(state, batch):
+            rec["sin2"].append([])
+            rec["sent"].append([])
+            i = len(rec["sin2"]) - 1
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            out = []
+            if i == profiled:
+                with backward_timer() as bw:
+                    prof = profile_device(lambda: out.append(step(state,
+                                                                  batch)))
+                torch.cuda.synchronize()
+                # the backwards' spans on the device, from their first
+                # kernel's start to their last's end: idle gaps between
+                # their kernels count, so the share is of the step's wall
+                prof["backward_span_ms"] = backward_ms(bw)
+                prof["backward_span_share_of_wall"] = sum(
+                    prof["backward_span_ms"].values()) / prof["wall_ms"]
+                rec["profile"] = prof
+                rec["ms"].append(prof["wall_ms"])
+            else:
+                t0 = time.perf_counter()
+                out.append(step(state, batch))
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["launches"].append({k: v for k, v in _build.LAUNCHES.items()
+                                    if v})
+            return out[0]
+        return timed
+
+    tr.make_train_step, tr.sgd_update = make, sgd
+    for n in names:
+        setattr(lbgm_lib, n, client_step(n))
+    try:
+        yield rec
+    finally:
+        tr.make_train_step, tr.sgd_update = real_make, real_sgd
+        for n, f in real_steps.items():
+            setattr(lbgm_lib, n, f)
+
+
+def expect_launches(what, rec, want):
+    """Every step launched each kernel of ``want`` exactly so often."""
+    for i, got in enumerate(rec["launches"]):
+        for k, n in want.items():
+            if got.get(k, 0) != n:
+                fail(f"{what}: step {i + 1} launched {got.get(k, 0)} {k}, "
+                     f"want {n}")
+
+
+def decisions_agree(what, a, b, delta, margin):
+    """Clients whose sin² lies farther than ``margin`` from delta in both
+    runs decided alike; returns the smallest margin seen."""
+    least = float("inf")
+    for step, (sa, sb, da, db) in enumerate(zip(a["sin2"], b["sin2"],
+                                                a["sent"], b["sent"])):
+        if len(sa) != len(sb):
+            fail(f"{what}: step {step + 1} has {len(sa)} and {len(sb)} "
+                 f"clients")
+        for c, (x, y, p, q) in enumerate(zip(sa, sb, da, db)):
+            m = min(abs(x - delta), abs(y - delta))
+            least = min(least, m)
+            if m > margin and p != q:
+                fail(f"{what}: step {step + 1} client {c} decided "
+                     f"{p} and {q} at sin² {x:.6g} and {y:.6g} (delta "
+                     f"{delta})")
+    return least
+
+
+def train_record(phase, arch, cfg, K, b, T, rec, history, peak_gb):
+    """The end-to-end fields every training phase reports."""
+    steps = [{"step": i + 1, "ms": ms, "launches": launches,
+              **{k: h[k] for k in ("loss", "frac_scalar", "uplink_floats",
+                                   "vanilla_uplink_floats") if k in h}}
+             for i, (ms, launches, h) in enumerate(zip(
+                 rec["ms"], rec["launches"], history))]
+    timed = rec["ms"][1:] or rec["ms"]
+    ms = sum(timed) / len(timed)
+    return {"phase": phase, "arch": arch, "dtype": cfg.dtype,
+            "layers": cfg.n_layers, "dp_mode": cfg.dp_mode,
+            "lbgm_variant": cfg.lbgm.variant, "clients": K, "batch": b,
+            "seq_len": T, "remat": cfg.remat, "steps": steps,
+            "ms_per_step": ms,
+            "ms_per_step_of": (f"the mean of steps 2-{len(rec['ms'])}"
+                               if len(rec["ms"]) > 2 else
+                               f"step {len(rec['ms'])}"),
+            "tokens_per_s": K * b * T / ms * 1e3, "peak_mem_gb": peak_gb,
+            "launches_per_step": rec["launches"][-1]}
+
+
+def lm_train_main(arch, out_dir, plain=False, **probe):
+    """``launch.train.main`` at full width with TRAIN_ARGV: (history, probe
+    record, peak GB)."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    argv = TRAIN_ARGV + ["--arch", arch, "--clients",
+                         str(TRAIN_CLIENTS[arch]), "--out", out_dir]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with train_probe(**probe) as rec:
+        with (plain_lm_kernels() if plain else contextlib.nullcontext()):
+            history = launch_train.main(argv)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    return history, rec, peak
+
+
+def lm_profile_step(arch, K):
+    """One more run of the same flags through the library (no checkpoint
+    written): step 2 profiled, the backwards' device spans timed."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import trainer as tr
+    args = launch_train.parse_args(TRAIN_ARGV + ["--arch", arch,
+                                                 "--clients", str(K)])
+    cfg = launch_train.train_config(args)
+    state, _ = tr.init_train_state(
+        torch.Generator(device="cuda").manual_seed(args.seed), cfg, K)
+    batches = launch_train.client_batches(args, cfg.vocab_size, "cuda")
+    with train_probe(profiled=1) as rec:
+        step = tr.make_train_step(cfg, K, args.lr, delta=args.delta)
+        for _ in range(2):
+            state, _ = step(state, next(batches))
+    del state
+    torch.cuda.empty_cache()
+    return rec["profile"]
+
+
+def lm_train(arch, out_dir):
+    """``lm_train_qwen3`` / ``lm_train_rwkv6``: ``launch.train.main`` at
+    full width (3 steps, replicated "full"), its launches per step, ms per
+    step, tokens/s and peak memory; one step profiled; qwen3 also the same
+    3 steps from the same params under the plain kernels."""
+    import torch
+    from repro_torch.configs import get_config
+    K = TRAIN_CLIENTS[arch]
+    cfg = get_config(arch)
+    kernel = LM_KERNEL[arch]
+    history, rec, peak = lm_train_main(arch, out_dir, keep_update=True)
+    expect_launches(f"lm_train {arch}", rec,
+                    {kernel: 2 * cfg.n_layers * K, "lbgm_projection": K})
+    out = train_record(f"lm_train_{arch.split('-')[0]}", arch, cfg, K, 2,
+                       2048, rec, history, peak)
+    out["profile"] = lm_profile_step(arch, K)
+    if not all(torch.isfinite(torch.tensor([h["loss"] for h in history]))):
+        fail(f"lm_train {arch}: non-finite loss {history}")
+    if arch == "qwen3-1.7b":
+        phist, prec, _ = lm_train_main(arch, out_dir, plain=True,
+                                       compare_update=rec["update"],
+                                       keep_update=True)
+        rec["update"] = None
+        expect_launches(f"lm_train {arch} (plain kernels)", prec,
+                        {kernel: 0, "lbgm_projection": K})
+        floor = update_floor(arch, prec["update"])
+        prec["update"] = None
+        tol = max(TRAIN_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
+        loss_err = abs(history[0]["loss"] - phist[0]["loss"]) / abs(
+            phist[0]["loss"])
+        margin = decisions_agree(f"lm_train {arch} vs plain", rec, prec,
+                                 TRAIN_DELTA, TRAIN_MARGIN)
+        out["vs_plain"] = {
+            "step1_loss_rel_err": loss_err,
+            "step1_update_rel_l2": prec["update_rel_l2"],
+            "step1_update_floor_rel_l2": floor,
+            "smallest_sin2_margin": margin,
+            "plain_losses": [h["loss"] for h in phist],
+            "plain_frac_scalar": [h["frac_scalar"] for h in phist],
+            "tolerance": f"loss rtol {TRAIN_LOSS_RTOL}; update relative L2 "
+                         f"{tol:.4g} (the larger of {TRAIN_UPDATE_RTOL} and "
+                         f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor: the "
+                         f"plain run against itself with attention outputs "
+                         f"moved by {TRAIN_NUDGE} relative); decisions "
+                         f"equal where sin² lies > {TRAIN_MARGIN} from "
+                         f"delta in both runs"}
+        if loss_err > TRAIN_LOSS_RTOL or prec["update_rel_l2"] > tol:
+            fail(f"lm_train {arch}: step 1 off the plain kernels' run: loss "
+                 f"{loss_err:.3g}, update {prec['update_rel_l2']:.3g} "
+                 f"(floor {floor:.3g}, tolerance {tol:.3g})")
+    out["sin2"] = rec["sin2"]
+    rec["update"] = None
+    emit(out)
+    return out
+
+
+def train_teacher_forced(params, cfg, tokens):
+    """rwkv6's kernel path against the plain kernels', forward and
+    backward, layer by layer on the real run's hidden states: each block
+    takes the same input and upstream gradient through both, and the next
+    layer takes the kernel path's output. Returns the largest errors of a
+    block's update and of its input and parameter gradients, each over
+    the plain side's max."""
+    import torch
+    from repro_torch.models.transformer import _apply_block_train, layer_params
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    pos = torch.arange(T, device=x.device)[None].expand(B, T)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    upd = grad = 0.0
+    for kind, p in layer_params(params, cfg):
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+
+        def run():
+            leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+            xi = x.detach().requires_grad_()
+            y, _ = _apply_block_train(leaves, xi, cfg, kind, pos)
+            gs = torch.autograd.grad(y, [xi, *leaves.values()], dy,
+                                     allow_unused=True)
+            return y.detach(), gs
+        yk, gk = run()
+        with plain_lm_kernels():
+            yp, gp = run()
+        upd = max(upd, norm_err(yk.float() - x.float(),
+                                yp.float() - x.float()))
+        for a, w in zip(gk, gp):
+            if w is not None and float(w.abs().max()) > 0:
+                grad = max(grad, norm_err(a, w))
+        x = yk
+    return upd, grad
+
+
+def lm_train_layers(arch, params, cfg):
+    """``lm_train_<arch>_layers``: every block forward and backward on
+    step 1's hidden states (client 0's first batch of the run) through the
+    kernels and through their plain versions, teacher forced. This is
+    the check that stands for rwkv6's kernel-vs-plain run (its 32
+    random-init bf16 layers are chaotic), and beside qwen3's end-to-end
+    one it holds each layer."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    args = launch_train.parse_args(TRAIN_ARGV + ["--clients",
+                                                 str(TRAIN_CLIENTS[arch])])
+    batch = next(launch_train.client_batches(args, cfg.vocab_size, "cuda"))
+    upd, grad = train_teacher_forced(params, cfg, batch["tokens"][0])
+    rec = {"phase": f"lm_train_{arch.split('-')[0]}_layers", "arch": arch,
+           "layers": cfg.n_layers, "layer_update_err_vs_plain": upd,
+           "grad_err_vs_plain": grad,
+           "tolerance": f"max|a-b|/max|b| <= {BF16_MODEL_TOL}, every layer "
+                        f"on the same input and upstream gradient"}
+    torch.cuda.synchronize()
+    if max(upd, grad) > BF16_MODEL_TOL:
+        fail(f"lm_train {arch}: a block off the plain kernels by update "
+             f"{upd:.3g}, gradients {grad:.3g} (tolerance {BF16_MODEL_TOL})")
+    emit(rec)
+    return rec
+
+
+def update_floor(arch, plain_update):
+    """The model's own spread of step 1's aggregated update: the plain
+    kernels' step again with every attention output moved by TRAIN_NUDGE
+    relative (Gaussian), against ``plain_update``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import trainer as tr
+    K = TRAIN_CLIENTS[arch]
+    args = launch_train.parse_args(TRAIN_ARGV + ["--arch", arch,
+                                                 "--clients", str(K)])
+    cfg = launch_train.train_config(args)
+    state, _ = tr.init_train_state(
+        torch.Generator(device="cuda").manual_seed(args.seed), cfg, K)
+    batch = next(launch_train.client_batches(args, cfg.vocab_size, "cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with plain_lm_kernels():
+        plain = ops.flash_attention
+
+        def nudged(*a, **kw):
+            o = plain(*a, **kw)
+            noise = torch.randn(o.shape, generator=gen, device=o.device)
+            return (o.float() * (1 + TRAIN_NUDGE * noise)).to(o.dtype)
+        ops.flash_attention = nudged
+        with train_probe(compare_update=plain_update) as rec:
+            step = tr.make_train_step(cfg, K, args.lr, delta=args.delta)
+            step(state, batch)
+    del state
+    torch.cuda.empty_cache()
+    return rec["update_rel_l2"]
+
+
+def lm_train_topk_qwen3(params, K=4, b=2, T=2048, steps=2, k_frac=0.01):
+    """``make_train_step`` with ``dp_mode="fsdp"`` and the top-k store at
+    full width: the decision kernel on every leaf of every client; the
+    ``embed`` leaf's decision on step 2's own gradient (client 0) held
+    exactly against the plain version."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.lbgm import _block_layout
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import trainer as tr
+    base = get_config("qwen3-1.7b")
+    cfg = dataclasses.replace(base, dp_mode="fsdp", lbgm=dataclasses.replace(
+        base.lbgm, variant="topk", k_frac=k_frac))
+    args = launch_train.parse_args(TRAIN_ARGV + ["--clients", str(K)])
+    batches = launch_train.client_batches(args, cfg.vocab_size, "cuda")
+    seen = {}
+
+    def capture(step, client, grad, lbg):
+        if step == 1 and client == 0:
+            seen["g"] = grad["embed"].reshape(1, -1).clone()
+            seen["idx"] = lbg["embed"]["idx"].clone()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = tr.init_train_state(None, cfg, K, params=params)
+    history = []
+    with train_probe(capture=capture) as rec:
+        step = tr.make_train_step(cfg, K, args.lr, delta=args.delta)
+        for _ in range(steps):
+            state, m = step(state, next(batches))
+            history.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_leaves = len(params)
+    expect_launches("lm_train_topk_qwen3", rec,
+                    {"lbgm_sparse_decision": n_leaves * K,
+                     "flash_attention": 2 * cfg.n_layers * K})
+    del state
+    torch.cuda.empty_cache()
+    g, idx = seen["g"], seen["idx"]
+    nb, block, kb = _block_layout(g.shape[1], k_frac)
+    got = ops.lbgm_sparse_decision(g, idx, two_pass=False, block=block)
+    want = ref.lbgm_sparse_decision_ref(g, idx, block=block)
+    torch.cuda.synchronize()
+    exact = torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]) \
+        and torch.equal(got[1], want[1])
+    gg_err = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+    live = -(-g.shape[1] // block)
+    bnd, by = bound_ms(g.shape[1] * 2 + live * kb * 4 + 3 * nb * kb * 4 + 4,
+                       0)
+    out = train_record("lm_train_topk_qwen3", "qwen3-1.7b", cfg, K, b, T, rec,
+                       history, peak)
+    out["embed_decision"] = {
+        "shape": [1, g.shape[1]], "nb": nb, "live_rows": live,
+        "block": block, "kb": kb, "dtype": str(g.dtype).split(".")[-1],
+        "exact_vs_plain": exact, "gg_rel_err": gg_err,
+        "ms": time_ms(lambda: ops.lbgm_sparse_decision(
+            g, idx, two_pass=False, block=block), n=10),
+        "bound_ms": bnd, "bound_by": by,
+        "plain_ms": time_ms(lambda: ref.lbgm_sparse_decision_ref(
+            g, idx, block=block), n=3)}
+    out["sin2"] = rec["sin2"]
+    if not exact or gg_err > 1e-5:
+        fail(f"lm_train_topk_qwen3: the embed leaf's decision differs from "
+             f"the plain version (exact {exact}, ||g||^2 {gg_err:.3g})")
+    emit(out)
+    return out
+
+
+def lm_train_card_vs_cpu(K=2, b=1, T=256, steps=2):
+    """Both archs at full width, depth 2, fp32: ``make_train_step``
+    (replicated "full") on the card and on the CPU from the same params
+    and batches. Step 1's loss and aggregated update, and every
+    decision where sin² lies farther than 1e-5 from delta (step 2 is the
+    first whose LBGs are not zero)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import trainer as tr
+    out = {}
+    for arch, kernel in LM_KERNEL.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  dtype="float32")
+        cpu, _ = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+        args = launch_train.parse_args(
+            ["--clients", str(K), "--batch", str(b), "--seq", str(T),
+             "--pool", "1"])
+        batch = next(launch_train.client_batches(args, cfg.vocab_size,
+                                                 "cpu"))
+        runs = {}
+        for name, dev in (("card", "cuda"), ("cpu", "cpu")):
+            state, _ = tr.init_train_state(None, cfg, K, device=dev,
+                                           params=cpu)
+            on_dev = {k: v.to(dev) for k, v in batch.items()}
+            update = runs["card"][1]["update"] if name == "cpu" else None
+            with train_probe(keep_update=name == "card",
+                             compare_update=update) as rec:
+                step = tr.make_train_step(cfg, K, 0.05, delta=TRAIN_DELTA)
+                losses = []
+                for _ in range(steps):
+                    state, m = step(state, on_dev)
+                    losses.append(float(m["loss"]))
+            runs[name] = (losses, rec)
+            del state
+        (lc, rc), (lp, rp) = runs["card"], runs["cpu"]
+        expect_launches(f"lm_train_card_vs_cpu {arch}", rc,
+                        {kernel: 2 * cfg.n_layers * K, "lbgm_projection": K})
+        loss_err = abs(lc[0] - lp[0]) / abs(lp[0])
+        margin = decisions_agree(f"lm_train_card_vs_cpu {arch}", rc, rp,
+                                 TRAIN_DELTA, TRAIN_CPU_MARGIN)
+        out[arch] = {"losses": lc, "cpu_losses": lp,
+                     "step1_loss_rel_err": loss_err,
+                     "step1_update_rel_l2": rp["update_rel_l2"],
+                     "sin2": rc["sin2"], "cpu_sin2": rp["sin2"],
+                     "smallest_sin2_margin": margin,
+                     "launches_per_step": rc["launches"][-1]}
+        if loss_err > TRAIN_CPU_LOSS_RTOL or \
+                rp["update_rel_l2"] > TRAIN_CPU_UPDATE_RTOL:
+            fail(f"lm_train_card_vs_cpu {arch}: step 1 loss off by "
+                 f"{loss_err:.3g}, update by {rp['update_rel_l2']:.3g}")
+        del cpu, runs
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_train_card_vs_cpu", "layers": 2, "dtype": "float32",
+          "clients": K, "batch": b, "seq_len": T, "steps": steps,
+          "tolerance": f"step 1 loss rtol {TRAIN_CPU_LOSS_RTOL}, update "
+                       f"relative L2 {TRAIN_CPU_UPDATE_RTOL}, decisions "
+                       f"equal where sin² lies > {TRAIN_CPU_MARGIN} from "
+                       f"delta in both runs",
+          "archs": out})
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
              "CUDA card")
@@ -1894,6 +2641,7 @@ def main():
     kernels = kernel_line(errs)
     gen = torch.Generator().manual_seed(4)
     kernels += [flash_entry(gen, errs), scan_entry(gen, errs)]
+    lm_train_kernel_checks()
 
     totals = {k: 0 for k in _build.LAUNCHES}
     topk = {"lbg_variant": "topk", "lbg_kw": {"k_frac": 0.1}}
@@ -1931,16 +2679,26 @@ def main():
     profile_round("fcn_topk_int8", fl_spec("fcn", **int8))
     uplink_launches()
 
-    # LM serving: full-width qwen3-1.7b and rwkv6-3b, one model at a time
-    for arch in LM_KERNEL:
-        cfg, params = lm_model(arch)
-        lm_prefill(arch, cfg, params, totals)
-        lm_serve(arch, cfg, params, totals)
-        del params
-        torch.cuda.empty_cache()
+    # LM serving, then training: full-width qwen3-1.7b and rwkv6-3b, one
+    # model at a time; the training phases that start from the serving
+    # weights (seed 0, as launch.train draws them) run before they go. The
+    # training launches stay in their own records, out of the totals
+    with tempfile.TemporaryDirectory() as out_dir:
+        for arch in LM_KERNEL:
+            cfg, params = lm_model(arch)
+            lm_prefill(arch, cfg, params, totals)
+            lm_serve(arch, cfg, params, totals)
+            lm_train_layers(arch, params, cfg)
+            if arch == "qwen3-1.7b":
+                lm_train_topk_qwen3(params)
+            del params
+            torch.cuda.empty_cache()
+            lm_train(arch, out_dir)
     lm_card_vs_cpu()
+    lm_train_card_vs_cpu()
 
     flash_single_bf16_p()
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     for k in kernels:
         k["launches"] = totals[k["name"]]
         for rec in k.get("shapes", []):

@@ -205,13 +205,22 @@ def rwkv6_chunked_ref(r, k, v, logw, u, state0, chunk):
     r, k, v, lw = f(r), f(k), f(v), f(logw)
     u = u.float()
     S = state0.float().clone()
+    # every chunk's running sum at once (the same adds in the same order as
+    # chunk by chunk): a few hundred small ops, not a few per step and chunk
+    full = T // chunk * chunk
+    cums = [] if full == 0 else [chunk_cumsum(
+        lw[:, :, :full].reshape(B, H, full // chunk, chunk, hd),
+        dim=3).reshape(B, H, full, hd)]
+    if full < T:
+        cums.append(chunk_cumsum(lw[:, :, full:], dim=2))
+    cum_all = torch.cat(cums, dim=2) if len(cums) > 1 else cums[0]
     outs = []
     for t0 in range(0, T, chunk):
         rc, kc, vc, lwc = (a[:, :, t0:t0 + chunk] for a in (r, k, v, lw))
         c = rc.shape[2]
         tri = torch.tril(torch.ones((c, c), device=r.device), -1)
         eye = torch.eye(c, device=r.device)
-        cum = chunk_cumsum(lwc, dim=2)
+        cum = cum_all[:, :, t0:t0 + chunk]
         cum_in = cum - lwc
         r_dec = rc * torch.exp(cum_in)
         k_dec = kc * torch.exp(torch.clamp(-cum, max=EXP_CLAMP))

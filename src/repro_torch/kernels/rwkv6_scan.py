@@ -10,6 +10,14 @@ kernel with no chunk machinery); on CPU tensors it returns the plain
 version (:func:`repro_torch.kernels.ref.rwkv6_chunked_ref`). Either way
 the final state may be written into a caller's buffer (``state_out``),
 ``state0`` itself included: decode updates its cache in place.
+
+:func:`rwkv6_scan` is a ``torch.autograd.Function`` with gradients for r,
+k, v, logw, u and state0 from the gradients of both the output and the
+final state. Its backward is plain PyTorch: the plain version recomputed
+under autograd and differentiated, i.e. autodiff of the same chunked math
+as XLA's of the JAX package's ``chunked_wkv``, clamp included (inside the
+clamped region, the clamp's gradient is 0). ``state_out`` writes in place
+and is a serving path: with a gradient to take it raises.
 """
 from __future__ import annotations
 
@@ -33,15 +41,16 @@ def _lib():
     return lib
 
 
-def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               logw: torch.Tensor, u: torch.Tensor, state0=None, *,
-               chunk: int = CHUNK, state_out=None):
-    """r, k, v, logw: (B, T, H, hd); u: (H, hd); state0: (B, H, hd, hd)
-    fp32 (key axis first; None: zeros). Chunks of ``min(chunk, T)`` steps,
-    the last one possibly shorter. Returns ``(out fp32 (B, T, H, hd),
-    final state fp32 (B, H, hd, hd))``. ``state_out``: a contiguous fp32
-    (B, H, hd, hd) buffer the final state is written into and returned
-    as; it may be ``state0`` (an in-place update, with the same result)."""
+def rwkv6_scan_forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       logw: torch.Tensor, u: torch.Tensor, state0=None, *,
+                       chunk: int = CHUNK, state_out=None):
+    """The scan, forward only. r, k, v, logw: (B, T, H, hd); u: (H, hd);
+    state0: (B, H, hd, hd) fp32 (key axis first; None: zeros). Chunks of
+    ``min(chunk, T)`` steps, the last one possibly shorter. Returns ``(out
+    fp32 (B, T, H, hd), final state fp32 (B, H, hd, hd))``. ``state_out``:
+    a contiguous fp32 (B, H, hd, hd) buffer the final state is written
+    into and returned as; it may be ``state0`` (an in-place update, with
+    the same result)."""
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"want r, k, v, logw of one (B, T, H, hd) shape, "
                          f"got {[tuple(t.shape) for t in (r, k, v, logw)]}")
@@ -90,3 +99,69 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_rc("rwkv6_scan", rc)
     _build.count_launch("rwkv6_scan", (B, T, H, hd))
     return out, state
+
+
+def rwkv6_scan_backward(r, k, v, logw, u, state0, d_out, d_state,
+                        chunk: int = CHUNK):
+    """Gradients for (r, k, v, logw, u, state0) of the scan's (out, final
+    state) given theirs (either may be None: no gradient flows from it).
+    Plain PyTorch: :func:`repro_torch.kernels.ref.rwkv6_chunked_ref`
+    recomputed under autograd and differentiated."""
+    ins = [t.detach().requires_grad_()
+           for t in (r, k, v, logw, u, state0)]
+    if d_out is None and d_state is None:
+        return tuple(torch.zeros_like(t) for t in ins)
+    outs, ups = [], []
+    with torch.enable_grad():
+        out, state = ref.rwkv6_chunked_ref(*ins, min(chunk, r.shape[1]))
+        for o, g in ((out, d_out), (state, d_state)):
+            if g is not None:
+                outs.append(o)
+                ups.append(g)
+        grads = torch.autograd.grad(outs, ins, ups, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(ins, grads))
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """:func:`rwkv6_scan_forward` (the kernel on the card), with
+    :func:`rwkv6_scan_backward` as its gradient."""
+
+    @staticmethod
+    def forward(r, k, v, logw, u, state0, chunk):
+        return rwkv6_scan_forward(r, k, v, logw, u, state0, chunk=chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        *tensors, chunk = inputs
+        ctx.save_for_backward(*tensors)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, d_out, d_state):
+        return (*rwkv6_scan_backward(*ctx.saved_tensors, d_out, d_state,
+                                     ctx.chunk), None)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor, state0=None, *,
+               chunk: int = CHUNK, state_out=None):
+    """:func:`rwkv6_scan_forward` with a gradient (see the module's
+    docstring): the same arguments and results. ``state_out`` (an in-place
+    write) raises when a gradient is to be taken."""
+    ins = (r, k, v, logw, u) + (() if state0 is None else (state0,))
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad
+                                                 for t in ins)
+    if state_out is not None:
+        if needs_grad:
+            raise RuntimeError("rwkv6_scan: state_out writes in place and "
+                               "takes no gradient; call it without "
+                               "state_out under autograd")
+        return rwkv6_scan_forward(r, k, v, logw, u, state0, chunk=chunk,
+                                  state_out=state_out)
+    if state0 is None and r.dim() == 4:
+        B, _, H, hd = r.shape
+        state0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                             device=r.device)
+    return RWKV6Scan.apply(r, k, v, logw, u, state0, chunk)

@@ -3,7 +3,9 @@
 Counterpart of ``repro.models.attention``. The full-sequence form,
 :func:`attention`, runs through the hand-written flash-attention kernel
 (``kernels.ops.flash_attention``) on the card and its plain version on
-the CPU; the JAX package's jnp path computes the same function. Like the
+the CPU; the JAX package's jnp path computes the same function. It takes
+a gradient: ``ops.flash_attention`` is an autograd Function whose
+backward is plain PyTorch, recomputed per block of 1024 query rows. Like the
 kernel it replaces (``repro.kernels.flash_attention``), it keeps the
 softmax weights in fp32 through P.V; the JAX jnp path rounds them to v's
 dtype first, so the two differ by bf16 rounding in bf16 models and agree

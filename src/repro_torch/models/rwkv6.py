@@ -10,7 +10,9 @@ with *data-dependent* per-channel decay w_t = exp(-exp(w0 + lora(x_t))).
 through the hand-written scan kernel (``kernels.ops.rwkv6_scan``) on the
 card and its plain version on the CPU, with the state carried in and out:
 prefill starts from zeros, and every decode step is a T = 1 call that
-continues from the previous step's state.
+continues from the previous step's state. Training differentiates it
+(the scan's backward recomputes the plain version under autograd);
+``state_out``, the in-place decode write, takes no gradient.
 
 Simplification vs the full Finch block, as in the JAX package: static
 learned token-shift mixing coefficients per projection (mu), with the

@@ -7,13 +7,16 @@ unchanged: a homogeneous stack keeps its ``blocks/*`` leaves with a
 leading layer axis, and runs as a Python loop over layer slices where
 JAX runs ``lax.scan``; a mixed pattern has one ``layer_XX/*`` subtree per
 layer. MoE, RG-LRU, M-RoPE and encoder-decoder models are refused by
-:class:`repro_torch.configs.base.ArchConfig` itself.
+:class:`repro_torch.configs.base.ArchConfig` itself. Training runs
+:func:`lm_loss` under autograd: blocks checkpointed per ``cfg.remat``, the
+CE chunked over T with each chunk checkpointed.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterator, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
@@ -100,7 +103,11 @@ def layer_params(params: Dict[str, torch.Tensor], cfg: ArchConfig
     """``(kind, block params)`` per layer, in order: slices of the stacked
     ``blocks/*`` leaves, or the ``layer_XX`` subtrees."""
     if uses_scan(cfg):
-        stacked = subtree(params, "blocks")
+        # unbind: one autograd node per stacked leaf, whose backward stacks
+        # the layers' gradients once (an index per layer would add a
+        # zero-filled full-size gradient per layer)
+        stacked = {k: v.unbind(0) for k, v in
+                   subtree(params, "blocks").items()}
         for i in range(cfg.n_layers):
             yield cfg.block_pattern[0], {k: v[i] for k, v in stacked.items()}
     else:
@@ -150,13 +157,20 @@ def _apply_block_train(p, x, cfg: ArchConfig, kind: str, positions):
 def forward_hidden(params: Dict[str, torch.Tensor], cfg: ArchConfig,
                    tokens: torch.Tensor):
     """Backbone forward to the final hidden states. tokens (B,T) ->
-    (hidden (B,T,d), aux loss)."""
+    (hidden (B,T,d), aux loss). Under autograd with ``cfg.remat`` each
+    block is checkpointed (its activations recomputed in the backward), as
+    the JAX package's ``jax.checkpoint`` of the block."""
     B, T = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux_total = 0.0
     for kind, p in layer_params(params, cfg):
-        x, aux = _apply_block_train(p, x, cfg, kind, positions)
+        if remat:
+            x, aux = checkpoint(_apply_block_train, p, x, cfg, kind,
+                                positions, use_reentrant=False)
+        else:
+            x, aux = _apply_block_train(p, x, cfg, kind, positions)
         aux_total += aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux_total
@@ -176,3 +190,37 @@ def prefill_logits(params, cfg: ArchConfig, tokens):
     """Inference prefill: hidden for all positions, head for the last one."""
     x, _ = forward_hidden(params, cfg, tokens)
     return x[:, -1] @ _head(params, cfg)
+
+
+def _chunk_ce(xc, lc, head):
+    """Summed next-token CE and label count of one chunk (B, c, d)."""
+    logits = (xc @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None].long())[..., 0]
+    mask = (lc >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def lm_loss(params, cfg: ArchConfig, tokens, labels, ce_chunk: int = 512):
+    """Next-token CE with a *chunked* softmax over T so the (B,T,V) logits
+    never exist at once: each chunk of ``ce_chunk`` positions is
+    checkpointed (its logits recomputed in the backward). labels = next
+    tokens (caller-shifted); negative labels are masked. Returns (loss,
+    {"ce", "aux"})."""
+    x, aux = forward_hidden(params, cfg, tokens)
+    head = _head(params, cfg)
+    T = x.shape[1]
+    c = min(ce_chunk, T)
+    if T % c:
+        raise ValueError(f"seq len {T} is not a multiple of ce_chunk {c}")
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, T, c):
+        xc, lc = x[:, i:i + c], labels[:, i:i + c]
+        if torch.is_grad_enabled():
+            t, n = checkpoint(_chunk_ce, xc, lc, head, use_reentrant=False)
+        else:
+            t, n = _chunk_ce(xc, lc, head)
+        tot, cnt = tot + t, cnt + n
+    ce = tot / torch.clamp(cnt, min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    return ce + aux, {"ce": ce, "aux": aux}

@@ -41,7 +41,8 @@ def test_scan_covers_the_port():
         "kernels/flash_attention.py", "kernels/rwkv6_scan.py",
         "models/attention.py", "models/rwkv6.py", "models/transformer.py",
         "serve/decode.py", "train/trainer.py", "launch/serve.py",
-        "core/device.py", "core/jax_prng.py")} \
+        "core/device.py", "core/jax_prng.py", "launch/train.py",
+        "checkpoint/ckpt.py", "optim/sgd.py", "data/synthetic.py")} \
         | {"chip_smoke.py"} <= names
 
 
@@ -64,6 +65,22 @@ def test_importing_the_entry_points_loads_neither_jax_nor_repro():
             "repro_torch.configs.qwen3_1_7b, repro_torch.configs.rwkv6_3b\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin",
+                              "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_importing_the_train_driver_loads_neither_jax_nor_repro():
+    """``python -m repro_torch.launch.train`` and what it imports (the
+    trainer, the optimizer, the checkpoints) stay free of the JAX package,
+    and of the federated engine."""
+    code = ("import sys, repro_torch.launch.train\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro') or m == 'repro_torch.fed.engine')\n"
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
