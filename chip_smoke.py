@@ -24,8 +24,10 @@ From the root of a checkout. Phases, each printed as one JSON line:
    kernel, int8 and fp8, must equal its plain version bit for bit
    (``torch.equal``), on the card and on the CPU, at every leaf shape of
    the FCN and CNN and with phantom NaN clients, w = 0 clients, every
-   client on the same positions, kb = 1, a 10-wide block, and indices at
-   the edges of its 4096-float segments and 8192-entry windows;
+   client on the same positions, kb = 1, a 10-wide block, indices at
+   the edges of its 4096-float segments and 8192-entry windows, and
+   qwen3-1.7b's ``embed`` leaf in the top-k layout at a chunk of 2
+   (``DEQUANT_LM``: (2, 4752, 654) into (4752, 65536), on the card);
 4. the main path: ``run_experiment`` for ``paper-fcn`` at the paper's
    cohort (K=100, tau=2, lr=0.05, b=16, label skew with 3 classes per
    client, chunked scheduler) with the dense store, the top-k store and the
@@ -94,7 +96,26 @@ From the root of a checkout. Phases, each printed as one JSON line:
    fp32, 2 steps of K=2, b=1, T=256 on the card and on the CPU (step 1's
    loss within rtol 1e-4 and update within 1e-3 relative L2, decisions
    equal where sin² lies farther than 1e-5 from delta). The training
-   launches are reported in these records, not in the kernels line;
+   launches are reported in these records, not in the kernels line.
+   Then LBGM federated rounds of the LMs through the FL engine
+   (``fl_lm_*``), the same card-drawn seed-0 bf16 weights, full width,
+   remat, markov data at seq_len 2048 with one sequence per client,
+   ``iid``, tau 2, b 1, lr 0.05, delta 0.6, the chunked scheduler, 3
+   rounds: ``fl_lm_qwen3_dense`` (``examples/specs/qwen3_fl_lm.json``
+   through the CLI's ``main``: K=4, chunk 1, the dense store; flash 448
+   and the projection 4 launches a round; the same rounds under the plain
+   kernels with the training phases' rule for round 1's loss, update and
+   decisions), ``fl_lm_qwen3_topk_int8`` (K=4, chunk 2, the top-k store
+   at k_frac 0.01, the int8 wire: flash, the decision and the dequant
+   fold once per leaf per chunk), ``fl_lm_rwkv6_topk`` (K=2, chunk 1,
+   top-k: the scan 256 a round, the decision), and ``fl_lm_card_vs_cpu``
+   (both archs at depth 2 in fp32, K=2, T=256, 2 rounds, dense store:
+   ``uplink_floats``, ``frac_scalar``, ``wire_bytes`` and ``savings``
+   identical to the CPU run's, losses within rtol 1e-4). Each record
+   gives ms per round (the mean of rounds 2-3), the ms of its local SGD,
+   tokens/s, peak memory, launches per kernel a round against the
+   expected counts, and ``frac_scalar``, ``uplink_floats`` and
+   ``wire_bytes`` per round;
 8. ``flash_single_bf16_p``, a finding and not a check: on the main path's
    flash call, the error that rounding p to bf16 once before P.V would
    give, beside the kernel's hi/lo split and the kernel itself;
@@ -501,6 +522,54 @@ def check_dequant(gen, C, nb, block, kb, qdtype, kind="normal"):
 DEQUANT_SHAPES = [(10, 16, 65536, 627), (10, 1, 1280, 128),
                   (10, 1, 128, 12), (10, 1, 10, 1), (10, 1, 36864, 3686),
                   (10, 1, 31360, 3136)]
+#: (C, nb, live rows, block, kb) of qwen3-1.7b's ``embed`` leaf (151936 x
+#: 2048) in the top-k layout at k_frac 0.01, at a chunk of 2 clients: the
+#: fold of ``fl_lm_qwen3_topk_int8``'s largest leaf
+DEQUANT_LM = (2, 4752, 4748, 65536, 654)
+
+
+def check_dequant_lm(qdtype):
+    """The dequant fold at ``DEQUANT_LM``, inputs drawn on the card (the
+    CPU argsort of 623 million keys would take minutes): the live rows'
+    indices a random kb-subset of each row, the pad rows' iota with zero
+    values, as the top-k store lays them out; bit for bit against the
+    plain version on the card (the CPU's equality with it is held at the
+    smaller shapes)."""
+    import torch
+    from repro_torch.kernels import lbgm_sparse as ks
+    from repro_torch.kernels import ref
+    C, nb, live, block, kb = DEQUANT_LM
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    acc = torch.randn((nb, block), generator=gen, device="cuda")
+    w = torch.rand(C, generator=gen, device="cuda") / C
+    gscale = torch.rand(C, generator=gen, device="cuda") * 2 - 0.5
+    idx = torch.empty((C, nb, kb), dtype=torch.int32, device="cuda")
+    for c in range(C):
+        keys = torch.rand((live, block), generator=gen, device="cuda")
+        idx[c, :live] = torch.topk(keys, kb, dim=-1).indices.to(torch.int32)
+        del keys
+    idx[:, live:] = torch.arange(kb, dtype=torch.int32, device="cuda")
+    if qdtype == torch.int8:
+        qv = torch.randint(-127, 128, (C, nb, kb), generator=gen,
+                           dtype=torch.int8, device="cuda")
+    else:
+        qv = (torch.randn((C, nb, kb), generator=gen, device="cuda")
+              * 100).clamp(-448, 448).to(qdtype)
+    qv[:, live:] = 0
+    scale = torch.ldexp(torch.ones(C, nb, 1, device="cuda"), torch.randint(
+        -20, 2, (C, nb, 1), generator=gen, device="cuda"))
+    got = ks.lbgm_dequant_accum(acc.clone(), w, gscale, idx, qv, scale)
+    want = ref.lbgm_dequant_accum_ref(acc.clone(), w, gscale, idx, qv, scale)
+    torch.cuda.synchronize()
+    what = f"dequant at qwen3's embed layout {DEQUANT_LM} {qdtype}"
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite accumulator")
+    if not torch.equal(got, want):
+        fail(f"{what}: differs from the plain version (max "
+             f"{float((got - want).abs().max()):.3g})")
+    return float((got - want).abs().max())
+
+
 #: (C, nb, block, kb, kind) at the edges of the kernel's segments (SEG =
 #: 4096 floats of a row per CTA) and windows (8192 entries of a row's
 #: payload): indices at SEG - 1, SEG and block - 1; block == SEG and SEG +
@@ -647,6 +716,9 @@ def kernel_checks():
                 errs["lbgm_dequant_accum"],
                 check_dequant(gen, *shp, qdtype, kind))
             cases += 1
+        errs["lbgm_dequant_accum"] = max(errs["lbgm_dequant_accum"],
+                                         check_dequant_lm(qdtype))
+        cases += 1
     emit({"phase": "kernel_checks", "cases": cases,
           "max_abs_err": errs,
           "note": "decision: selected and gathered values equal the plain "
@@ -1417,6 +1489,34 @@ def plain_lm_kernels():
         out, st = ref.rwkv6_chunked_ref(r, k, v, logw, u, state0,
                                         min(chunk, r.shape[1]))
         return out, st if state_out is None else state_out.copy_(st)
+    ops.flash_attention, ops.rwkv6_scan = flash, scan
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.rwkv6_scan = saved
+
+
+@contextlib.contextmanager
+def nudged_lm_kernels(rel, seed=5):
+    """Route the LM's two kernel calls (``kernels.ops.flash_attention`` and
+    ``ops.rwkv6_scan``, looked up at call time by the models) through
+    themselves with every output moved by ``rel`` relative (Gaussian):
+    the model's own spread under float-level noise."""
+    import torch
+    from repro_torch.kernels import ops
+    saved = ops.flash_attention, ops.rwkv6_scan
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def nudge(o):
+        noise = torch.randn(o.shape, generator=gen, device=o.device)
+        return (o.float() * (1 + rel * noise)).to(o.dtype)
+
+    def flash(*a, **kw):
+        return nudge(saved[0](*a, **kw))
+
+    def scan(*a, **kw):
+        out, st = saved[1](*a, **kw)
+        return nudge(out), st
     ops.flash_attention, ops.rwkv6_scan = flash, scan
     try:
         yield
@@ -2433,7 +2533,6 @@ def update_floor(arch, plain_update):
     kernels' step again with every attention output moved by TRAIN_NUDGE
     relative (Gaussian), against ``plain_update``."""
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.train import trainer as tr
     K = TRAIN_CLIENTS[arch]
@@ -2443,15 +2542,7 @@ def update_floor(arch, plain_update):
     state, _ = tr.init_train_state(
         torch.Generator(device="cuda").manual_seed(args.seed), cfg, K)
     batch = next(launch_train.client_batches(args, cfg.vocab_size, "cuda"))
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    with plain_lm_kernels():
-        plain = ops.flash_attention
-
-        def nudged(*a, **kw):
-            o = plain(*a, **kw)
-            noise = torch.randn(o.shape, generator=gen, device=o.device)
-            return (o.float() * (1 + TRAIN_NUDGE * noise)).to(o.dtype)
-        ops.flash_attention = nudged
+    with plain_lm_kernels(), nudged_lm_kernels(TRAIN_NUDGE):
         with train_probe(compare_update=plain_update) as rec:
             step = tr.make_train_step(cfg, K, args.lr, delta=args.delta)
             step(state, batch)
@@ -2596,6 +2687,410 @@ def lm_train_card_vs_cpu(K=2, b=1, T=256, steps=2):
     return out
 
 
+# ----------------------------------------------------- FL rounds of the LMs
+
+#: the full-width FL-LM spec the phases start from (qwen3-1.7b, K=4,
+#: chunk 1, dense store, markov data at seq_len 2048, tau 2, b 1, lr 0.05,
+#: delta 0.6, 3 rounds, seed 0); the other phases override it. Its data
+#: holds one sequence per client (n = K, the iid split), so every local
+#: step of a client sees the same sequence: the regime that recycles, as
+#: the training phases' ``--pool 1`` (with 16 sequences a client every
+#: round's gradient lay near orthogonal to the last, sin² > 0.99999, and
+#: no round recycled: NVIDIA H100 80GB HBM3, 700 W)
+FL_LM_SPEC = ROOT / "examples" / "specs" / "qwen3_fl_lm.json"
+FL_LM_VOCAB = {"qwen3-1.7b": 151936, "rwkv6-3b": 65536}
+#: card against CPU in fp32 at depth 2: round 1's loss (rtol) and
+#: aggregated update (relative L2: FL_CPU_UPDATE_RTOL or, where larger,
+#: twice the model's own floor, the card's round against itself with the
+#: LM kernel's outputs moved by FL_CPU_NUDGE relative, about 8 fp32 ulps:
+#: a tau = 2 round on one sequence per client moves the model far, and
+#: rwkv6's second local step then carries float-level differences of the
+#: first into its gradient); the discrete fields are identical
+FL_CPU_LOSS_RTOL = 1e-4
+FL_CPU_UPDATE_RTOL = 1e-3
+FL_CPU_NUDGE = 2.0 ** -20
+#: sequences per client of the card-vs-CPU phase. On one sequence (the
+#: bf16 phases' regime) rwkv6's tau = 2 round memorizes it (loss 11.64 ->
+#: 2.94) and its second local step carries the first's float-level
+#: differences: the card's and the CPU's round-1 updates differed by
+#: 3.3e-3 relative L2 against a floor of 1.45e-3 (scan outputs moved by
+#: 2^-20), round 2's losses by 1.07e-4; at depth 2 qwen3's rounds did not
+#: recycle on one sequence either (NVIDIA H100 80GB HBM3, 700 W)
+FL_CPU_SEQS = 8
+
+
+def fl_lm_spec(arch="qwen3-1.7b", **overrides):
+    """``FL_LM_SPEC`` with dotted-key overrides, at ``arch``'s vocab."""
+    from repro_torch.fed.experiment import ExperimentSpec
+    spec = ExperimentSpec.load(str(FL_LM_SPEC))
+    return spec.with_overrides({"model.kw.arch": arch,
+                                "data.kw.vocab": FL_LM_VOCAB[arch],
+                                "name": f"fl-lm-{arch}", **overrides})
+
+
+@contextlib.contextmanager
+def fl_probe(keep_update=False, compare_update=None):
+    """Wrap the FL engine (``fed.engine.FLEngine``, looked up at run time
+    by ``run_experiment``) for one run: per round, host ms around the
+    synchronised round, the ms of its local SGD (``client_update``
+    between two synchronisations, every chunk), launches per kernel (the
+    counters set to 0 at each round's start), and every client's sin² and
+    decision. Round 1's aggregated update (the ``agg`` the server steps
+    by) is kept on the host (``keep_update``) or held against a kept one
+    (``compare_update``: relative L2)."""
+    import torch
+    from repro_torch.fed import engine as fe
+    from repro_torch.kernels import _build
+    rec = {"ms": [], "sgd_ms": [], "launches": [], "sin2": [], "sent": [],
+           "update": None, "update_rel_l2": None}
+    real_round, real_run = fe.FLEngine.run_round, fe._ChunkLoop.run
+    real_make = fe.FLEngine._make_client_update
+
+    def make(self):
+        update = real_make(self)
+
+        def timed(params, batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = update(params, batches)
+            torch.cuda.synchronize()
+            rec["sgd_ms"][-1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return timed
+
+    def run(self, *a, **kw):
+        out = real_run(self, *a, **kw)
+        if len(rec["ms"]) == 0:
+            agg = out[0]
+            if keep_update:
+                rec["update"] = {k: v.cpu() for k, v in agg.items()}
+            if compare_update is not None:
+                num = den = 0.0
+                for k, v in agg.items():
+                    w = compare_update[k].to(v.device)
+                    num += float(((v - w) ** 2).sum(dtype=torch.float64))
+                    den += float((w ** 2).sum(dtype=torch.float64))
+                rec["update_rel_l2"] = (num / max(den, 1e-300)) ** 0.5
+        return out
+
+    def run_round(self, src):
+        rec["sgd_ms"].append(0.0)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = real_round(self, src)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["launches"].append({k: v for k, v in _build.LAUNCHES.items()
+                                if v})
+        s = self.sin2_history[-1]
+        delta = self.cfg.delta_threshold
+        rec["sin2"].append(s.tolist())
+        rec["sent"].append([bool(x <= delta and x < 1.0) for x in s])
+        return m
+
+    fe.FLEngine.run_round, fe._ChunkLoop.run = run_round, run
+    fe.FLEngine._make_client_update = make
+    try:
+        yield rec
+    finally:
+        fe.FLEngine.run_round, fe._ChunkLoop.run = real_round, real_run
+        fe.FLEngine._make_client_update = real_make
+
+
+def fl_lm_run(spec, plain=False, via_cli=None, params=None, **probe):
+    """One run of ``spec`` on the card under :func:`fl_probe`: through
+    ``run_experiment``, or with ``via_cli`` (the spec file's path) through
+    the CLI's ``main`` (``python -m repro_torch.fed.run --spec``). Returns
+    (history, final eval, probe record, peak GB)."""
+    import gc
+    import torch
+    from repro_torch.fed import run as fed_run
+    from repro_torch.fed.experiment import run_experiment
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fl_probe(**probe) as rec:
+        with (plain_lm_kernels() if plain else contextlib.nullcontext()):
+            if via_cli is None:
+                res = run_experiment(spec, device="cuda", params=params)
+                history, final = res.history, res.final_eval
+                del res
+            else:
+                with tempfile.TemporaryDirectory() as d:
+                    out = os.path.join(d, "result.json")
+                    rounds = ["--rounds", str(spec.rounds)]
+                    if fed_run.main(["--spec", str(via_cli), "--out", out]
+                                    + rounds) != 0:
+                        fail(f"{via_cli}: the CLI exited non-zero")
+                    with open(out) as f:
+                        res = json.load(f)
+                history = [{k: r[k] for k in ("loss", "uplink_floats",
+                                              "frac_scalar", "wire_bytes",
+                                              "savings")}
+                           for r in res["records"]]
+                final = res["final_eval"]
+    gc.collect()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    return history, final, rec, peak
+
+
+def fl_lm_expected(spec):
+    """Launches per round of each kernel the spec's path runs: flash or
+    the scan twice per layer per local step per client (the forward and
+    the block's remat recompute); the projection once per chunk (dense
+    store); the decision once per leaf per chunk (top-k store); the
+    dequant fold once per leaf per chunk (top-k store, lossy codec)."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed.engine import pick_chunk
+    from repro_torch.fed.experiment import MODELS
+    fl = spec.fl
+    kw = dict(spec.model.kw)
+    leaves = len(MODELS.get("lm")(seed=0, device="meta", **kw)[0])
+    layers = kw.get("n_layers") or get_config(kw["arch"]).n_layers
+    chunks = -(-fl.num_clients // pick_chunk(fl.num_clients, fl.chunk_size))
+    want = {LM_KERNEL[kw["arch"]]: 2 * layers * fl.tau * fl.num_clients}
+    if fl.lbg_variant == "topk":
+        want["lbgm_sparse_decision"] = leaves * chunks
+        if fl.codec in ("int8", "fp8"):
+            want["lbgm_dequant_accum"] = leaves * chunks
+    else:
+        want["lbgm_projection"] = chunks
+    return want
+
+
+def fl_lm_record(phase, spec, history, final, rec, peak, want, **extra):
+    """The fields every FL-LM phase reports, after checking its launches
+    and losses."""
+    import math
+    from repro_torch.fed.engine import pick_chunk
+    fl = spec.fl
+    for r, got in enumerate(rec["launches"]):
+        for k, n in want.items():
+            if got.get(k, 0) != n:
+                fail(f"{phase}: round {r + 1} launched {got.get(k, 0)} {k},"
+                     f" want {n}")
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(x) for x in losses) or not math.isfinite(
+            final.get("test_loss", 0.0)):
+        fail(f"{phase}: non-finite loss {losses} {final}")
+    timed = rec["ms"][1:] or rec["ms"]
+    ms = sum(timed) / len(timed)
+    tokens = fl.num_clients * fl.tau * fl.batch_size * \
+        spec.data.kw["seq_len"]
+    return {"phase": phase, "arch": spec.model.kw["arch"],
+            "layers": spec.model.kw.get("n_layers", "all"),
+            "dtype": spec.model.kw.get("dtype", "bfloat16"),
+            "K": fl.num_clients,
+            "chunk": pick_chunk(fl.num_clients, fl.chunk_size),
+            "tau": fl.tau, "batch": fl.batch_size,
+            "seq_len": spec.data.kw["seq_len"], "lr": fl.lr,
+            "delta": fl.delta_threshold, "store": fl.lbg_variant,
+            "lbg_kw": fl.lbg_kw, "codec": fl.codec,
+            "rounds": len(history), "ms_per_round": ms,
+            "ms_per_round_of": "the mean of rounds 2-3",
+            "round_ms": rec["ms"], "local_sgd_ms": rec["sgd_ms"],
+            "tokens_per_round": tokens,
+            "tokens_per_s": tokens / ms * 1e3, "peak_mem_gb": peak,
+            "launches_per_round": rec["launches"],
+            "expected_launches_per_round": want,
+            "loss": losses, "test_loss": final.get("test_loss"),
+            "frac_scalar": [h["frac_scalar"] for h in history],
+            "uplink_floats": [h["uplink_floats"] for h in history],
+            "wire_bytes": [h["wire_bytes"] for h in history],
+            "savings": history[-1]["savings"], "sin2": rec["sin2"],
+            **extra}
+
+
+def fl_lm_update_floor(spec, plain_update):
+    """The model's own spread of round 1's aggregated update: round 1
+    under the plain kernels with every attention output moved by
+    TRAIN_NUDGE relative (Gaussian), against ``plain_update``."""
+    one = spec.with_overrides({"rounds": 1, "eval.final": False})
+    with plain_lm_kernels(), nudged_lm_kernels(TRAIN_NUDGE):
+        _, _, rec, _ = fl_lm_run(one, compare_update=plain_update)
+    return rec["update_rel_l2"]
+
+
+def fl_lm_profile(spec, warm=2):
+    """One steady round of ``spec`` profiled on the card: ``warm`` rounds
+    first, then round ``warm + 1`` under the profiler (wall ms, device
+    busy ms and idle share, the kernels that took the most device
+    time)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.fed.experiment import build_experiment
+    engine, _ = build_experiment(spec, device="cuda")
+    rng = np.random.RandomState(spec.fl.seed + 1)
+    for _ in range(warm):
+        engine.run_round(rng)
+    prof = profile_device(lambda: engine.run_round(rng))
+    prof["round"] = warm + 1
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
+def fl_lm_qwen3_dense():
+    """``fl_lm_qwen3_dense``: the spec file as it is through the CLI's
+    ``main`` on the card (K=4, chunk 1, dense store): flash 448 and the
+    projection 4 launches a round; the same 3 rounds under the plain
+    kernels (round 1's loss within TRAIN_LOSS_RTOL, its update within the
+    larger of TRAIN_UPDATE_RTOL and twice the model's own floor, decisions
+    equal where sin² lies farther than TRAIN_MARGIN from delta); then
+    round 3 of a further run profiled."""
+    spec = fl_lm_spec()
+    want = fl_lm_expected(spec)
+    history, final, rec, peak = fl_lm_run(spec, via_cli=FL_LM_SPEC,
+                                          keep_update=True)
+    out = fl_lm_record("fl_lm_qwen3_dense", spec, history, final, rec, peak,
+                       want, entry="python -m repro_torch.fed.run --spec "
+                       f"{os.path.relpath(FL_LM_SPEC, ROOT)} (its main)")
+    phist, _, prec, _ = fl_lm_run(spec, plain=True,
+                                  compare_update=rec["update"],
+                                  keep_update=True)
+    rec["update"] = None
+    plain_want = {k: (0 if k == "flash_attention" else n)
+                  for k, n in want.items()}
+    for r, got in enumerate(prec["launches"]):
+        for k, n in plain_want.items():
+            if got.get(k, 0) != n:
+                fail(f"fl_lm_qwen3_dense (plain kernels): round {r + 1} "
+                     f"launched {got.get(k, 0)} {k}, want {n}")
+    floor = fl_lm_update_floor(spec, prec["update"])
+    prec["update"] = None
+    tol = max(TRAIN_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
+    loss_err = abs(history[0]["loss"] - phist[0]["loss"]) / abs(
+        phist[0]["loss"])
+    margin = decisions_agree("fl_lm_qwen3_dense vs plain", rec, prec,
+                             spec.fl.delta_threshold, TRAIN_MARGIN)
+    out["profile"] = fl_lm_profile(spec)
+    out["vs_plain"] = {
+        "round1_loss_rel_err": loss_err,
+        "round1_update_rel_l2": prec["update_rel_l2"],
+        "round1_update_floor_rel_l2": floor,
+        "smallest_sin2_margin": margin,
+        "plain_losses": [h["loss"] for h in phist],
+        "plain_frac_scalar": [h["frac_scalar"] for h in phist],
+        "plain_ms_per_round": sum(prec["ms"][1:]) / 2,
+        "tolerance": f"loss rtol {TRAIN_LOSS_RTOL}; update relative L2 "
+                     f"{tol:.4g} (the larger of {TRAIN_UPDATE_RTOL} and "
+                     f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor: the plain "
+                     f"round against itself with attention outputs moved "
+                     f"by {TRAIN_NUDGE} relative); decisions equal where "
+                     f"sin² lies > {TRAIN_MARGIN} from delta in both runs"}
+    emit(out)
+    if loss_err > TRAIN_LOSS_RTOL or prec["update_rel_l2"] > tol:
+        fail(f"fl_lm_qwen3_dense: round 1 off the plain kernels' run: loss "
+             f"{loss_err:.3g}, update {prec['update_rel_l2']:.3g} (floor "
+             f"{floor:.3g}, tolerance {tol:.3g})")
+    return out
+
+
+def fl_lm_topk(phase, arch, **overrides):
+    """``fl_lm_qwen3_topk_int8`` / ``fl_lm_rwkv6_topk``: the top-k store at
+    k_frac 0.01 through ``run_experiment`` on the card, 3 rounds."""
+    spec = fl_lm_spec(arch, **{"fl.lbg_variant": "topk",
+                               "fl.lbg_kw": {"k_frac": 0.01}, **overrides})
+    want = fl_lm_expected(spec)
+    history, final, rec, peak = fl_lm_run(spec)
+    out = fl_lm_record(phase, spec, history, final, rec, peak, want,
+                       entry="repro_torch.fed.experiment.run_experiment")
+    emit(out)
+    return out
+
+
+def fl_lm_card_vs_cpu(K=2, T=256, rounds=2):
+    """Both archs at full width, depth 2, fp32: 2 rounds of K=2, b=1,
+    T=256 (dense store, FL_CPU_SEQS sequences per client) on the card
+    and on the CPU from the same params (drawn on the CPU):
+    ``uplink_floats``, ``frac_scalar``, ``wire_bytes`` and ``savings``
+    identical and losses within FL_CPU_LOSS_RTOL in every round; round 1's
+    aggregated update within the larger of FL_CPU_UPDATE_RTOL and twice
+    the model's own floor (``nudged_lm_kernels``), as the training phases
+    hold step 1."""
+    import numpy as np
+    from repro_torch.fed.experiment import MODELS, run_experiment
+    out = {}
+    for arch in LM_KERNEL:
+        spec = fl_lm_spec(arch, **{
+            "model.kw.n_layers": 2, "model.kw.dtype": "float32",
+            "fl.num_clients": K, "data.kw.seq_len": T,
+            "data.kw.n": FL_CPU_SEQS * K, "rounds": rounds,
+            "eval.final": False})
+        p, _, _ = MODELS.get("lm")(seed=0, device="cpu", **spec.model.kw)
+        params = {k: v.numpy() for k, v in p.items()}
+        del p
+        want = fl_lm_expected(spec)
+        history, _, rec, _ = fl_lm_run(spec, params=params, keep_update=True)
+        with nudged_lm_kernels(FL_CPU_NUDGE):
+            _, _, frec, _ = fl_lm_run(spec.with_overrides({"rounds": 1}),
+                                      params=params,
+                                      compare_update=rec["update"])
+        floor = frec["update_rel_l2"]
+        tol = max(FL_CPU_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
+        with fl_probe(compare_update=rec["update"]) as crec:
+            cpu = run_experiment(spec, device="cpu", params=params)
+        rec["update"] = None
+        for r, (a, b) in enumerate(zip(history, cpu.history)):
+            for k in ("uplink_floats", "frac_scalar", "wire_bytes",
+                      "savings"):
+                if a[k] != b[k]:
+                    fail(f"fl_lm_card_vs_cpu {arch} round {r + 1}: {k} "
+                         f"{a[k]} on the card vs {b[k]} on the CPU")
+            if not np.isfinite(a["loss"]) or abs(a["loss"] - b["loss"]) > \
+                    FL_CPU_LOSS_RTOL * abs(b["loss"]):
+                fail(f"fl_lm_card_vs_cpu {arch} round {r + 1}: loss "
+                     f"{a['loss']} vs {b['loss']}")
+        loss_err = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(history, cpu.history)]
+        if crec["update_rel_l2"] > tol:
+            fail(f"fl_lm_card_vs_cpu {arch}: round 1's update off by "
+                 f"{crec['update_rel_l2']:.3g} (floor {floor:.3g}, "
+                 f"tolerance {tol:.3g})")
+        for r, got in enumerate(rec["launches"]):
+            for k, n in want.items():
+                if got.get(k, 0) != n:
+                    fail(f"fl_lm_card_vs_cpu {arch}: round {r + 1} launched"
+                         f" {got.get(k, 0)} {k}, want {n}")
+        delta = spec.fl.delta_threshold
+        out[arch] = {
+            "losses": [h["loss"] for h in history],
+            "cpu_losses": [h["loss"] for h in cpu.history],
+            "loss_rel_err": loss_err,
+            "round1_update_rel_l2": crec["update_rel_l2"],
+            "round1_update_floor_rel_l2": floor,
+            "round1_update_tolerance": tol,
+            "frac_scalar": [h["frac_scalar"] for h in history],
+            "uplink_floats": [h["uplink_floats"] for h in history],
+            "wire_bytes": [h["wire_bytes"] for h in history],
+            "sin2": rec["sin2"], "cpu_sin2": [s.tolist() for s in cpu.sin2],
+            "smallest_sin2_margin": min(
+                float(np.min(np.abs(np.asarray(s) - delta)))
+                for s in rec["sin2"]),
+            "launches_per_round": rec["launches"],
+            "ms_per_round": rec["ms"],
+            "cpu_ms_per_round": cpu.us_per_round / 1e3}
+        del cpu, params
+    emit({"phase": "fl_lm_card_vs_cpu", "layers": 2, "dtype": "float32",
+          "K": K, "batch": 1, "seq_len": T, "rounds": rounds,
+          "sequences_per_client": FL_CPU_SEQS,
+          "tolerance": "uplink_floats, frac_scalar, wire_bytes, savings "
+                       f"identical and loss rtol {FL_CPU_LOSS_RTOL} in "
+                       f"every round; round 1's update relative L2 the "
+                       f"larger of {FL_CPU_UPDATE_RTOL} and "
+                       f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor (the card "
+                       f"against itself with the LM kernel's outputs moved "
+                       f"by {FL_CPU_NUDGE} relative)",
+          "archs": out})
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 def main():
@@ -2696,6 +3191,14 @@ def main():
             lm_train(arch, out_dir)
     lm_card_vs_cpu()
     lm_train_card_vs_cpu()
+
+    # LBGM federated rounds of the LMs through the engine, full width
+    fl_lm_qwen3_dense()
+    fl_lm_topk("fl_lm_qwen3_topk_int8", "qwen3-1.7b",
+               **{"fl.chunk_size": 2, "fl.codec": "int8"})
+    fl_lm_topk("fl_lm_rwkv6_topk", "rwkv6-3b",
+               **{"fl.num_clients": 2, "data.kw.n": 2})
+    fl_lm_card_vs_cpu()
 
     flash_single_bf16_p()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

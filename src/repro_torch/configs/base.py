@@ -22,10 +22,10 @@ _FL_DEFAULTS = {f.name: f.default for f in dataclasses.fields(FLConfig)}
 
 #: block kinds the port runs; the others (``rglru``) come with a later slice
 PORTED_BLOCKS = ("attn", "swa", "rwkv6")
-LATER_SLICE = ("not ported yet: the LM serving slice runs dense attn/swa "
-               "and rwkv6 decoders; MoE, rglru, M-RoPE/vision and "
-               "encoder-decoder models come with later slices of the port "
-               "(ROADMAP §1 item 13)")
+LATER_SLICE = ("not ported yet: the port runs dense attn/swa and rwkv6 "
+               "decoders; MoE, rglru, M-RoPE/vision and encoder-decoder "
+               "models come with later slices of the port (ROADMAP §1, "
+               "the rest of the LM stack)")
 
 
 @dataclass(frozen=True)

@@ -22,7 +22,9 @@ One round:
    under ``WIRE_KEY``;
 2. the scheduler walks the clients in chunks (``"vmap"``: one chunk of
    all K). Within a chunk the client axis is written out: local SGD is
-   ``torch.func.vmap(torch.func.grad(loss))`` over the chunk's clients,
+   ``torch.func.vmap(torch.func.grad(loss))`` over the chunk's clients
+   (or, for a loss marked :data:`CLIENT_LOOP`, a loop over them with
+   ``torch.autograd.grad``),
    the uplink pipeline compresses the stacks (adding each client's
    error-feedback residual), the LBG store's Algorithm-1 step takes the
    ``(C, ...)`` stacks and calls the *batched* decision kernels
@@ -67,6 +69,14 @@ from repro_torch.fed.registry import (LBG_STORES, SCHEDULERS,
 from repro_torch.kernels import ops
 
 
+#: attribute a model component sets on its loss function (``True``) when
+#: ``torch.func`` cannot transform the loss: the engine then runs a chunk's
+#: clients one after another under ``torch.autograd`` (the ``"lm"``
+#: component's loss checkpoints its blocks and CE chunks, and its kernels
+#: are autograd Functions without a vmap rule)
+CLIENT_LOOP = "client_loop"
+
+
 def resolve_fused_kernels(cfg: FLConfig) -> bool:
     """Kernel half of the ``FLConfig.fused_kernels`` knob. None and True
     take the fused decision (the hand-written kernels on a CUDA device,
@@ -96,7 +106,7 @@ def _null_stats(C: int, device):
 class NullLBGStore:
     """Vanilla FL: no LBG bank, every round is a full round."""
 
-    def init(self, params, num_clients: int):
+    def init(self, params, num_clients: int, promote=None):
         return {}
 
     def client_step(self, grad, lbg_k):
@@ -116,10 +126,16 @@ class DenseLBGStore:
         self.delta = delta_threshold
         self.fused = fused
 
-    def init(self, params, num_clients: int):
-        return {k: torch.zeros((num_clients,) + tuple(p.shape),
-                               dtype=p.dtype, device=p.device)
-                for k, p in params.items()}
+    def init(self, params, num_clients: int, promote=None):
+        """The bank holds what the uplink pipeline emits: each leaf in its
+        param's dtype, promoted with ``promote`` (fp32 under error
+        feedback, whose fp32 residual widens the gradient; the JAX bank
+        takes that dtype at its first write)."""
+        return {k: torch.zeros(
+            (num_clients,) + tuple(p.shape), device=p.device,
+            dtype=p.dtype if promote is None
+            else torch.promote_types(p.dtype, promote))
+            for k, p in params.items()}
 
     def client_step(self, grad, lbg_k):
         return lbgm_lib.lbgm_client_step(grad, lbg_k, self.delta,
@@ -142,7 +158,8 @@ class TopKLBGStore:
         self.k_frac = k_frac
         self.fused = fused
 
-    def init(self, params, num_clients: int):
+    def init(self, params, num_clients: int, promote=None):
+        # the sparse bank's values are fp32 whatever the leaf's dtype
         proto = lbgm_lib.init_topk_lbg(params, self.k_frac)
         return _tmap(lambda x: torch.zeros((num_clients,) + tuple(x.shape),
                                            dtype=x.dtype, device=x.device),
@@ -406,6 +423,9 @@ class FLEngine:
     (see ``repro_torch.fed.partition``). ``params`` may be tensors on any
     device or numpy arrays; the engine keeps its copy on ``device``.
 
+    A loss that ``torch.func`` cannot transform carries ``CLIENT_LOOP``
+    (see :meth:`_make_client_loop`).
+
     After every round, ``sin2_history[-1]`` holds each client's LBP error
     sin²(α) of that round (1 for unsampled and vanilla-FL clients' rows as
     the store computed them), so a caller can check how far the decisions
@@ -414,9 +434,12 @@ class FLEngine:
 
     def __init__(self, loss_fn: Callable, params, client_data:
                  List[Dict[str, np.ndarray]], flcfg: FLConfig,
-                 device="cuda"):
+                 device="cuda", model_axes=None):
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
+        # each leaf's logical axes, for model_sharding="auto" (a later
+        # slice: FLConfig refuses it until then)
+        self.model_axes = model_axes
         self.cfg = flcfg
         self.params = {k: torch.as_tensor(v).to(self.device)
                        for k, v in params.items()}
@@ -462,9 +485,10 @@ class FLEngine:
                 "the sparse payload path (lbg_variant='topk' with "
                 "fused_kernels not False) or vanilla FL (use_lbgm=False)")
         Kp = K + self._pad
-        self.lbg = self.store.init(self.params, Kp)
         self._pipeline, self._use_ef = make_uplink_pipeline(
             flcfg.compressor, flcfg.compressor_kw, flcfg.error_feedback)
+        self.lbg = self.store.init(
+            self.params, Kp, promote=torch.float32 if self._use_ef else None)
         self.residual = {
             k: torch.zeros((Kp,) + tuple(p.shape), dtype=torch.float32,
                            device=self.device)
@@ -481,9 +505,12 @@ class FLEngine:
         """tau local SGD steps for a chunk of clients, vmapped over the
         chunk's client axis: every client starts from the global params.
         Returns the accumulated stochastic gradient (C, ...) per leaf and
-        each client's mean loss (C,)."""
+        each client's mean loss (C,). A loss marked ``client_loop`` takes
+        :meth:`_make_client_loop` instead."""
         cfg = self.cfg
         loss_fn = self.loss_fn
+        if getattr(loss_fn, CLIENT_LOOP, False):
+            return self._make_client_loop()
 
         def loss_aux(p, b):
             loss, _ = loss_fn(p, b)
@@ -501,6 +528,57 @@ class FLEngine:
                 asg = g if asg is None else {k: asg[k] + g[k] for k in g}
                 losses.append(loss)
             return asg, torch.stack(losses).mean(0)
+
+        return client_update
+
+    def _make_client_loop(self):
+        """The client axis of :meth:`_make_client_update` written out as a
+        loop, for a loss ``torch.func`` cannot transform (checkpointed
+        blocks, kernels behind autograd Functions): the chunk's clients one
+        after another, each taking tau steps ``p - lr * g`` with
+        ``torch.autograd.grad``. Each client's accumulated gradient is
+        summed into its row of a preallocated ``(C, ...)`` stack in the
+        gradient's dtype, then its temporaries are freed. The sum over tau
+        is the JAX engine's ``jnp.sum`` over the stacked steps, which adds
+        low-precision gradients in fp32 and rounds once: two steps round
+        once in place; past two, a low-precision leaf sums in fp32."""
+        from repro_torch.train.trainer import grad_and_loss
+        cfg = self.cfg
+        loss_fn = self.loss_fn
+
+        def client_update(params, batches):
+            C = next(iter(batches.values())).shape[0]
+            asg = {k: torch.empty((C,) + v.shape, dtype=v.dtype,
+                                  device=v.device)
+                   for k, v in params.items()}
+            losses = torch.empty(C, dtype=torch.float32,
+                                 device=next(iter(params.values())).device)
+            for c in range(C):
+                acc = {k: v[c] if cfg.tau <= 2 or v.dtype == torch.float32
+                       else torch.empty(v.shape[1:], dtype=torch.float32,
+                                        device=v.device)
+                       for k, v in asg.items()}
+                for a in acc.values():
+                    a.zero_()
+                p, ls = params, []
+                for t in range(cfg.tau):
+                    with torch.enable_grad():
+                        g, loss = grad_and_loss(
+                            loss_fn, p, {k: v[c, t]
+                                         for k, v in batches.items()})
+                    with torch.no_grad():
+                        p = {k: p[k] - cfg.lr * g[k].to(p[k].dtype)
+                             for k in p}
+                        for k in acc:
+                            acc[k].add_(g[k])
+                    ls.append(loss)
+                    del g, loss
+                for k, a in acc.items():
+                    if a.dtype != asg[k].dtype:
+                        asg[k][c].copy_(a)
+                losses[c] = torch.stack(ls).mean()
+                del p, ls, acc
+            return asg, losses
 
         return client_update
 

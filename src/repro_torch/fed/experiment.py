@@ -18,14 +18,21 @@ package. Entry points:
 Every entry point runs on the CUDA card unless given ``device="cpu"``, and
 raises without a card.
 
-Built-in components: models ``fcn`` and ``cnn``, dataset ``mixture``,
-partitioners ``label_skew`` and ``iid``. A model builder returns
-``(params, loss_fn)`` with params drawn on the CPU from a
-``torch.Generator`` seeded by the spec.
+Built-in components: models ``fcn``, ``cnn`` and ``lm``, datasets
+``mixture`` and ``markov``, partitioners ``label_skew`` and ``iid``. A
+model builder returns ``(params, loss_fn)`` or ``(params, loss_fn,
+axes)`` (each leaf's logical axes, kept for ``model_sharding="auto"``),
+with params drawn from a ``torch.Generator`` seeded by the spec. A builder
+that takes ``device`` gets the engine's: ``fcn`` and ``cnn`` still draw on
+the CPU (one init for both devices), ``lm`` draws on that device, so a
+full-width LM never passes through host memory. With ``params`` given,
+``build_experiment`` asks such a builder for ``device="meta"`` (shapes
+only) to check the keys, with no second draw.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import itertools
 import json
 import time
@@ -242,8 +249,13 @@ def build_experiment(spec: ExperimentSpec, params=None, device="cuda"):
 
     dev = resolve_device(device)
     spec.validate()
-    init_params, loss_fn = MODELS.get(spec.model.name)(
-        **{"seed": spec.fl.seed, **spec.model.kw})
+    builder = MODELS.get(spec.model.name)
+    kw = {"seed": spec.fl.seed, **spec.model.kw}
+    if "device" in inspect.signature(builder).parameters:
+        kw["device"] = dev if params is None else torch.device("meta")
+    built = builder(**kw)
+    init_params, loss_fn, model_axes = (
+        built if len(built) == 3 else (*built, None))
     if params is not None:
         if set(params) != set(init_params):
             raise ValueError(
@@ -262,7 +274,7 @@ def build_experiment(spec: ExperimentSpec, params=None, device="cuda"):
         train, spec.fl.num_clients, **spec.partition.kw)
     client_data = [{k: v[p] for k, v in train.items()} for p in parts]
     engine = FLEngine(loss_fn, init_params, client_data, spec.fl,
-                      device=dev)
+                      device=dev, model_axes=model_axes)
     eval_batch = {k: torch.as_tensor(v).to(dev)
                   for k, v in held_out.items()}
 
@@ -346,7 +358,7 @@ def sweep(base_spec: ExperimentSpec, overrides: OverridesLike,
 # --------------------------------------------------------------- built-ins
 
 
-def _classifier_model(arch: str, seed: int, init_fn, apply_fn,
+def _classifier_model(arch: str, seed: int, init_fn, apply_fn, device,
                       **arch_overrides):
     from repro_torch.configs import get_config
     from repro_torch.models.smallnets import classifier_loss
@@ -354,25 +366,62 @@ def _classifier_model(arch: str, seed: int, init_fn, apply_fn,
     cfg = get_config(arch)
     if arch_overrides:
         cfg = dataclasses.replace(cfg, **arch_overrides)
-    params, _ = init_fn(torch.Generator().manual_seed(seed), cfg)
+    # drawn on the CPU whatever the engine's device, unless only the
+    # shapes are asked for
+    meta = torch.device(device).type == "meta"
+    params, _ = init_fn(torch.Generator().manual_seed(seed), cfg,
+                        device="meta" if meta else None)
     loss_fn = lambda p, b: classifier_loss(apply_fn, p, cfg, b["x"], b["y"])
     return params, loss_fn
 
 
 @register_model("fcn")
-def _fcn_model(seed: int = 0, arch: str = "paper-fcn", **arch_overrides):
+def _fcn_model(seed: int = 0, arch: str = "paper-fcn", device="cpu",
+               **arch_overrides):
     """Paper S2: 1-hidden-layer FCN classifier on 28x28 inputs."""
     from repro_torch.models.smallnets import apply_fcn, init_fcn
-    return _classifier_model(arch, seed, init_fcn, apply_fcn,
+    return _classifier_model(arch, seed, init_fcn, apply_fcn, device,
                              **arch_overrides)
 
 
 @register_model("cnn")
-def _cnn_model(seed: int = 0, arch: str = "paper-cnn", **arch_overrides):
+def _cnn_model(seed: int = 0, arch: str = "paper-cnn", device="cpu",
+               **arch_overrides):
     """Paper S1: small conv classifier on 28x28 inputs."""
     from repro_torch.models.smallnets import apply_cnn, init_cnn
-    return _classifier_model(arch, seed, init_cnn, apply_cnn,
+    return _classifier_model(arch, seed, init_cnn, apply_cnn, device,
                              **arch_overrides)
+
+
+@register_model("lm")
+def _lm_model(seed: int = 0, arch: str = "qwen3-1.7b", reduced: bool = True,
+              device="cuda", **arch_overrides):
+    """Next-token LM on one of the port's decoder archs (qwen3-1.7b,
+    rwkv6-3b), ``reduced()`` by default so the spec runs on a CPU; drop
+    ``reduced`` for the published widths. The params are drawn on
+    ``device`` (the engine's) from a generator there. The loss
+    (``train.trainer.make_loss_fn``) is marked ``CLIENT_LOOP``:
+    ``torch.func`` cannot take the gradient of its checkpointed blocks and
+    CE chunks, so the engine runs a chunk's clients one after another."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import resolve_device
+    from repro_torch.fed.engine import CLIENT_LOOP
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.trainer import make_loss_fn
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if arch_overrides:
+        cfg = dataclasses.replace(cfg, **arch_overrides)
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
+    gen = torch.Generator(device=dev if dev.type == "cuda" else "cpu")
+    params, axes = init_lm(gen.manual_seed(seed), cfg, device=dev)
+    loss_fn = make_loss_fn(cfg)
+    setattr(loss_fn, CLIENT_LOOP, True)
+    return params, loss_fn, axes
 
 
 @register_dataset("mixture")
@@ -383,6 +432,19 @@ def _mixture_dataset(n: int = 2000, n_eval: int = 500, num_classes: int = 10,
     x, y = mixture_classification(n + n_eval, num_classes, seed=seed,
                                   noise=noise)
     return ({"x": x[:n], "y": y[:n]}, {"x": x[n:], "y": y[n:]})
+
+
+@register_dataset("markov")
+def _markov_dataset(n: int = 256, n_eval: int = 64, seq_len: int = 32,
+                    vocab: int = 512, seed: int = 0, branching: int = 4):
+    """Markov-chain token streams (each token has ``branching`` likely
+    successors) for the ``"lm"`` component; ``vocab`` must match the
+    arch's (the reduced archs clamp it to 512)."""
+    from repro_torch.data.synthetic import markov_lm
+    toks, labels = markov_lm(n + n_eval, seq_len, vocab, seed=seed,
+                             branching=branching)
+    return ({"tokens": toks[:n], "labels": labels[:n]},
+            {"tokens": toks[n:], "labels": labels[n:]})
 
 
 @register_partitioner("label_skew")

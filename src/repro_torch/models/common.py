@@ -27,12 +27,14 @@ class ParamStore:
     memory (other numbers than a CPU generator of the same seed). The
     draws are torch's, not ``jax.random``'s: to run both packages from
     identical weights, carry the JAX package's params across with
-    :func:`params_from_numpy`.
+    :func:`params_from_numpy`. ``device="meta"`` makes shapes and dtypes
+    only, with no draw.
     """
 
-    def __init__(self, gen: torch.Generator, dtype=torch.float32):
+    def __init__(self, gen: torch.Generator, dtype=torch.float32,
+                 device=None):
         self._gen = gen
-        self._device = gen.device
+        self._device = gen.device if device is None else torch.device(device)
         self.dtype = dtype
         self.params: Params = {}
         self.axes: Axes = {}

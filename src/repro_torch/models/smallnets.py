@@ -18,8 +18,8 @@ from repro_torch.models.common import ParamStore
 IMG = 28
 
 
-def init_cnn(gen: torch.Generator, cfg: ArchConfig):
-    store = ParamStore(gen, torch.float32)
+def init_cnn(gen: torch.Generator, cfg: ArchConfig, device=None):
+    store = ParamStore(gen, torch.float32, device=device)
     ch = cfg.d_model  # base width (32)
     chans = [1, ch, ch, 2 * ch, 2 * ch][: cfg.n_layers + 1]
     for i in range(cfg.n_layers):
@@ -46,8 +46,8 @@ def apply_cnn(params, cfg: ArchConfig, x):
     return h @ params["fc/w"] + params["fc/b"]
 
 
-def init_fcn(gen: torch.Generator, cfg: ArchConfig):
-    store = ParamStore(gen, torch.float32)
+def init_fcn(gen: torch.Generator, cfg: ArchConfig, device=None):
+    store = ParamStore(gen, torch.float32, device=device)
     d = cfg.d_model
     store.param("fc1/w", (IMG * IMG, d), ("feat", "hidden"))
     store.param("fc1/b", (d,), ("hidden",), init="zeros")

@@ -80,9 +80,11 @@ def uses_scan(cfg: ArchConfig) -> bool:
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig, device="cuda"):
     """Returns (params flat dict, logical axes flat dict) on ``device``.
-    The draws come from ``gen`` on its own device (see ``ParamStore``)."""
-    dev = resolve_device(device)
-    store = ParamStore(gen, _DTYPES[cfg.dtype])
+    The draws come from ``gen`` on its own device (see ``ParamStore``);
+    ``device="meta"`` gives the shapes and dtypes only, with no draw."""
+    meta = torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    store = ParamStore(gen, _DTYPES[cfg.dtype], device=dev if meta else None)
     d = cfg.d_model
     store.param("embed", (cfg.vocab_size, d), ("vocab", "embed"), scale=0.02)
     if uses_scan(cfg):

@@ -93,7 +93,7 @@ def init_train_state(gen: Optional[torch.Generator], cfg: ArchConfig,
 
 # ------------------------------------------------------------- steps
 
-def _grad(loss_fn, params, batch):
+def grad_and_loss(loss_fn, params, batch):
     """(grads in each param's dtype, loss): one backward through the
     model; a param the loss does not read gets a zero gradient, as
     ``jax.grad`` gives it."""
@@ -113,11 +113,11 @@ def _client_asg(loss_fn, params, client_batch, tau: int, lr):
     (tau, b, ...)); the gradients summed in fp32.
     """
     if tau == 1:
-        return _grad(loss_fn, params, client_batch)
+        return grad_and_loss(loss_fn, params, client_batch)
     p, asg, losses = params, None, []
     for t in range(tau):
-        g, loss = _grad(loss_fn, p, {k: v[t] for k, v in
-                                     client_batch.items()})
+        g, loss = grad_and_loss(loss_fn, p, {k: v[t] for k, v in
+                                             client_batch.items()})
         p = {k: (x.float() - lr * g[k].float()).to(x.dtype)
              for k, x in p.items()}
         asg = {k: x.float() for k, x in g.items()} if asg is None else {
