@@ -46,7 +46,19 @@ From the root of a checkout. Phases, each printed as one JSON line:
    float-level flip would otherwise be possible);
 5. one profiled round each of the dense, top-k and top-k int8 FCN
    phases: wall time, device busy time and idle share, and the kernels
-   that took the most device time;
+   that took the most device time. Then the robust, attacked and buffered
+   rounds at the same cohort (``robust_phases``): ``fcn_topk_signflip_gm``
+   (top-k, delta 0.9, the geometric median against sign-flipping clients,
+   dropout 0.1), ``fcn_dense_gaussian_trimmed`` (dense store, delta 0.3,
+   the trimmed mean against Gaussian noise drawn on the card),
+   ``fcn_topk_int8_scalar_median`` (the scalar median against a colluding
+   cohort, int8 wire) and ``fcn_buffered_straggler`` (the buffered
+   scheduler, a straggling head cohort, int8: the dequant fold reads the
+   staleness buffer), each against its CPU run (discrete fields, the
+   delivered and evicted counts and the Byzantine cohort equal; loss rtol
+   1e-4, the run's update within 1e-3 relative L2) with its launches a
+   round held, its ms per round, peak memory and the rule's own ms; then
+   one profiled round of the first;
 6. LM serving (``lm_*`` phases), after the flash-attention and RWKV6-scan
    kernels were held against their plain versions (``lm_kernel_checks``,
    with phase 3; flash in bf16 on the tensor-core kernel, in fp32 on the
@@ -108,7 +120,12 @@ From the root of a checkout. Phases, each printed as one JSON line:
    decisions), ``fl_lm_qwen3_topk_int8`` (K=4, chunk 2, the top-k store
    at k_frac 0.01, the int8 wire: flash, the decision and the dequant
    fold once per leaf per chunk), ``fl_lm_rwkv6_topk`` (K=2, chunk 1,
-   top-k: the scan 256 a round, the decision), and ``fl_lm_card_vs_cpu``
+   top-k: the scan 256 a round, the decision),
+   ``fl_lm_qwen3_buffered_scalar_median`` (K=4, chunk 2, top-k 0.01,
+   int8, buffered with one straggler a round late, the scalar median
+   against a sign-flipping client, 4 rounds: flash 448 and the decision
+   28 a round; held against 2 rounds under the plain kernels by the dense
+   phase's rule), and ``fl_lm_card_vs_cpu``
    (both archs at depth 2 in fp32, K=2, T=256, 2 rounds, dense store:
    ``uplink_floats``, ``frac_scalar``, ``wire_bytes`` and ``savings``
    identical to the CPU run's, losses within rtol 1e-4). Each record
@@ -1209,6 +1226,212 @@ def profile_round(label, spec, device="cuda"):
                            for k, v in top]}
     emit(rec)
     return rec
+
+
+# ------------------------------------- robust, attacked, buffered rounds
+
+#: card against CPU in fp32 (PERF.md §2): loss rtol, and the run's whole
+#: update (final params minus initial) within this relative L2
+FL_ROBUST_LOSS_RTOL = 1e-4
+FL_ROBUST_UPDATE_RTOL = 1e-3
+
+
+def robust_fl_run(spec, params, device, rounds):
+    """``rounds`` rounds of ``spec`` on ``device`` from ``params`` (host
+    arrays), through the engine and its prefetcher as ``run_experiment``
+    drives them: (engine, ms per round on the host clock around the
+    synchronised round, the collect rule's ms per round, timed between two
+    synchronisations)."""
+    import numpy as np
+    import torch
+    from repro_torch.fed.experiment import build_experiment
+    eng, _ = build_experiment(spec, params=params, device=device)
+    card = device == "cuda"
+    rule_ms = []
+    if card and getattr(eng.agg, "collect", False):
+        reduce = eng.agg.reduce
+
+        def timed_reduce(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = reduce(*a)
+            torch.cuda.synchronize()
+            rule_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        eng.agg.reduce = timed_reduce
+    src = eng.prefetcher(np.random.RandomState(spec.fl.seed + 1))
+    ms = []
+    try:
+        for _ in range(rounds):
+            if card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run_round(src)
+            if card:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        src.close()
+    return eng, ms, rule_ms
+
+
+def robust_phase(label, spec, want, totals):
+    """One robust, attacked or buffered FL phase of the FCN at the paper's
+    cohort: a warm-up round, then ``spec.rounds`` rounds on the card with
+    the launch counters set to 0 just before (``want``: launches a round
+    of every kernel), then the same rounds on the CPU from the same
+    params. Uplink floats, scalar fraction, wire bytes, savings, the
+    delivered and evicted counts and the Byzantine cohort equal; losses
+    within FL_ROBUST_LOSS_RTOL, the run's update within
+    FL_ROBUST_UPDATE_RTOL relative L2; no client's sin² within 1e-5 of
+    delta. The phase's launches go into the kernels line's totals."""
+    import numpy as np
+    import torch
+    from repro_torch.fed.engine import pick_chunk
+    from repro_torch.fed.experiment import build_experiment
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import TWO_PASS_ENV
+
+    os.environ[TWO_PASS_ENV] = "0"
+    eng, _ = build_experiment(spec, device="cpu")
+    params = {k: v.numpy() for k, v in eng.params.items()}
+    del eng
+    robust_fl_run(spec, params, "cuda", 1)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold, left out of the phase's own peak
+    held = torch.cuda.memory_allocated() / 1e9
+    _build.reset_launch_counts()
+    geng, gms, rule_ms = robust_fl_run(spec, params, "cuda", spec.rounds)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9 - held
+    launches = dict(_build.LAUNCHES)
+    by_shape = {k: dict(v) for k, v in _build.LAUNCH_SHAPES.items() if v}
+    for k, n in launches.items():
+        if n != want.get(k, 0) * spec.rounds:
+            fail(f"{label}: {n} launches of {k} in {spec.rounds} rounds, "
+                 f"want {want.get(k, 0)} a round")
+        totals[k] += n
+    for k, shapes in by_shape.items():
+        for shp, c in shapes.items():
+            SHAPE_TOTALS.setdefault(k, {})
+            SHAPE_TOTALS[k][shp] = SHAPE_TOTALS[k].get(shp, 0) + c
+    ceng, cms, _ = robust_fl_run(spec, params, "cpu", spec.rounds)
+    exact = ("uplink_floats", "frac_scalar", "wire_bytes", "savings",
+             "wire_savings", "total_wire_bytes")
+    for r, (a, b) in enumerate(zip(geng.history, ceng.history)):
+        for k in exact:
+            if a[k] != b[k]:
+                fail(f"{label} round {r + 1}: {k} {a[k]} on the card vs "
+                     f"{b[k]} on the CPU")
+        if not np.isfinite(a["loss"]) or abs(a["loss"] - b["loss"]) > \
+                FL_ROBUST_LOSS_RTOL * abs(b["loss"]):
+            fail(f"{label} round {r + 1}: loss {a['loss']} vs {b['loss']}")
+    counts = {"n_delivered": [getattr(e, "n_delivered", None)
+                              for e in (geng, ceng)],
+              "n_evicted": [e.ledger.n_evicted for e in (geng, ceng)]}
+    for k, (a, b) in counts.items():
+        if a != b:
+            fail(f"{label}: {k} {a} on the card vs {b} on the CPU")
+    if not np.array_equal(geng._byz, ceng._byz):
+        fail(f"{label}: the Byzantine cohorts differ")
+    num = den = 0.0
+    for k, p0 in params.items():
+        g = geng.params[k].cpu().double()
+        c = ceng.params[k].double()
+        num += float(((g - c) ** 2).sum())
+        den += float(((c - torch.from_numpy(p0).double()) ** 2).sum())
+    update_err = (num / max(den, 1e-300)) ** 0.5
+    if not update_err <= FL_ROBUST_UPDATE_RTOL:
+        fail(f"{label}: the run's update off the CPU's by {update_err:.3g} "
+             f"relative L2")
+    delta = spec.fl.delta_threshold
+    margin = min(float(np.min(np.abs(s - delta)))
+                 for e in (geng, ceng) for s in e.sin2_history)
+    if margin < 1e-5:
+        fail(f"{label}: a client's sin^2 lies {margin:.3g} from delta")
+    fl = spec.fl
+    timed = gms[1:] or gms
+    rec = {"phase": label, "model": spec.model.name,
+           "scheduler": fl.scheduler, "store": fl.lbg_variant,
+           "lbg_kw": fl.lbg_kw, "codec": fl.codec,
+           "aggregator": fl.aggregator, "aggregator_kw": fl.aggregator_kw,
+           "attack": fl.attack, "attack_frac": fl.attack_frac,
+           "attack_kw": fl.attack_kw, "dropout_frac": fl.dropout_frac,
+           "latency": fl.latency, "latency_kw": fl.latency_kw,
+           "K": fl.num_clients, "rounds": spec.rounds, "delta": delta,
+           "chunk": pick_chunk(fl.num_clients, fl.chunk_size),
+           "byzantine": [int(i) for i in np.flatnonzero(geng._byz)],
+           "ms_per_round": sum(timed) / len(timed),
+           "ms_per_round_of": "the mean of the rounds after the first",
+           "round_ms": gms, "cpu_round_ms": cms,
+           "rule_ms_per_round": rule_ms or "not separated (streaming fold)",
+           "peak_mem_gb": peak, "peak_mem_of": "the phase's own, above "
+           f"the {held:.3f} GB held before it",
+           "launches": {k: v for k, v in launches.items() if v},
+           "expected_launches_per_round": {k: v for k, v in want.items()
+                                           if v},
+           "launches_by_shape": {k: [[list(shp), c] for shp, c in v.items()]
+                                 for k, v in by_shape.items()},
+           "loss": [h["loss"] for h in geng.history],
+           "loss_cpu": [h["loss"] for h in ceng.history],
+           "frac_scalar": [h["frac_scalar"] for h in geng.history],
+           "uplink_floats": [h["uplink_floats"] for h in geng.history],
+           "wire_bytes": [h["wire_bytes"] for h in geng.history],
+           "savings": geng.history[-1]["savings"], **counts,
+           "update_rel_l2_vs_cpu": update_err, "sin2_margin": margin,
+           "tolerance": f"discrete fields, counts and cohort identical; "
+                        f"loss rtol {FL_ROBUST_LOSS_RTOL}; the run's update "
+                        f"relative L2 {FL_ROBUST_UPDATE_RTOL}"}
+    emit(rec)
+    return rec
+
+
+def robust_phases(totals):
+    """The robust, attacked, dropout and buffered FL phases (``fl_spec``:
+    K=100, tau 2, lr 0.05, b 16, label skew, chunk 10, n=20000, seed 0),
+    then one profiled round of the first."""
+    from repro_torch.fed.engine import pick_chunk
+    from repro_torch.fed.experiment import build_experiment
+    base = fl_spec("fcn")
+    eng, _ = build_experiment(base, device="cpu")
+    leaves = len(eng.params)
+    del eng
+    K = base.fl.num_clients
+    chunks = -(-K // pick_chunk(K, base.fl.chunk_size))
+    decision = {"lbgm_sparse_decision": leaves * chunks}
+    topk = {"lbg_variant": "topk", "lbg_kw": {"k_frac": 0.1}}
+    gm = fl_spec("fcn", **topk, delta_threshold=0.9,
+                 aggregator="geometric_median", aggregator_kw={"iters": 8},
+                 attack="sign_flip", attack_frac=0.2,
+                 attack_kw={"scale": 4.0}, dropout_frac=0.1)
+    out = [robust_phase("fcn_topk_signflip_gm", gm, decision, totals)]
+    # delta 0.3: at 0.2 a client's sin² lies 2.9e-6 from delta in round 3
+    # (the dense store's 100 sin² crowd 0.11-0.35 on this data), inside
+    # the margin that keeps a float-level flip out of the exact checks
+    out.append(robust_phase(
+        "fcn_dense_gaussian_trimmed",
+        fl_spec("fcn", delta_threshold=0.3, aggregator="trimmed_mean",
+                aggregator_kw={"beta": 0.1}, attack="gaussian",
+                attack_frac=0.2, attack_kw={"sigma": 0.5}),
+        {"lbgm_projection": chunks}, totals))
+    out.append(robust_phase(
+        "fcn_topk_int8_scalar_median",
+        fl_spec("fcn", **topk, delta_threshold=0.9, codec="int8",
+                aggregator="scalar_median", attack="colluding_sign",
+                attack_frac=0.2),
+        decision, totals))
+    buffered = fl_spec(
+        "fcn", **topk, delta_threshold=0.5, codec="int8",
+        scheduler="buffered", latency="straggler",
+        latency_kw={"frac": 0.2, "delay": 4, "cohort": "head",
+                    "alpha": 0.5, "max_staleness": 6})
+    out.append(robust_phase(
+        "fcn_buffered_straggler", buffered.with_overrides({"rounds": 8}),
+        dict(decision, lbgm_dequant_accum=leaves * chunks), totals))
+    out.append(profile_round("fcn_topk_signflip_gm", gm))
+    return out
 
 
 # ------------------------------------------------------------ kernel line
@@ -2742,24 +2965,31 @@ def fl_probe(keep_update=False, compare_update=None):
     from repro_torch.fed import engine as fe
     from repro_torch.kernels import _build
     rec = {"ms": [], "sgd_ms": [], "launches": [], "sin2": [], "sent": [],
-           "update": None, "update_rel_l2": None}
+           "update": None, "update_rel_l2": None, "n_delivered": None,
+           "n_evicted": None}
     real_round, real_run = fe.FLEngine.run_round, fe._ChunkLoop.run
+    real_buffered = fe.BufferedScheduler.run_buffered
     real_make = fe.FLEngine._make_client_update
 
     def make(self):
         update = real_make(self)
 
-        def timed(params, batches):
+        def timed(*a):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = update(params, batches)
+            out = update(*a)
             torch.cuda.synchronize()
             rec["sgd_ms"][-1] += (time.perf_counter() - t0) * 1e3
             return out
         return timed
 
     def run(self, *a, **kw):
-        out = real_run(self, *a, **kw)
+        return keep(real_run(self, *a, **kw))
+
+    def run_buffered(self, *a, **kw):
+        return keep(real_buffered(self, *a, **kw))
+
+    def keep(out):
         if len(rec["ms"]) == 0:
             agg = out[0]
             if keep_update:
@@ -2787,14 +3017,18 @@ def fl_probe(keep_update=False, compare_update=None):
         delta = self.cfg.delta_threshold
         rec["sin2"].append(s.tolist())
         rec["sent"].append([bool(x <= delta and x < 1.0) for x in s])
+        rec["n_delivered"] = getattr(self, "n_delivered", None)
+        rec["n_evicted"] = self.ledger.n_evicted
         return m
 
     fe.FLEngine.run_round, fe._ChunkLoop.run = run_round, run
+    fe.BufferedScheduler.run_buffered = run_buffered
     fe.FLEngine._make_client_update = make
     try:
         yield rec
     finally:
         fe.FLEngine.run_round, fe._ChunkLoop.run = real_round, real_run
+        fe.BufferedScheduler.run_buffered = real_buffered
         fe.FLEngine._make_client_update = real_make
 
 
@@ -2843,7 +3077,8 @@ def fl_lm_expected(spec):
     the scan twice per layer per local step per client (the forward and
     the block's remat recompute); the projection once per chunk (dense
     store); the decision once per leaf per chunk (top-k store); the
-    dequant fold once per leaf per chunk (top-k store, lossy codec)."""
+    dequant fold once per leaf per chunk (top-k store, lossy codec, the
+    streaming "mean" fold: the collect rules decode in plain PyTorch)."""
     from repro_torch.configs import get_config
     from repro_torch.fed.engine import pick_chunk
     from repro_torch.fed.experiment import MODELS
@@ -2855,7 +3090,7 @@ def fl_lm_expected(spec):
     want = {LM_KERNEL[kw["arch"]]: 2 * layers * fl.tau * fl.num_clients}
     if fl.lbg_variant == "topk":
         want["lbgm_sparse_decision"] = leaves * chunks
-        if fl.codec in ("int8", "fp8"):
+        if fl.codec in ("int8", "fp8") and fl.aggregator == "mean":
             want["lbgm_dequant_accum"] = leaves * chunks
     else:
         want["lbgm_projection"] = chunks
@@ -3002,6 +3237,85 @@ def fl_lm_topk(phase, arch, **overrides):
     out = fl_lm_record(phase, spec, history, final, rec, peak, want,
                        entry="repro_torch.fed.experiment.run_experiment")
     emit(out)
+    return out
+
+
+def fl_lm_qwen3_buffered_scalar_median(plain_rounds=2):
+    """``fl_lm_qwen3_buffered_scalar_median``: full-width qwen3 (card-drawn
+    bf16 weights, remat, one markov sequence a client) through
+    ``run_experiment``: K=4, chunk 2, tau 2, b 1, T 2048, top-k 0.01 with
+    the int8 wire, the buffered scheduler with one straggler a round late,
+    ``scalar_median`` against one ``sign_flip`` client (scale 4), 4 rounds:
+    flash 448 and the decision 28 launches a round (the collect rule
+    decodes the int8 payloads in plain PyTorch: no dequant fold). Then
+    ``plain_rounds`` rounds under the plain kernels, held as
+    ``fl_lm_qwen3_dense`` holds its run (round 1's loss within
+    TRAIN_LOSS_RTOL, its update within the larger of TRAIN_UPDATE_RTOL and
+    twice the model's own floor, decisions equal where sin² lies farther
+    than TRAIN_MARGIN from delta)."""
+    phase = "fl_lm_qwen3_buffered_scalar_median"
+    spec = fl_lm_spec(**{
+        "fl.num_clients": 4, "fl.chunk_size": 2, "fl.lbg_variant": "topk",
+        "fl.lbg_kw": {"k_frac": 0.01}, "fl.codec": "int8",
+        "fl.scheduler": "buffered", "fl.latency": "straggler",
+        "fl.latency_kw": {"frac": 0.25, "delay": 1},
+        "fl.aggregator": "scalar_median", "fl.attack": "sign_flip",
+        "fl.attack_frac": 0.25, "fl.attack_kw": {"scale": 4.0},
+        "rounds": 4})
+    want = fl_lm_expected(spec)
+    history, final, rec, peak = fl_lm_run(spec, keep_update=True)
+    out = fl_lm_record(phase, spec, history, final, rec, peak, want,
+                       entry="repro_torch.fed.experiment.run_experiment",
+                       ms_per_round_of="the mean of rounds 2-4",
+                       scheduler="buffered", latency=spec.fl.latency_kw,
+                       aggregator=spec.fl.aggregator,
+                       attack=[spec.fl.attack, spec.fl.attack_frac,
+                               spec.fl.attack_kw],
+                       n_delivered=rec["n_delivered"],
+                       n_evicted=rec["n_evicted"])
+    short = spec.with_overrides({"rounds": plain_rounds})
+    phist, _, prec, _ = fl_lm_run(short, plain=True,
+                                  compare_update=rec["update"],
+                                  keep_update=True)
+    rec["update"] = None
+    for r, got in enumerate(prec["launches"]):
+        for k, n in want.items():
+            n = 0 if k == "flash_attention" else n
+            if got.get(k, 0) != n:
+                fail(f"{phase} (plain kernels): round {r + 1} launched "
+                     f"{got.get(k, 0)} {k}, want {n}")
+    floor = fl_lm_update_floor(spec, prec["update"])
+    prec["update"] = None
+    tol = max(TRAIN_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
+    loss_err = abs(history[0]["loss"] - phist[0]["loss"]) / abs(
+        phist[0]["loss"])
+    margin = decisions_agree(f"{phase} vs plain", rec, prec,
+                             spec.fl.delta_threshold, TRAIN_MARGIN)
+    for r, (a, b) in enumerate(zip(history, phist)):
+        if a["uplink_floats"] != b["uplink_floats"] and margin > \
+                TRAIN_MARGIN:
+            fail(f"{phase}: round {r + 1} uplink {a['uplink_floats']} vs "
+                 f"{b['uplink_floats']} under the plain kernels")
+    out["vs_plain"] = {
+        "rounds": plain_rounds,
+        "round1_loss_rel_err": loss_err,
+        "round1_update_rel_l2": prec["update_rel_l2"],
+        "round1_update_floor_rel_l2": floor,
+        "smallest_sin2_margin": margin,
+        "plain_losses": [h["loss"] for h in phist],
+        "plain_frac_scalar": [h["frac_scalar"] for h in phist],
+        "plain_uplink_floats": [h["uplink_floats"] for h in phist],
+        "tolerance": f"loss rtol {TRAIN_LOSS_RTOL}; update relative L2 "
+                     f"{tol:.4g} (the larger of {TRAIN_UPDATE_RTOL} and "
+                     f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor); decisions "
+                     f"equal where sin² lies > {TRAIN_MARGIN} from delta"}
+    emit(out)
+    if loss_err > TRAIN_LOSS_RTOL or prec["update_rel_l2"] > tol:
+        fail(f"{phase}: round 1 off the plain kernels' run: loss "
+             f"{loss_err:.3g}, update {prec['update_rel_l2']:.3g} (floor "
+             f"{floor:.3g}, tolerance {tol:.3g})")
+    if not rec["n_delivered"]:
+        fail(f"{phase}: no payload delivered in {spec.rounds} rounds")
     return out
 
 
@@ -3173,6 +3487,7 @@ def main():
     profile_round("fcn_topk", fl_spec("fcn", **topk))
     profile_round("fcn_topk_int8", fl_spec("fcn", **int8))
     uplink_launches()
+    robust_phases(totals)
 
     # LM serving, then training: full-width qwen3-1.7b and rwkv6-3b, one
     # model at a time; the training phases that start from the serving
@@ -3198,6 +3513,7 @@ def main():
                **{"fl.chunk_size": 2, "fl.codec": "int8"})
     fl_lm_topk("fl_lm_rwkv6_topk", "rwkv6-3b",
                **{"fl.num_clients": 2, "data.kw.n": 2})
+    fl_lm_qwen3_buffered_scalar_median()
     fl_lm_card_vs_cpu()
 
     flash_single_bf16_p()

@@ -10,6 +10,8 @@ replays those draws here so that its iterates are the reference's:
 * :func:`prng_key`: ``jax.random.PRNGKey(seed)`` under JAX's default
   32-bit mode (``jax_enable_x64`` off), where the seed is cast to 32 bits
   first: ``[0, seed mod 2^32]`` as uint32;
+* :func:`fold_in`: ``jax.random.fold_in(key, data)``, the two words of
+  ``threefry2x32(key, (0, data))``;
 * :func:`random_bits`: JAX's 32-bit ``random_bits`` in the partitionable
   mode (``jax_threefry_partitionable``, JAX's default since 0.5): element
   ``i`` of the row-major flattened shape is ``x0 ^ x1`` of
@@ -22,10 +24,18 @@ replays those draws here so that its iterates are the reference's:
   evaluated in float32 with NumPy's ``log1p``; it agrees with JAX within
   a few float32 ulps (XLA's own ``log1p`` and its fused multiply-adds may
   round differently).
+
+The same draws run on device tensors too (:func:`random_bits_rows`,
+:func:`normal_rows`): a batch of keys, one per row, each row
+``jax.random.normal(key_c, (n,))``. The uint32
+words are carried in int64 tensors and masked to 32 bits after every add
+and shift, so the bits are the NumPy path's on any device; the Byzantine
+attacks draw their noise there, on the card, rather than on the host.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -58,6 +68,13 @@ def threefry2x32(key, x0: np.ndarray, x1: np.ndarray):
 def prng_key(seed: int) -> np.ndarray:
     """``jax.random.PRNGKey(seed)``'s raw threefry key (2 uint32), x64 off."""
     return np.array([0, int(seed) & 0xFFFFFFFF], dtype=np.uint32)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``'s raw key (2 uint32)."""
+    y0, y1 = threefry2x32(key, np.zeros(1, np.uint32),
+                          np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.array([y0[0], y1[0]], dtype=np.uint32)
 
 
 def random_bits(key, shape) -> np.ndarray:
@@ -109,3 +126,85 @@ def normal(key, shape) -> np.ndarray:
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = uniform(key, shape, lo, 1.0)
     return (np.float32(np.sqrt(2)) * erfinv(u)).astype(np.float32)
+
+
+# ------------------------------------------------------ on device tensors
+
+_M32 = 0xFFFFFFFF
+#: elements of one (rows x slice) piece of :func:`normal_rows`: bounds the
+#: int64 temporaries (8 bytes each, a handful live) whatever the leaf size
+_PIECE = 1 << 22
+
+
+def _rotl_t(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32_t(k0, k1, x0, x1):
+    """:func:`threefry2x32` on int64 tensors holding uint32 words; the
+    keys broadcast against the counters."""
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl_t(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def prng_key_t(seed: torch.Tensor):
+    """``jax.random.PRNGKey`` of each seed in ``seed`` (C,): the key words
+    ``(0, seed mod 2^32)`` as two (C,) int64 tensors."""
+    s = seed.to(torch.int64) & _M32
+    return torch.zeros_like(s), s
+
+
+def fold_in_t(key, data: int):
+    """:func:`fold_in` of a batch of keys (two (C,) int64 tensors)."""
+    k0, k1 = key
+    zero = torch.zeros_like(k0)
+    return threefry2x32_t(k0, k1, zero, zero + (int(data) & _M32))
+
+
+def _erfinv_t(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _W_LT_5[0], _W_GE_5[0])
+    for a, b in zip(_W_LT_5[1:], _W_GE_5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return torch.where(x.abs() == 1, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def random_bits_rows(key, start: int, stop: int) -> torch.Tensor:
+    """Elements ``[start, stop)`` of each row's ``random_bits(key_c,
+    (n,))`` (any n >= stop): (C, stop - start) int64 holding uint32."""
+    k0, k1 = (k[:, None] for k in key)
+    i = torch.arange(start, stop, dtype=torch.int64, device=k0.device)[None]
+    b0, b1 = threefry2x32_t(k0, k1, i >> 32, i & _M32)
+    return b0 ^ b1
+
+
+def normal_rows(key, n: int) -> torch.Tensor:
+    """Row c is ``jax.random.normal(key_c, (n,), float32)``: (C, n) fp32 on
+    the keys' device, drawn in pieces of at most ``_PIECE`` elements."""
+    rows = key[0].shape[0]
+    # the float32 constants of :func:`uniform` and :func:`normal`, as
+    # Python floats holding float32 values
+    lo32 = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    lo, span = float(lo32), float(np.float32(1.0) - lo32)
+    sqrt2 = float(np.float32(np.sqrt(2)))
+    one = int(np.array(1.0, np.float32).view(np.uint32))
+    step = max(1, _PIECE // max(rows, 1))
+    out = torch.empty((rows, n), dtype=torch.float32, device=key[0].device)
+    for s0 in range(0, n, step):
+        s1 = min(n, s0 + step)
+        bits = (random_bits_rows(key, s0, s1) >> 9) | one
+        u = bits.to(torch.int32).view(torch.float32) - 1.0
+        u = torch.clamp(u * span + lo, min=lo)
+        out[:, s0:s1] = sqrt2 * _erfinv_t(u)
+    return out

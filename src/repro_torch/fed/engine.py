@@ -1,15 +1,16 @@
 """Federated execution engine of the port (paper Algorithms 1 & 3).
 
-Counterpart of ``repro.fed.engine``, for the slice the paper's own
-experiment loop runs: the ``"vmap"`` and ``"chunked"`` client schedulers,
-the ``"null"``, ``"dense"`` and ``"topk"`` LBG stores, the uplink
-compressor stacks (top-K, SignSGD, ATOMO, with or without error
-feedback), the ``"mean"`` streaming fold (``DenseAggregator``,
-``SparseTopKAggregator`` for the top-k store, ``SparseCodecAggregator``
-for its quantized payloads) and every wire codec (``none``,
-``delta_idx``, ``int8``, ``fp8``). The host-bank, buffered, sharded,
-robust-rule, attack, tier and checkpoint branches of the JAX engine are
-later slices; ``FLConfig`` rejects their keys until then.
+Counterpart of ``repro.fed.engine``: the ``"vmap"``, ``"chunked"`` and
+``"buffered"`` client schedulers, the ``"null"``, ``"dense"`` and
+``"topk"`` LBG stores, the uplink compressor stacks (top-K, SignSGD,
+ATOMO, with or without error feedback), the ``"mean"`` streaming fold
+(``DenseAggregator``, ``SparseTopKAggregator`` for the top-k store,
+``SparseCodecAggregator`` for its quantized payloads), the robust rules
+of ``fed.robust`` in collect mode, every wire codec (``none``,
+``delta_idx``, ``int8``, ``fp8``), the Byzantine attacks of
+``fed.attacks`` and straggler dropout. The host-bank, sharded, tier and
+checkpoint branches of the JAX engine are later slices; ``FLConfig``
+rejects their keys until then.
 
 One round:
 
@@ -19,13 +20,17 @@ One round:
    (:class:`RoundPrefetcher` overlaps round t+1's draws and copy with
    round t). A stochastic wire codec also draws one rounding seed per
    client from its own stream (``codec_rng``), which rides the batch dict
-   under ``WIRE_KEY``;
+   under ``WIRE_KEY``; the Byzantine flags, the attack's per-round seeds,
+   the buffered scheduler's delays and the dropout draws come from the
+   fault stream (``fault_rng``), in that order each round, and ride the
+   batch dict under the attacks' reserved keys;
 2. the scheduler walks the clients in chunks (``"vmap"``: one chunk of
    all K). Within a chunk the client axis is written out: local SGD is
    ``torch.func.vmap(torch.func.grad(loss))`` over the chunk's clients
    (or, for a loss marked :data:`CLIENT_LOOP`, a loop over them with
    ``torch.autograd.grad``),
-   the uplink pipeline compresses the stacks (adding each client's
+   a payload attack corrupts the Byzantine rows of the accumulated
+   gradient, the uplink pipeline compresses the stacks (adding each client's
    error-feedback residual), the LBG store's Algorithm-1 step takes the
    ``(C, ...)`` stacks and calls the *batched* decision kernels
    (``repro_torch.kernels.ops``) directly — one launch per leaf per chunk
@@ -34,8 +39,12 @@ One round:
    strictly sequentially, ``a + where(w > 0, w * g, 0)`` in client order,
    so vmap and chunked add in the same order (quantized sparse payloads
    go through the dequant-accumulate kernel, one launch per leaf per
-   chunk); the LBG and residual bank rows of the chunk are updated in
-   place (unsampled clients keep theirs);
+   chunk); a robust rule instead collects every chunk's payloads and
+   reduces the (K, ...) stack once. The LBG and residual bank rows of the
+   chunk are updated in place (unsampled clients keep theirs). The
+   ``"buffered"`` scheduler writes each dispatched payload into its
+   client's slot of a staleness buffer (in the codec's wire dtype) and
+   folds the slots that arrive this round, staleness-discounted;
 4. the server steps the params and ``CommLedger`` counts the uplink.
 
 Device: the engine runs on the CUDA card unless it is given
@@ -62,10 +71,16 @@ from repro_torch.compression import make_uplink_pipeline
 from repro_torch.core import lbgm as lbgm_lib
 from repro_torch.core.device import resolve_device  # noqa: F401  (re-export)
 from repro_torch.core.tree_math import tree_size
+from repro_torch.fed.attacks import (BYZ_KEY, STALE_KEY, fault_rng,
+                                     make_attack, select_byzantine)
 from repro_torch.fed.flconfig import FLConfig  # noqa: F401  (re-export)
+from repro_torch.fed.latency import make_latency
 from repro_torch.fed.registry import (LBG_STORES, SCHEDULERS,
-                                      register_aggregator, register_latency,
                                       register_lbg_store, register_scheduler)
+from repro_torch.fed.robust import (CollectDenseAggregator,
+                                    CollectSparseAggregator,
+                                    ScalarMedianSparseAggregator,
+                                    make_robust_rule)
 from repro_torch.kernels import ops
 
 
@@ -75,6 +90,10 @@ from repro_torch.kernels import ops
 #: component's loss checkpoints its blocks and CE chunks, and its kernels
 #: are autograd Functions without a vmap rule)
 CLIENT_LOOP = "client_loop"
+
+#: reserved batch key: per-client local-step budgets (the buffered
+#: scheduler's compute heterogeneity), stripped before local SGD
+TAU_KEY = "_tau"
 
 
 def resolve_fused_kernels(cfg: FLConfig) -> bool:
@@ -215,13 +234,6 @@ def make_lbg_store(cfg: FLConfig):
 
 # ------------------------------------------------------------ aggregators
 
-# the only server rule and latency model ported: the streaming "mean"
-# fold (make_aggregator) and synchronous delivery. They are registered so
-# FLConfig validates their keys as the JAX package does.
-register_aggregator("mean", lambda cfg: None, kw=())
-register_latency("none", lambda cfg: None, kw=("alpha", "max_staleness"))
-
-
 def _seq_weighted_sum(acc, w, gt_stack):
     """acc + sum_k w[k] * gt_stack[k], strictly sequentially in client
     order. The ``w_k > 0`` gate (not just ``w_k *``) keeps zero-weight pad
@@ -313,20 +325,40 @@ class SparseCodecAggregator(SparseTopKAggregator):
 
 
 def make_aggregator(cfg: FLConfig, store, params, codec):
-    """``(aggregator, sparse)``: sparse scalar-round payloads whenever the
-    store supports them and ``fused_kernels`` is not False, else the dense
-    fold; a lossy codec's sparse payloads fold through
-    :class:`SparseCodecAggregator`. Only the streaming ``"mean"`` rule is
-    ported."""
-    if cfg.aggregator != "mean":
+    """``(aggregator, sparse)`` for ``(cfg, store)``, as the JAX engine
+    resolves it. The payload is sparse whenever the store supports it and
+    ``fused_kernels`` is not False. The rule: ``"mean"`` keeps the
+    streaming fold (:class:`SparseCodecAggregator` for a lossy codec's
+    sparse payloads); every robust rule switches the schedulers into
+    collect mode, with a lossy codec's ``decode_leaf`` and
+    ``payload_keys`` handed to the adapter. ``scalar_median`` needs the
+    sparse payload: it has no dense fallback."""
+    rule = make_robust_rule(cfg)
+    sparse = (cfg.fused_kernels is not False
+              and hasattr(store, "make_aggregator"))
+    if getattr(rule, "scalar_structured", False) and not sparse:
         raise ValueError(
-            f"aggregator={cfg.aggregator!r} is not ported to repro_torch "
-            "yet; use aggregator='mean'")
-    if cfg.fused_kernels is not False and hasattr(store, "make_aggregator"):
-        if codec.lossy:
-            return SparseCodecAggregator(params, store.k_frac), True
-        return store.make_aggregator(params), True
-    return DenseAggregator(), False
+            f"aggregator={cfg.aggregator!r} exploits the sparse "
+            "scalar-round payload structure and has no dense fallback — "
+            "use a top-k LBG store (lbg_variant='topk'/'topk-sharded') "
+            "and leave fused_kernels unset or True")
+    decode = codec.decode_leaf if codec.lossy else None
+    pk = codec.payload_keys
+    if getattr(rule, "streaming", False):
+        if sparse:
+            if codec.lossy:
+                return SparseCodecAggregator(params, store.k_frac), True
+            return store.make_aggregator(params), True
+        return DenseAggregator(), False
+    if getattr(rule, "scalar_structured", False):
+        return ScalarMedianSparseAggregator(
+            rule, params, store.k_frac, decode=decode,
+            payload_keys=pk), True
+    if sparse:
+        return CollectSparseAggregator(rule, params, store.k_frac,
+                                       decode=decode,
+                                       payload_keys=pk), True
+    return CollectDenseAggregator(rule), False
 
 
 # ------------------------------------------------------------- schedulers
@@ -340,10 +372,36 @@ def pick_chunk(num_clients: int, chunk_size: int) -> int:
     return d if d >= max(1, c // 2) else c
 
 
+def _rows(flag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (C,) per-client vector shaped to broadcast over ``x``'s rows."""
+    return flag.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
 def _keep_sampled(maskf, new, old):
     """Unsampled clients keep their previous per-client state."""
-    return _tmap(lambda n, o: torch.where(
-        maskf.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o), new, old)
+    return _tmap(lambda n, o: torch.where(_rows(maskf, n) > 0, n, o),
+                 new, old)
+
+
+def _select_(dst: torch.Tensor, flag: torch.Tensor, src: torch.Tensor):
+    """``dst = where(flag > 0, src, dst)`` per row, in place; a 1-byte
+    float (the fp8 wire) is selected through its uint8 bits."""
+    src = src.to(dst.dtype)
+    if dst.element_size() == 1 and dst.is_floating_point():
+        dst, src = dst.view(torch.uint8), src.view(torch.uint8)
+    dst.copy_(torch.where(_rows(flag, dst) > 0, src, dst))
+
+
+def _cat_rows(parts):
+    """Concatenate chunks' (C, ...) stacks (nested dicts, tuples) along
+    the client axis."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _cat_rows([p[k] for p in parts]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_cat_rows([p[i] for p in parts])
+                     for i in range(len(first)))
+    return torch.cat(parts)
 
 
 class _ChunkLoop:
@@ -352,7 +410,9 @@ class _ChunkLoop:
     round aggregate in client order, and writes its bank rows back in
     place. The banks are allocated padded to the chunk grid (K + pad rows);
     pad rows are never sampled. The error-feedback residual bank (empty
-    without error feedback) is sliced and written back like the LBG bank."""
+    without error feedback) is sliced and written back like the LBG bank.
+    A collect-mode aggregator (a robust rule) gets every chunk's raw
+    payloads stacked over the (K + pad) clients and reduces them once."""
 
     num_clients: int
     chunk: int
@@ -374,21 +434,34 @@ class _ChunkLoop:
         if pad:
             w = torch.cat([w, w.new_zeros(pad)])
             maskf = torch.cat([maskf, maskf.new_zeros(pad)])
-        acc = agg.init(params)
-        ys = []
+        collect = getattr(agg, "collect", False)
+        acc = None if collect else agg.init(params)
+        ys, gts = [], []
         for start in range(0, K + pad, chunk):
             s = slice(start, start + chunk)
-            l_c = _tmap(lambda x: x[s], lbg)
-            r_c = _tmap(lambda x: x[s], resid)
-            b_c = {k: v[s] for k, v in batch.items()}
-            gt, nl, nr, *y = client_fn(params, b_c, l_c, r_c)
-            acc = agg.accumulate(acc, w[s], gt)
-            for bank, new, old in ((lbg, nl, l_c), (resid, nr, r_c)):
-                _tmap(lambda dst, src: dst[s].copy_(src), bank,
-                      _keep_sampled(maskf[s], new, old))
+            gt, *y = self._chunk(client_fn, params, batch, lbg, resid,
+                                 maskf, s)
+            if collect:
+                gts.append(gt)
+            else:
+                acc = agg.accumulate(acc, w[s], gt)
             ys.append(y)
         y = [torch.cat(col)[:K] for col in zip(*ys)]
-        return (agg.finalize(acc), *y)
+        out = agg.reduce(w, _cat_rows(gts)) if collect else agg.finalize(acc)
+        return (out, *y)
+
+    def _chunk(self, client_fn, params, batch, lbg, resid, maskf, s):
+        """``client_fn`` over the clients of slice ``s``; their bank rows
+        are written back in place where ``maskf`` is set. Returns
+        ``(gt, *per-client outputs)``."""
+        l_c = _tmap(lambda x: x[s], lbg)
+        r_c = _tmap(lambda x: x[s], resid)
+        b_c = {k: v[s] for k, v in batch.items()}
+        gt, nl, nr, *y = client_fn(params, b_c, l_c, r_c)
+        for bank, new, old in ((lbg, nl, l_c), (resid, nr, r_c)):
+            _tmap(lambda dst, src: dst[s].copy_(src), bank,
+                  _keep_sampled(maskf[s], new, old))
+        return (gt, *y)
 
 
 @register_scheduler("vmap")
@@ -409,6 +482,79 @@ class ChunkedScheduler(_ChunkLoop):
         self.num_clients = num_clients
         self.chunk = pick_chunk(num_clients, cfg.chunk_size)
         self.pad = (-num_clients) % self.chunk
+
+
+@register_scheduler("buffered")
+class BufferedScheduler(ChunkedScheduler):
+    """FedBuff-style buffered asynchronous aggregation on the chunked
+    layout, as the JAX scheduler runs it:
+
+    1. **compute**: every chunk runs ``client_fn``; bank rows update only
+       under the *dispatch* mask (a client with a payload in flight
+       neither updates its bank nor dispatches again);
+    2. **buffer write**: each dispatching client overwrites its one
+       in-flight slot (payload leaves in the codec's wire layout and
+       dtype, gscale, its dispatch-round weight, uplink/scalar/wire), in
+       place; every other slot is kept as it was;
+    3. **delivery fold**: the slots delivered this round fold with weights
+       ``w0 * disc(stale) * deliver``, normalized over the delivered
+       cohort. The streaming rules fold chunk by chunk with the chunked
+       scheduler's exact ``accumulate`` calls (the zero-latency guarantee:
+       with ``latency="none"`` the round equals ``"chunked"``'s); a
+       collect rule gets the whole (K + pad) buffer.
+
+    Uplink, scalar fraction and wire bytes are those of the delivered
+    payloads, reported in their arrival round."""
+
+    #: engine marker: run via run_buffered with the host delivery plan
+    delivery_weighted = True
+
+    def run(self, client_fn, agg, params, batch, lbg, resid, w, maskf):
+        raise TypeError(
+            "BufferedScheduler aggregates through run_buffered(...); the "
+            "engine threads the delivery plan and staleness buffer")
+
+    def run_buffered(self, client_fn, agg, params, batch, lbg, resid,
+                     buf, w0, dispatchf, deliverf, stalef, disc):
+        K, chunk, pad = self.num_clients, self.chunk, self.pad
+        dzp, w0p = dispatchf, w0
+        if pad:
+            z = dispatchf.new_zeros(pad)
+            dzp, w0p = torch.cat([dispatchf, z]), torch.cat([w0, z])
+        Kp = K + pad
+        ys = []
+        for start in range(0, Kp, chunk):
+            s = slice(start, start + chunk)
+            (send, gscale), loss, uplink, scalar, wire, sin2 = self._chunk(
+                client_fn, params, batch, lbg, resid, dzp, s)
+            d = dzp[s]
+            _tmap(lambda dst, src: _select_(dst[s], d, src), buf["send"],
+                  send)
+            for key, val in (("gscale", gscale), ("w0", w0p[s]),
+                             ("uplink", uplink), ("scalar", scalar),
+                             ("wire", wire)):
+                _select_(buf[key][s], d, val)
+            ys.append((loss, sin2))
+        loss, sin2 = (torch.cat(col)[:K] for col in zip(*ys))
+        # the synchronous schedulers' normalization: under the zero-latency
+        # plan (dispatch == deliver == mask, stale 0, disc(0) == 1.0
+        # exactly) these are the chunked weights bit for bit
+        wd = buf["w0"][:K] * disc(stalef) * deliverf
+        wn = wd / torch.clamp(wd.sum(), min=1e-12)
+        wnp = torch.cat([wn, wn.new_zeros(pad)]) if pad else wn
+        if getattr(agg, "collect", False):
+            out = agg.reduce(wnp, (buf["send"], buf["gscale"]))
+        else:
+            acc = agg.init(params)
+            for start in range(0, Kp, chunk):
+                s = slice(start, start + chunk)
+                acc = agg.accumulate(
+                    acc, wnp[s], (_tmap(lambda x: x[s], buf["send"]),
+                                  buf["gscale"][s]))
+            out = agg.finalize(acc)
+        return (out, loss, buf["uplink"][:K] * deliverf,
+                buf["scalar"][:K] * deliverf, buf["wire"][:K] * deliverf,
+                sin2)
 
 
 def make_scheduler(cfg: FLConfig, num_clients: int):
@@ -455,6 +601,22 @@ class FLEngine:
                 "every client needs >= 1 (a label-skew partition starves "
                 "clients when class demand exceeds supply — use more data, "
                 "fewer clients, or more classes_per_client)")
+        # Byzantine attack and fault injection: the cohort is one fixed
+        # round(attack_frac*K) subset; a data-level attack corrupts its
+        # shards here, before the one concatenated copy below. Per-round
+        # attack seeds, delays and dropout draw from the fault stream,
+        # never from the batch/mask rng
+        self.attack = make_attack(flcfg)
+        self._byz = select_byzantine(K, flcfg.attack_frac, flcfg.seed)
+        self._payload_attack = None
+        if self.attack is not None:
+            if self.attack.level == "data":
+                client_data = [
+                    self.attack.corrupt(d) if self._byz[k] > 0 else d
+                    for k, d in enumerate(client_data)]
+            else:
+                self._payload_attack = self.attack
+        self._fault_rng = fault_rng(flcfg.seed)
         self.sched = make_scheduler(flcfg, K)
         self._chunk, self._pad = self.sched.chunk, self.sched.pad
         sizes = np.array([len(next(iter(d.values())))
@@ -484,6 +646,28 @@ class FLEngine:
                 "would replay unquantized LBGs the server never saw). Use "
                 "the sparse payload path (lbg_variant='topk' with "
                 "fused_kernels not False) or vanilla FL (use_lbgm=False)")
+        # buffered scheduler: the latency model, the host delivery plan and
+        # (below, once Kp is known) the staleness buffer on the device
+        self._latency = None
+        self._buffer = None
+        self._tau_vec = None
+        if getattr(self.sched, "delivery_weighted", False):
+            if not self._sparse_agg:
+                raise ValueError(
+                    "scheduler='buffered' buffers sparse (idx, val) "
+                    "payloads between dispatch and delivery — use "
+                    "lbg_variant='topk' and leave fused_kernels unset or "
+                    "True")
+            self._latency = make_latency(flcfg)
+            # at most one payload in flight per client; arrival[k] is the
+            # round it lands (-1: idle)
+            self._arrival = np.full(K, -1, np.int64)
+            self._dispatch_round = np.zeros(K, np.int64)
+            self._plan_round = 0
+            self._pending_delays = None
+            self._tau_vec = self._latency.sample_tau(K, flcfg.tau)
+            #: payloads delivered over the run
+            self.n_delivered = 0.0
         Kp = K + self._pad
         self._pipeline, self._use_ef = make_uplink_pipeline(
             flcfg.compressor, flcfg.compressor_kw, flcfg.error_feedback)
@@ -493,6 +677,8 @@ class FLEngine:
             k: torch.zeros((Kp,) + tuple(p.shape), dtype=torch.float32,
                            device=self.device)
             for k, p in self.params.items()} if self._use_ef else {}
+        if self._latency is not None:
+            self._buffer = self._init_buffer(Kp)
         self._client_fn = self._build_client_fn()
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
@@ -501,12 +687,43 @@ class FLEngine:
         self.sin2_history: List[np.ndarray] = []
 
     # -------------------------------------------------------------- build
+    def _init_buffer(self, Kp):
+        """The buffered scheduler's staleness buffer: one in-flight slot
+        per (padded) client — payload leaves in the codec's wire layout and
+        dtype, the payload's gscale, the client's dispatch-round weight,
+        and the uplink/scalar/wire numbers reported on delivery."""
+        k_frac = self.store.k_frac
+        val_dt = (self.codec.wire_dtype if self.codec.lossy
+                  else torch.float32)
+        dev = self.device
+        send = {}
+        for name in sorted(self.params):
+            nb, _, kb = lbgm_lib._block_layout(
+                int(self.params[name].numel()), k_frac)
+            sk = {"idx": torch.zeros((Kp, nb, kb), dtype=torch.int32,
+                                     device=dev),
+                  "val": torch.zeros((Kp, nb, kb), dtype=torch.float32,
+                                     device=dev).to(val_dt)}
+            if "scale" in self.codec.payload_keys:
+                sk["scale"] = torch.ones((Kp, nb, 1), dtype=torch.float32,
+                                         device=dev)
+            send[name] = sk
+        out = {"send": send}
+        for key in ("gscale", "w0", "uplink", "scalar", "wire"):
+            out[key] = torch.zeros(Kp, dtype=torch.float32, device=dev)
+        return out
+
     def _make_client_update(self):
         """tau local SGD steps for a chunk of clients, vmapped over the
         chunk's client axis: every client starts from the global params.
         Returns the accumulated stochastic gradient (C, ...) per leaf and
         each client's mean loss (C,). A loss marked ``client_loop`` takes
-        :meth:`_make_client_loop` instead."""
+        :meth:`_make_client_loop` instead.
+
+        ``tau_k`` (C,), the buffered scheduler's per-client budgets: steps
+        ``t >= tau_k`` still run (one vmapped shape) but their gradient is
+        multiplied by 0 and their loss left out, as the JAX engine masks
+        them."""
         cfg = self.cfg
         loss_fn = self.loss_fn
         if getattr(loss_fn, CLIENT_LOOP, False):
@@ -517,17 +734,26 @@ class FLEngine:
             return loss, loss.detach()
         grad_fn = torch.func.vmap(torch.func.grad(loss_aux, has_aux=True))
 
-        def client_update(params, batches):
+        def client_update(params, batches, tau_k=None):
             C = next(iter(batches.values())).shape[0]
             p = {k: v.expand((C,) + v.shape) for k, v in params.items()}
-            asg, losses = None, []
+            asg, losses, ons = None, [], []
             for t in range(cfg.tau):
                 g, loss = grad_fn(p, {k: v[:, t] for k, v in
                                       batches.items()})
+                if tau_k is not None:
+                    on = (t < tau_k).float()
+                    g = {k: x * _rows(on, x).to(x.dtype)
+                         for k, x in g.items()}
+                    ons.append(on)
                 p = {k: p[k] - cfg.lr * g[k].to(p[k].dtype) for k in p}
                 asg = g if asg is None else {k: asg[k] + g[k] for k in g}
                 losses.append(loss)
-            return asg, torch.stack(losses).mean(0)
+            if tau_k is None:
+                return asg, torch.stack(losses).mean(0)
+            ons = torch.stack(ons)
+            return asg, ((torch.stack(losses) * ons).sum(0)
+                         / torch.clamp(ons.sum(0), min=1.0))
 
         return client_update
 
@@ -541,13 +767,18 @@ class FLEngine:
         gradient's dtype, then its temporaries are freed. The sum over tau
         is the JAX engine's ``jnp.sum`` over the stacked steps, which adds
         low-precision gradients in fp32 and rounds once: two steps round
-        once in place; past two, a low-precision leaf sums in fp32."""
+        once in place; past two, a low-precision leaf sums in fp32. With
+        ``tau_k`` client c takes its first ``tau_k[c]`` steps only (the
+        masked steps of the vmapped form add exact zeros) and its loss is
+        their mean."""
         from repro_torch.train.trainer import grad_and_loss
         cfg = self.cfg
         loss_fn = self.loss_fn
 
-        def client_update(params, batches):
+        def client_update(params, batches, tau_k=None):
             C = next(iter(batches.values())).shape[0]
+            steps = ([cfg.tau] * C if tau_k is None
+                     else [min(cfg.tau, int(t)) for t in tau_k.tolist()])
             asg = {k: torch.empty((C,) + v.shape, dtype=v.dtype,
                                   device=v.device)
                    for k, v in params.items()}
@@ -561,7 +792,7 @@ class FLEngine:
                 for a in acc.values():
                     a.zero_()
                 p, ls = params, []
-                for t in range(cfg.tau):
+                for t in range(steps[c]):
                     with torch.enable_grad():
                         g, loss = grad_and_loss(
                             loss_fn, p, {k: v[c, t]
@@ -576,7 +807,7 @@ class FLEngine:
                 for k, a in acc.items():
                     if a.dtype != asg[k].dtype:
                         asg[k][c].copy_(a)
-                losses[c] = torch.stack(ls).mean()
+                losses[c] = torch.stack(ls).mean() if ls else 0.0
                 del p, ls, acc
             return asg, losses
 
@@ -587,6 +818,7 @@ class FLEngine:
         store = self.store
         sparse = self._sparse_agg
         codec = self.codec
+        attack = self._payload_attack
         client_update = self._make_client_update()
         # the legacy dense-aggregation path over a top-k store prices the
         # same (idx, val) payload as the sparse path, from the static
@@ -598,11 +830,22 @@ class FLEngine:
                  for p in self.params.values()])
 
         def client_fn(params, batches, lbg_c, resid_c):
-            # the codec's per-client seed rides the batch dict; strip it
-            # before local SGD
+            # the engine's reserved keys (Byzantine flags, attack extras,
+            # the codec's seed, local-step budgets) ride the batch dict;
+            # strip them before local SGD
             batches = dict(batches)
+            byz = batches.pop(BYZ_KEY, None)
             seed = batches.pop(WIRE_KEY, None)
-            asg, loss = client_update(params, batches)
+            tau_k = batches.pop(TAU_KEY, None)
+            extras = {k: batches.pop(k) for k in list(batches)
+                      if k.startswith("_atk_")}
+            asg, loss = client_update(params, batches, tau_k)
+            if attack is not None:
+                # a Byzantine client corrupts its accumulated gradient
+                # BEFORE the uplink pipeline and the LBGM decision: its
+                # bank, decision and payload follow from the corrupted
+                # update, as a protocol-following adversary's would
+                asg = attack.apply(asg, byz, extras)
             asg, resid_c, cost = pipeline(asg, resid_c)
             step = store.sparse_client_step if sparse else store.client_step
             gt, lbg_c, stats = step(asg, lbg_c)
@@ -622,6 +865,31 @@ class FLEngine:
                     stats.sin2)
 
         return client_fn
+
+    def _round_buffered(self, batch, plan):
+        """The buffered round: ``plan``'s (K,) dispatch / deliver / stale
+        vectors (see :meth:`_sample_mask`). Loss is taken over the
+        dispatch cohort; uplink, scalar fraction and wire bytes over the
+        payloads delivered this round."""
+        cfg = self.cfg
+        dispatchf, deliverf, stalef = (
+            torch.as_tensor(plan[k].astype(np.float32), device=self.device)
+            for k in ("dispatch", "deliver", "stale"))
+        w0 = self.weights * dispatchf
+        wl = w0 / torch.clamp(w0.sum(), min=1e-12)
+        agg, losses, uplink, scalar, wire, sin2 = self.sched.run_buffered(
+            self._client_fn, self.agg, self.params, batch, self.lbg,
+            self.residual, self._buffer, w0, dispatchf, deliverf, stalef,
+            self._latency.staleness_weight)
+        self.params = {k: p - cfg.lr * agg[k].to(p.dtype)
+                       for k, p in self.params.items()}
+        metrics = torch.stack([
+            (losses * wl).sum(), uplink.sum(),
+            scalar.sum() / torch.clamp(deliverf.sum(), min=1.0),
+            wire.sum()]).tolist()
+        self.sin2_history.append(sin2.cpu().numpy())
+        return dict(zip(("loss", "uplink_floats", "frac_scalar",
+                         "wire_bytes"), metrics))
 
     def _round(self, batch, mask: np.ndarray):
         cfg = self.cfg
@@ -647,32 +915,97 @@ class FLEngine:
     def _sample_batches(self, rng: np.random.RandomState):
         """Per-round (K + pad, tau, b, ...) host batches. The K per-client
         index draws run in client order — the JAX engine's stream, draw for
-        draw. A stochastic codec adds one rounding seed per client under
-        ``WIRE_KEY``, from the codec stream (never ``rng``), as the JAX
-        engine draws them; pad rows get seed 0."""
+        draw. The reserved keys ride along, as the JAX engine draws them: a
+        payload attack's Byzantine flags and per-round extras (fault
+        stream), a stochastic codec's rounding seed per client (codec
+        stream), and under the buffered scheduler the round's delays
+        (fault stream, kept for :meth:`_sample_mask`; also under
+        ``STALE_KEY`` for an attack) and the local-step budgets. The fault
+        stream's order each round: attack extras, delays, dropout. Pad rows
+        get zeros; uint32 seeds travel as int64."""
         cfg = self.cfg
         idx = np.empty((cfg.num_clients, cfg.tau, cfg.batch_size), np.int64)
         for k, n in enumerate(self._data_sizes):
             idx[k] = rng.randint(0, n, size=(cfg.tau, cfg.batch_size))
         idx += self._data_offsets[:, None, None]
         stacked = {k: v[idx] for k, v in self._data_cat.items()}
+        if self._payload_attack is not None:
+            stacked[BYZ_KEY] = self._byz
+            stacked.update(self._payload_attack.round_extras(
+                self._fault_rng, cfg.num_clients))
         if self.codec.stochastic:
             stacked[WIRE_KEY] = self._codec_rng.randint(
-                0, 2 ** 31 - 1, size=cfg.num_clients).astype(np.int64)
+                0, 2 ** 31 - 1, size=cfg.num_clients)
+        if self._latency is not None:
+            d = np.asarray(self._latency.sample_delays(
+                self._fault_rng, cfg.num_clients), np.int64)
+            self._pending_delays = d
+            if self._payload_attack is not None:
+                stacked[STALE_KEY] = d.astype(np.float32)
+            if self._tau_vec is not None:
+                stacked[TAU_KEY] = np.asarray(self._tau_vec, np.int32)
+        stacked = {k: v.astype(np.int64) if v.dtype == np.uint32 else v
+                   for k, v in stacked.items()}
         return self.sched.prepare_batch(stacked)
 
-    def _sample_mask(self, rng: np.random.RandomState) -> np.ndarray:
+    def _sample_mask(self, rng: np.random.RandomState):
         """Algorithm-3 participation mask: exactly ``num_clients`` uniforms
         when ``sample_frac < 1`` (none otherwise); an empty cohort revives
-        the client closest to its threshold without drawing more."""
+        the client closest to its threshold without drawing more. With
+        ``dropout_frac`` each sampled client then drops out on a uniform of
+        the fault stream (``num_clients`` of them a round); an all-dropped
+        round revives the sampled client least likely to have dropped.
+
+        Under the buffered scheduler the mask becomes the round's delivery
+        plan, a dict of (K,) ``dispatch``, ``deliver`` and ``stale``
+        vectors and ``n_evicted``: pure host bookkeeping over the delays
+        :meth:`_sample_batches` drew."""
         cfg = self.cfg
         if cfg.sample_frac >= 1.0:
-            return np.ones(cfg.num_clients)
-        u = rng.rand(cfg.num_clients)
-        mask = (u < cfg.sample_frac).astype(np.float64)
-        if mask.sum() == 0:
-            mask[int(np.argmin(u))] = 1.0
-        return mask
+            mask = np.ones(cfg.num_clients)
+        else:
+            u = rng.rand(cfg.num_clients)
+            mask = (u < cfg.sample_frac).astype(np.float64)
+            if mask.sum() == 0:
+                mask[int(np.argmin(u))] = 1.0
+        if cfg.dropout_frac > 0.0:
+            d = self._fault_rng.rand(cfg.num_clients)
+            dropped = mask * (d >= cfg.dropout_frac)
+            if dropped.sum() == 0:
+                dropped = np.zeros_like(mask)
+                dropped[int(np.argmax(np.where(mask > 0, d, -1.0)))] = 1.0
+            mask = dropped
+        if self._latency is None:
+            return mask
+        t = self._plan_round
+        self._plan_round += 1
+        d = self._pending_delays
+        if d is None:
+            # a mask drawn without a preceding _sample_batches: the delays
+            # now, from the same stream in the same per-round order
+            d = np.asarray(self._latency.sample_delays(
+                self._fault_rng, cfg.num_clients), np.int64)
+        self._pending_delays = None
+        # max-staleness eviction: a payload in flight longer than s rounds
+        # is dropped and its client may dispatch again this round
+        n_evicted = 0
+        s_max = self._latency.max_staleness
+        if s_max is not None:
+            evict = (self._arrival >= 0) & \
+                (t - self._dispatch_round > s_max)
+            n_evicted = int(evict.sum())
+            self._arrival[evict] = -1
+        dispatch = (mask > 0) & (self._arrival < 0)
+        self._dispatch_round[dispatch] = t
+        self._arrival[dispatch] = t + d[dispatch]
+        deliver = self._arrival == t
+        stale = np.where(deliver, t - self._dispatch_round, 0)
+        self._arrival[deliver] = -1
+        return {"mask": mask,
+                "dispatch": dispatch.astype(np.float64),
+                "deliver": deliver.astype(np.float64),
+                "stale": stale.astype(np.float64),
+                "n_evicted": float(n_evicted)}
 
     def _stage(self, host_batch, stream=None):
         """Host batch -> device tensors. With ``stream`` (a side CUDA
@@ -710,8 +1043,17 @@ class FLEngine:
             batch, _ = self._stage(self._sample_batches(rng))
             mask = self._sample_mask(rng)
         with torch.no_grad():
-            m = self._round(batch, mask)
-        vanilla = float(mask.sum()) * tree_size(self.params)
+            if isinstance(mask, dict):
+                # the buffered plan: uplink and wire (and the vanilla
+                # baseline) count in the round the payloads arrive
+                m = self._round_buffered(batch, mask)
+                n_del = float(mask["deliver"].sum())
+                self.n_delivered += n_del
+                self.ledger.n_evicted += mask["n_evicted"]
+                vanilla = n_del * tree_size(self.params)
+            else:
+                m = self._round(batch, mask)
+                vanilla = float(mask.sum()) * tree_size(self.params)
         self.ledger.record(m["uplink_floats"], vanilla,
                            wire=m["wire_bytes"], vanilla_wire=4.0 * vanilla)
         m["total_uplink"] = self.ledger.uplink_floats
@@ -756,11 +1098,12 @@ class RoundPrefetcher:
 
     A daemon thread draws each round's ``(batch, mask)`` from the engine's
     rng in round order (batches first, then the mask — the synchronous
-    order) and, on a CUDA device, copies the batch to the card on a side
-    stream from pinned memory, so round t+1's host prep and copy overlap
-    round t. While alive it is the rng's only consumer, so the history is
-    identical to the synchronous path; ``close()`` leaves the rng advanced
-    by the rounds still queued.
+    order, which also draws the fault stream in its order: attack extras,
+    delays, dropout) and, on a CUDA device, copies the batch to the card
+    on a side stream from pinned memory, so round t+1's host prep and copy
+    overlap round t. While alive it is the rng's only consumer, so the
+    history is identical to the synchronous path; ``close()`` leaves the
+    rng advanced by the rounds still queued.
     """
 
     _SENTINEL = object()

@@ -6,8 +6,8 @@ Registry-keyed fields are checked against the PORT's registries
 (``repro_torch.fed.registry``); a key the port has not ported yet fails
 with the usual "unknown ...; registered: [...]" error. Knobs whose
 features are not ported yet (hierarchical ``tiers``, checkpointing,
-straggler ``dropout_frac``, ``model_sharding="auto"``) are rejected here
-for the same reason: they must not silently run something else.
+``model_sharding="auto"``) are rejected here for the same reason: they
+must not silently run something else.
 
 This module stays import-light (no torch): registries are consulted
 lazily, which also lets ``repro_torch.configs`` import it without cycles.
@@ -36,18 +36,24 @@ class FLConfig:
     error_feedback: Optional[bool] = None   # default: on iff topk
     sample_frac: float = 1.0         # Algorithm 3 device sampling
     seed: int = 0
-    scheduler: str = "vmap"          # registry key: vmap | chunked
+    scheduler: str = "vmap"          # registry key: vmap | chunked |
+    #                                  buffered
     chunk_size: int = 16             # max clients per chunk
     mesh: Union[None, int, list] = None     # sharded scheduler (not ported)
     model_sharding: str = "replicate"
     lbg_variant: str = "dense"       # registry key: dense | topk | null
     lbg_kw: Optional[dict] = None    # e.g. {"k_frac": 0.1} for topk
-    aggregator: str = "mean"         # registry key
-    aggregator_kw: Optional[dict] = None
-    attack: Optional[str] = None     # registry key (none ported yet)
-    attack_frac: float = 0.0
+    aggregator: str = "mean"         # registry key: mean | trimmed_mean |
+    #   coordinate_median | geometric_median | scalar_median
+    #   (repro_torch.fed.robust); every rule but "mean" runs in collect mode
+    aggregator_kw: Optional[dict] = None   # e.g. {"beta": 0.1} | {"iters": 8}
+    attack: Optional[str] = None     # registry key: sign_flip | scaled |
+    #   free_rider | gaussian | colluding_sign | adaptive_scaled |
+    #   label_flip (repro_torch.fed.attacks); None = no attack
+    attack_frac: float = 0.0         # the fixed Byzantine cohort's share
     attack_kw: Optional[dict] = None
-    dropout_frac: float = 0.0
+    dropout_frac: float = 0.0        # per round, each sampled client drops
+    #   out with this probability (drawn from the fault stream)
     fused_kernels: Optional[bool] = None
     # ^ the LBGM decision hot path. None (default) and True: the
     #   hand-written kernels on a CUDA device, their plain PyTorch versions
@@ -56,8 +62,11 @@ class FLConfig:
     codec: str = "none"              # registry key: none | delta_idx |
     #   int8 | fp8 — the uplink wire codec (repro_torch.comm.wire)
     codec_kw: Optional[dict] = None  # e.g. {"stochastic": False}
-    latency: str = "none"            # registry key: none
-    latency_kw: Optional[dict] = None
+    latency: str = "none"            # registry key: none | fixed |
+    #   uniform | lognormal | straggler (repro_torch.fed.latency), the
+    #   rounds-of-delay model of scheduler="buffered"
+    latency_kw: Optional[dict] = None      # e.g. {"frac": 0.2, "delay": 4};
+    #   {"max_staleness": s} evicts payloads older than s rounds
     tiers: Union[None, list, dict] = None
     ckpt_every: int = 0
     ckpt_path: Optional[str] = None
@@ -91,7 +100,8 @@ class FLConfig:
             elif not int_ge1(self.mesh):
                 bad("mesh must be None, a client-device count >= 1, or a "
                     f"[clients, model] pair — got {self.mesh!r}")
-        if self.mesh_model_dim > 1 and self.scheduler in ("vmap", "chunked"):
+        if self.mesh_model_dim > 1 and self.scheduler in ("vmap", "chunked",
+                                                          "buffered"):
             bad(f"mesh={self.mesh!r} asks for model-axis sharding but "
                 f"scheduler={self.scheduler!r} is mesh-unaware")
         if self.model_sharding not in ("replicate", "auto"):
@@ -113,12 +123,38 @@ class FLConfig:
             kw = getattr(self, kw_name)
             if kw is not None and not isinstance(kw, dict):
                 bad(f"{kw_name} must be a dict or None, got {kw!r}")
+        # buffered scheduler: latency models only make sense there, and
+        # the scheduler folds sparse (idx, val) payloads through the
+        # staleness buffer — it has no dense/legacy path
+        if self.latency != "none" and self.scheduler != "buffered":
+            bad(f"latency={self.latency!r} models rounds-of-delay for the "
+                "buffered scheduler, but "
+                f"scheduler={self.scheduler!r} folds every payload the "
+                "round it is computed — use scheduler='buffered' or "
+                "latency='none'")
+        if self.scheduler == "buffered":
+            if not self.use_lbgm or self.resolved_lbg_variant not in (
+                    "topk", "topk-sharded"):
+                bad("scheduler='buffered' buffers each client's sparse "
+                    "(idx, val) payload between dispatch and delivery, "
+                    "which needs the top-k LBG store — set use_lbgm=True "
+                    "and lbg_variant='topk' (or 'topk-sharded'), got "
+                    f"use_lbgm={self.use_lbgm} "
+                    f"lbg_variant={self.lbg_variant!r}")
+            if self.fused_kernels is False:
+                bad("scheduler='buffered' requires the sparse aggregation "
+                    "contract; fused_kernels=False selects the legacy "
+                    "dense fold which cannot buffer payloads — leave "
+                    "fused_kernels unset (auto) or True")
+            if self.model_sharding != "replicate":
+                bad("scheduler='buffered' runs the replicated chunked "
+                    "layout; model_sharding="
+                    f"{self.model_sharding!r} needs scheduler='sharded'")
         if self.ckpt_every < 0:
             bad(f"ckpt_every must be >= 0, got {self.ckpt_every}")
         # features the port has not reached yet (see ROADMAP.md §1)
         for name, on in (("model_sharding='auto'",
                           self.model_sharding == "auto"),
-                         ("dropout_frac > 0", self.dropout_frac > 0),
                          ("tiers", self.tiers is not None),
                          ("ckpt_every > 0", self.ckpt_every > 0)):
             if on:
@@ -148,6 +184,7 @@ class FLConfig:
                 f"latency models: {reg.LATENCIES.names()}")
         for field, kw_name, registry in (
                 ("aggregator", "aggregator_kw", reg.AGGREGATORS),
+                ("attack", "attack_kw", reg.ATTACKS),
                 ("codec", "codec_kw", reg.CODECS),
                 ("latency", "latency_kw", reg.LATENCIES)):
             comp, kw = getattr(self, field), getattr(self, kw_name)

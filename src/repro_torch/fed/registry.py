@@ -4,7 +4,8 @@ The port keeps registries of its own: the JAX package's lazily import
 ``repro.fed.engine``, and the port imports nothing of that package. A key
 the port has not ported yet is simply not registered here, so
 ``FLConfig`` rejects it with the usual "unknown ...; registered: [...]"
-error instead of running something else.
+error instead of running something else. The built-in keys, aliases and
+``kw=`` surfaces are the JAX package's.
 
 Every pluggable piece of an FL experiment — model, dataset, partitioner,
 uplink compressor, client scheduler, LBG storage scheme, server
@@ -22,8 +23,10 @@ code can extend the system without touching ``fed/engine.py``:
 
 This module is deliberately pure-Python (no torch) so any layer may import
 it without dragging in the engine. Built-in components live in torch-heavy
-modules (``repro_torch.fed.engine``, ``repro_torch.compression``,
-``repro_torch.fed.experiment``, ``repro_torch.comm.wire``); each registry
+modules (``repro_torch.fed.engine``, ``repro_torch.fed.robust``,
+``repro_torch.fed.attacks``, ``repro_torch.fed.latency``,
+``repro_torch.compression``, ``repro_torch.fed.experiment``,
+``repro_torch.comm.wire``); each registry
 lazily imports its ``builtin_modules`` on first lookup so the built-ins
 are always visible regardless of import order.
 """
@@ -152,10 +155,11 @@ COMPRESSORS = Registry("compressor",
                        builtin_modules=("repro_torch.compression",))
 SCHEDULERS = Registry("scheduler", builtin_modules=_ENGINE)
 LBG_STORES = Registry("lbg_store", builtin_modules=_ENGINE)
-AGGREGATORS = Registry("aggregator", builtin_modules=_ENGINE)
-ATTACKS = Registry("attack")
+AGGREGATORS = Registry("aggregator",
+                       builtin_modules=("repro_torch.fed.robust",))
+ATTACKS = Registry("attack", builtin_modules=("repro_torch.fed.attacks",))
 CODECS = Registry("codec", builtin_modules=("repro_torch.comm.wire",))
-LATENCIES = Registry("latency", builtin_modules=_ENGINE)
+LATENCIES = Registry("latency", builtin_modules=("repro_torch.fed.latency",))
 
 register_model = MODELS.register
 register_dataset = DATASETS.register

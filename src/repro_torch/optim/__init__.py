@@ -1,3 +1,5 @@
-"""Optimizers of the port: the SGD of ``repro.optim.sgd`` (the paper
-trains with plain SGD). Adam and the schedules come with a later slice."""
+"""Optimizers and LR schedules of the port (``repro.optim``'s)."""
 from repro_torch.optim.sgd import sgd_init, sgd_update  # noqa: F401
+from repro_torch.optim.adam import adam_init, adam_update  # noqa: F401
+from repro_torch.optim.schedules import (  # noqa: F401
+    constant, cosine, make_schedule)

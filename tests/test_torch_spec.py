@@ -1,10 +1,12 @@
 """One spec file drives either package; keys the port lacks are refused.
 
 An ``ExperimentSpec`` JSON round-trips in both packages to equal
-``FLConfig`` dicts, and the port's ``FLConfig`` rejects every registry key
-and knob it has not ported with the reference's "unknown ...; registered:
-[...]" error (or a "not ported" error for non-registry knobs), instead of
-running something else.
+``FLConfig`` dicts; the ported keys (codecs, compressors, robust rules,
+attacks, the buffered scheduler and its latency models, dropout) are
+accepted with the same JSON form, and the port's ``FLConfig`` rejects every
+registry key and knob it has not ported with the reference's "unknown
+...; registered: [...]" error (or a "not ported" error for non-registry
+knobs), instead of running something else.
 """
 import json
 import subprocess
@@ -65,25 +67,11 @@ def test_flconfig_fields_and_defaults_match():
 
 @pytest.mark.parametrize("kw,word", [
     (dict(scheduler="sharded"), "unknown scheduler"),
-    (dict(scheduler="buffered", lbg_variant="topk"), "unknown scheduler"),
     (dict(lbg_variant="topk-sharded"), "unknown lbg_variant"),
     (dict(lbg_variant="topk-host", scheduler="chunked"),
      "unknown lbg_variant"),
-    (dict(aggregator="trimmed_mean"), "unknown aggregator"),
-    (dict(aggregator="geometric_median"), "unknown aggregator"),
-    (dict(aggregator="coordinate_median"), "unknown aggregator"),
-    (dict(aggregator="scalar_median", lbg_variant="topk"),
-     "unknown aggregator"),
-    (dict(attack="gaussian", attack_frac=0.2), "unknown attack"),
-    (dict(attack="colluding_sign", attack_frac=0.2), "unknown attack"),
-    (dict(attack="sign_flip", attack_frac=0.2), "unknown attack"),
-    (dict(latency="fixed", scheduler="buffered", lbg_variant="topk"),
-     "unknown"),
     (dict(tiers=[2]), "not ported"),
     (dict(ckpt_every=2, ckpt_path="x.npz"), "not ported"),
-    (dict(dropout_frac=0.1), "not ported"),
-    (dict(aggregator="trimmed_mean", aggregator_kw={"beta": 0.1}),
-     "unknown aggregator"),
 ])
 def test_unported_keys_raise(kw, word):
     JFL(**kw)  # valid in the reference
@@ -91,6 +79,28 @@ def test_unported_keys_raise(kw, word):
         TFL(**kw)
     if word.startswith("unknown"):
         assert "registered" in str(e.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(aggregator="trimmed_mean"),
+    dict(aggregator="geometric_median"),
+    dict(aggregator="coordinate_median"),
+    dict(aggregator="scalar_median", lbg_variant="topk"),
+    dict(aggregator="trimmed_mean", aggregator_kw={"beta": 0.1}),
+    dict(attack="gaussian", attack_frac=0.2),
+    dict(attack="colluding_sign", attack_frac=0.2),
+    dict(attack="sign_flip", attack_frac=0.2),
+    dict(scheduler="buffered", lbg_variant="topk"),
+    dict(latency="fixed", scheduler="buffered", lbg_variant="topk"),
+    dict(dropout_frac=0.1),
+])
+def test_ported_robust_attack_buffered_keys_accepted(kw):
+    """The robust rules, the attacks, the buffered scheduler with its
+    latency models and dropout are ported: both packages accept them with
+    the same JSON form."""
+    j, t = JFL(**kw), TFL(**kw)
+    assert j.to_dict() == t.to_dict()
+    assert TFL.from_dict(json.loads(json.dumps(t.to_dict()))) == t
 
 
 @pytest.mark.parametrize("kw", [
