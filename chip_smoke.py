@@ -17,8 +17,9 @@ From the root of a checkout. Phases, each printed as one JSON line:
    must be equal, values within the stated tolerance. The decision also on
    flat leaves, the main path's form (``DECISION_FLAT``: the FCN's leaves,
    the cluster's slice edges, ties across its CTAs, ragged slices, partly
-   live rows, kb = 1 and kb = block), equal bit for bit to the padded
-   layout's call and to a second call; the projection over leaf tables
+   live rows, kb = 1 and kb = block, ``hier_100k``'s four leaves at a
+   chunk of 500 clients), equal bit for bit to the padded layout's call
+   and to a second call; the projection over leaf tables
    (``PROJECTION_TABLES``) equal bit for bit to the left-to-right sum of
    one-leaf calls and to a second call. The dequant-accumulate
    kernel, int8 and fp8, must equal its plain version bit for bit
@@ -58,7 +59,21 @@ From the root of a checkout. Phases, each printed as one JSON line:
    delivered and evicted counts and the Byzantine cohort equal; loss rtol
    1e-4, the run's update within 1e-3 relative L2) with its launches a
    round held, its ms per round, peak memory and the rule's own ms; then
-   one profiled round of the first;
+   one profiled round of the first. Then one-host scale-out
+   (``hier_*``, checkpoints under a temporary directory):
+   ``hier_100k_topk_host`` runs ``examples/specs/hier_100k.json`` as
+   shipped (K=100,000 in chunks of 500, the ``topk-host`` bank in pinned
+   host memory at k_frac 0.05, tiers [256, 16] shuffled, a checkpoint
+   every 5 rounds, 20 rounds, prefetch on: ms a round, round 4 profiled
+   with the streamer's copies apart from the kernels, the host bank, one
+   streamed chunk's device bytes, the peak, the tier bytes);
+   ``hier_100k_vs_topk`` (3 rounds of the in-memory ``topk`` bank without
+   tiers equal the ``topk-host`` run's bit for bit, history and params;
+   the ``topk-host`` peak at K=100,000 within 5% of the in-memory bank of
+   the K=10,000 run's); ``hier_100k_resume`` (the CLI's ``main`` for 10
+   rounds, then ``--rounds 20 --resume`` in a new engine: records and
+   final params bit for bit); ``hier_card_vs_cpu`` (K=2,000, chunk 100,
+   tiers [16, 4], delta 0.45, 3 rounds against the CPU run);
 6. LM serving (``lm_*`` phases), after the flash-attention and RWKV6-scan
    kernels were held against their plain versions (``lm_kernel_checks``,
    with phase 3; flash in bf16 on the tensor-core kernel, in fp32 on the
@@ -118,8 +133,11 @@ From the root of a checkout. Phases, each printed as one JSON line:
    and the projection 4 launches a round; the same rounds under the plain
    kernels with the training phases' rule for round 1's loss, update and
    decisions), ``fl_lm_qwen3_topk_int8`` (K=4, chunk 2, the top-k store
-   at k_frac 0.01, the int8 wire: flash, the decision and the dequant
-   fold once per leaf per chunk), ``fl_lm_rwkv6_topk`` (K=2, chunk 1,
+   at k_frac 0.01, the stochastic int8 wire: flash, the decision and the
+   dequant fold once per leaf per chunk), ``fl_lm_qwen3_topk_host`` (the
+   same on the ``topk-host`` bank with tiers [2]: its history equals the
+   in-memory run's bit for bit; round 3 profiled for the streamer's
+   copies), ``fl_lm_rwkv6_topk`` (K=2, chunk 1,
    top-k: the scan 256 a round, the decision),
    ``fl_lm_qwen3_buffered_scalar_median`` (K=4, chunk 2, top-k 0.01,
    int8, buffered with one straggler a round late, the scalar median
@@ -615,8 +633,12 @@ DECISION_PAST_SHARED_SORT = [(2, 2, 65536, 16385, "normal"),
 #: edges, ties across CTAs, partly live rows with fewer nonzeros than kb,
 #: kb = 1 and kb = block, an all-zero live row (CNN conv3/w: 5 CTAs), a
 #: cluster of 2 one element past a slice, and a threshold of 0 whose zeros
-#: (100 of them past `size`) rank 0 gathers
+#: (100 of them past `size`) rank 0 gathers; and hier_100k's four leaves
+#: at its chunk of 500 clients (k_frac 0.05)
 DECISION_FLAT = [(10, 100352, 65536, 627, "normal"),
+                 (500, 25088, 25088, 1254, "normal"),
+                 (500, 320, 320, 16, "normal"), (500, 32, 32, 1, "normal"),
+                 (500, 10, 10, 1, "normal"),
                  (10, 1280, 1280, 128, "normal"), (10, 128, 128, 12, "normal"),
                  (10, 10, 10, 1, "normal"), (3, 100353, 65536, 627, "normal"),
                  (2, 70001, 65536, 2000, "ties"),
@@ -1129,9 +1151,10 @@ def kernels_per_call(fn, tries=5):
 def uplink_launches():
     """Device kernels, device time and host wall time of one chunk's
     uplink steps at the FCN's top-k payload shapes (10 clients): the fp32
-    fold's per-client loop (``SparseTopKAggregator``), the quantized fold
-    (``SparseCodecAggregator``, one dequant-accumulate launch per leaf),
-    and the int8 (stochastic) and fp8 (nearest) encoders."""
+    fold (``SparseTopKAggregator``, one ordered add per leaf), the
+    quantized fold (``SparseCodecAggregator``, one dequant-accumulate
+    launch per leaf), and the int8 (stochastic: JAX's threefry uniforms)
+    and fp8 (nearest) encoders."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.comm import wire
@@ -1160,7 +1183,7 @@ def uplink_launches():
     fold_c = SparseCodecAggregator(params, 0.1)
     acc_t, acc_c = fold_t.init(params), fold_c.init(params)
     steps = {
-        "fold_fp32_per_client": lambda: fold_t.accumulate(
+        "fold_fp32": lambda: fold_t.accumulate(
             acc_t, w, (send, ones)),
         "fold_quantized": lambda: fold_c.accumulate(acc_c, w, q8),
         "encode_int8_stochastic": lambda: int8.encode_sparse(
@@ -1185,7 +1208,11 @@ def uplink_launches():
         out[label] = {"device_kernels": n, "device_busy_ms": busy,
                       "wall_ms": wall_ms}
     emit({"phase": "uplink_launches", "clients": C, "leaves": len(params),
-          "steps": out})
+          "steps": out,
+          "encode_int8_stochastic_device_kernels_before": {
+              "device_kernels": 414,
+              "of": "the counter-hash uniforms the codecs drew before "
+                    "they replayed JAX's threefry (PERF.md §5)"}})
     return out
 
 
@@ -1596,6 +1623,9 @@ def kernel_line(errs):
     # the decision at every leaf of the top-k store (the FCN's, k_frac 0.1,
     # a chunk of 10), both orders; the first is the largest call
     per_shape = [decision_records(gen, 10, n) for n in leaf_sizes("fcn")]
+    # and hier_100k's: the FCN at d_model 32, k_frac 0.05, a chunk of 500
+    per_shape += [decision_records(gen, 500, n, k_frac=0.05)
+                  for n in HIER_LEAF_SIZES]
     per_shape.sort(key=lambda r: -r[False]["shape"][1])
     # value order past the shared-memory sort, not on the main path (no
     # spec reaches kb > 16384): fc1/w's layout at kb 32768, both orders
@@ -2952,7 +2982,7 @@ def fl_lm_spec(arch="qwen3-1.7b", **overrides):
 
 
 @contextlib.contextmanager
-def fl_probe(keep_update=False, compare_update=None):
+def fl_probe(keep_update=False, compare_update=None, profile_round=None):
     """Wrap the FL engine (``fed.engine.FLEngine``, looked up at run time
     by ``run_experiment``) for one run: per round, host ms around the
     synchronised round, the ms of its local SGD (``client_update``
@@ -2960,13 +2990,16 @@ def fl_probe(keep_update=False, compare_update=None):
     counters set to 0 at each round's start), and every client's sin² and
     decision. Round 1's aggregated update (the ``agg`` the server steps
     by) is kept on the host (``keep_update``) or held against a kept one
-    (``compare_update``: relative L2)."""
+    (``compare_update``: relative L2). Round ``profile_round`` runs under
+    ``torch.profiler`` (kernel and copy ms, idle share); a ``topk-host``
+    engine's host bank and streamed chunk bytes are recorded."""
     import torch
     from repro_torch.fed import engine as fe
     from repro_torch.kernels import _build
     rec = {"ms": [], "sgd_ms": [], "launches": [], "sin2": [], "sent": [],
            "update": None, "update_rel_l2": None, "n_delivered": None,
-           "n_evicted": None}
+           "n_evicted": None, "profile": None, "host_bank_gb": None,
+           "chunk_device_bytes": None}
     real_round, real_run = fe.FLEngine.run_round, fe._ChunkLoop.run
     real_buffered = fe.BufferedScheduler.run_buffered
     real_make = fe.FLEngine._make_client_update
@@ -3007,10 +3040,18 @@ def fl_probe(keep_update=False, compare_update=None):
         rec["sgd_ms"].append(0.0)
         torch.cuda.synchronize()
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        m = real_round(self, src)
-        torch.cuda.synchronize()
-        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        r = len(rec["ms"]) + 1
+        m, wall, prof = timed_round(lambda: real_round(self, src),
+                                    r == profile_round)
+        if prof is not None:
+            rec["profile"] = {"round": r, **prof}
+        rec["ms"].append(wall)
+        if self._host_bank:
+            leaves = []
+            fe._tmap(leaves.append, self.lbg)
+            rec["host_bank_gb"] = sum(v.numel() * v.element_size()
+                                      for v in leaves) / 1e9
+            rec["chunk_device_bytes"] = self.host_chunk_device_bytes()
         rec["launches"].append({k: v for k, v in _build.LAUNCHES.items()
                                 if v})
         s = self.sin2_history[-1]
@@ -3088,7 +3129,7 @@ def fl_lm_expected(spec):
     layers = kw.get("n_layers") or get_config(kw["arch"]).n_layers
     chunks = -(-fl.num_clients // pick_chunk(fl.num_clients, fl.chunk_size))
     want = {LM_KERNEL[kw["arch"]]: 2 * layers * fl.tau * fl.num_clients}
-    if fl.lbg_variant == "topk":
+    if fl.lbg_variant in ("topk", "topk-host"):
         want["lbgm_sparse_decision"] = leaves * chunks
         if fl.codec in ("int8", "fp8") and fl.aggregator == "mean":
             want["lbgm_dequant_accum"] = leaves * chunks
@@ -3229,7 +3270,8 @@ def fl_lm_qwen3_dense():
 
 def fl_lm_topk(phase, arch, **overrides):
     """``fl_lm_qwen3_topk_int8`` / ``fl_lm_rwkv6_topk``: the top-k store at
-    k_frac 0.01 through ``run_experiment`` on the card, 3 rounds."""
+    k_frac 0.01 through ``run_experiment`` on the card, 3 rounds. Returns
+    the run's history."""
     spec = fl_lm_spec(arch, **{"fl.lbg_variant": "topk",
                                "fl.lbg_kw": {"k_frac": 0.01}, **overrides})
     want = fl_lm_expected(spec)
@@ -3237,7 +3279,7 @@ def fl_lm_topk(phase, arch, **overrides):
     out = fl_lm_record(phase, spec, history, final, rec, peak, want,
                        entry="repro_torch.fed.experiment.run_experiment")
     emit(out)
-    return out
+    return history
 
 
 def fl_lm_qwen3_buffered_scalar_median(plain_rounds=2):
@@ -3405,6 +3447,432 @@ def fl_lm_card_vs_cpu(K=2, T=256, rounds=2):
     return out
 
 
+# ------------------------------------------------- one-host scale-out
+
+HIER_SPEC = ROOT / "examples" / "specs" / "hier_100k.json"
+#: the leaves of hier_100k's FCN (d_model 32), in sorted key order
+HIER_LEAF_SIZES = (32, 25088, 10, 320)
+#: the shipped spec's rounds, and the resume phase's checkpoint round
+HIER_ROUNDS, HIER_SAVE = 20, 10
+#: the rounds of the comparison runs (the shipped run is never cut)
+HIER_CMP_ROUNDS = 3
+#: the K = 100,000 topk-host peak may exceed the K = 10,000 peak by this
+#: share of the in-memory bank: the JAX package's fixed-device-memory claim
+HIER_PEAK_SHARE = 0.05
+HIST_KEYS = ("loss", "uplink_floats", "frac_scalar", "wire_bytes",
+             "total_uplink", "vanilla_uplink", "savings",
+             "total_wire_bytes", "wire_savings")
+
+
+def hier_spec(tmp, **overrides):
+    """``examples/specs/hier_100k.json`` with its checkpoint moved under
+    ``tmp`` and dotted-key overrides."""
+    from repro_torch.fed.experiment import ExperimentSpec
+    spec = ExperimentSpec.load(str(HIER_SPEC))
+    return spec.with_overrides({
+        "fl.ckpt_path": os.path.join(tmp, "hier_100k.ckpt.npz"),
+        **overrides})
+
+
+def device_split(prof):
+    """``(kernel ms, copy ms, kernels, top kernels)`` of a profile: the
+    copies (memcpy, memset) run beside the kernels on the streamer's side
+    stream, so they are counted apart."""
+    by_name, n, busy = device_events(prof)
+    copies = {k: v for k, v in by_name.items()
+              if k.startswith(("Memcpy", "Memset"))}
+    copy_ms = sum(v[0] for v in copies.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return (busy - copy_ms, copy_ms, n - sum(v[1] for v in copies.values()),
+            [{"name": k[:80], "ms": v[0] / 1e3, "count": v[1]}
+             for k, v in top])
+
+
+def timed_round(call, profiled=False):
+    """``(result, wall ms, profile or None)`` of one synchronised round;
+    with ``profiled`` under ``torch.profiler``: kernel and copy ms, the
+    device's idle share (kernels against wall), the top entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not profiled:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern, copy, n, top = device_split(prof)
+    return out, wall, {
+        "wall_ms": wall, "device_kernels": n,
+        "kernel_busy_ms": kern if n else "not measured",
+        "copy_ms": copy if n else "not measured",
+        "device_idle_share": (1 - kern / wall) if n else "not measured",
+        "top": top}
+
+
+@contextlib.contextmanager
+def round_probe(keep_params_at=(), profile_at=None):
+    """Wrap the FL engine's ``run_round`` for one run: each round's ms
+    (host clock around the synchronised round), the params on the host
+    after the rounds in ``keep_params_at``, each round's tier bytes, the
+    host bank's and one streamed chunk's bytes, and round ``profile_at``
+    under ``torch.profiler`` (wall, kernel and copy ms, idle share); and
+    the ms of each round's host draws and gather (``_sample_batches``, on
+    the prefetcher's thread)."""
+    import torch
+    from repro_torch.fed import engine as fe
+    rec = {"ms": [], "rounds": [], "params": {}, "tiers": [],
+           "profile": None, "host_bank_gb": None,
+           "chunk_device_bytes": None, "sin2": [], "sample_ms": []}
+    real = fe.FLEngine.run_round
+    real_sample = fe.FLEngine._sample_batches
+
+    def sample(self, rng):
+        # on the prefetcher's thread: the host's draws and gather a round
+        t0 = time.perf_counter()
+        out = real_sample(self, rng)
+        rec["sample_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def run_round(self, src):
+        r = len(self.history) + 1
+        torch.cuda.synchronize()
+        m, wall, prof = timed_round(lambda: real(self, src), r == profile_at)
+        if prof is not None:
+            rec["profile"] = {"round": r, **prof}
+        rec["ms"].append(wall)
+        rec["rounds"].append(r)
+        rec["tiers"].append(self.ledger.per_round[-1].get("tiers"))
+        rec["sin2"].append(self.sin2_history[-1])
+        if r in keep_params_at:
+            rec["params"][r] = {k: v.cpu() for k, v in self.params.items()}
+        if self._host_bank:
+            leaves = []
+            fe._tmap(leaves.append, self.lbg)
+            rec["host_bank_gb"] = sum(v.numel() * v.element_size()
+                                      for v in leaves) / 1e9
+            rec["bank_pinned"] = all(v.is_pinned() for v in leaves)
+            rec["chunk_device_bytes"] = self.host_chunk_device_bytes()
+        return m
+
+    fe.FLEngine.run_round = run_round
+    fe.FLEngine._sample_batches = sample
+    try:
+        yield rec
+    finally:
+        fe.FLEngine.run_round = real
+        fe.FLEngine._sample_batches = real_sample
+
+
+def steady_ms(rec):
+    """Mean ms a round over the rounds after the first, the profiled one
+    left out."""
+    prof = (rec["profile"] or {}).get("round")
+    ms = [m for r, m in zip(rec["rounds"], rec["ms"])
+          if r != rec["rounds"][0] and r != prof]
+    return sum(ms) / max(len(ms), 1)
+
+
+def count_launches(label, totals, want=None):
+    """Fold the launch counters into the kernels line's totals (and its
+    per-shape counts); fail where a kernel of ``want`` launched no time
+    or, where ``want`` gives a count, another number of times."""
+    from repro_torch.kernels import _build
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    by_shape = {k: dict(v) for k, v in _build.LAUNCH_SHAPES.items() if v}
+    for k, n in (want or {}).items():
+        if launches.get(k, 0) <= 0 or (n is not None
+                                       and launches.get(k, 0) != n):
+            fail(f"{label}: {k} launched {launches.get(k, 0)} times, "
+                 f"want {n if n is not None else '> 0'}")
+    for k, n in launches.items():
+        totals[k] += n
+    for k, shapes in by_shape.items():
+        for shp, c in shapes.items():
+            SHAPE_TOTALS.setdefault(k, {})
+            SHAPE_TOTALS[k][shp] = SHAPE_TOTALS[k].get(shp, 0) + c
+    return launches, {k: [[list(shp), c] for shp, c in v.items()]
+                      for k, v in by_shape.items()}
+
+
+def hier_run(label, spec, totals, **probe):
+    """``run_experiment(spec)`` on the card under :func:`round_probe`,
+    with the launch counters set to 0 just before and read just after.
+    Returns (result, probe record, peak device bytes above those held
+    before the run, launches, by shape)."""
+    import gc
+    import torch
+    from repro_torch.fed.engine import pick_chunk
+    from repro_torch.fed.experiment import run_experiment
+    from repro_torch.kernels import _build
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fl = spec.fl
+    chunks = -(-fl.num_clients // pick_chunk(fl.num_clients, fl.chunk_size))
+    _build.reset_launch_counts()
+    with round_probe(**probe) as rec:
+        res = run_experiment(spec, device="cuda")
+    torch.cuda.synchronize()
+    # the run's own peak, above what earlier phases hold
+    peak = torch.cuda.max_memory_allocated() - held
+    # the decision once per leaf per chunk (the FCN's 4 leaves)
+    launches, by_shape = count_launches(
+        label, totals, {"lbgm_sparse_decision": 4 * chunks * spec.rounds})
+    return res, rec, peak, launches, by_shape
+
+
+def hier_100k_topk_host(totals, tmp):
+    """``hier_100k_topk_host``: ``examples/specs/hier_100k.json`` as
+    shipped (K = 100,000, chunk 500, ``topk-host`` at k_frac 0.05, tiers
+    [256, 16] shuffled, a checkpoint every 5 rounds, prefetch on, 20
+    rounds), its checkpoint moved under ``tmp``: ms a round, round 4
+    profiled (kernel and copy ms, idle share), the host bank, one streamed
+    chunk's device bytes, the peak, the last round's tier bytes."""
+    import math
+    from repro_torch.fed.engine import pick_chunk
+    spec = hier_spec(tmp)
+    t0 = time.perf_counter()
+    res, rec, peak, launches, by_shape = hier_run(
+        "hier_100k_topk_host", spec, totals,
+        keep_params_at=(HIER_CMP_ROUNDS, HIER_ROUNDS), profile_at=4)
+    seconds = time.perf_counter() - t0
+    hist = res.history
+    if len(hist) != HIER_ROUNDS or not all(
+            math.isfinite(h["loss"]) for h in hist) or not math.isfinite(
+            res.final_eval.get("test_loss", float("nan"))):
+        fail(f"hier_100k_topk_host: {len(hist)} rounds, losses "
+             f"{[h['loss'] for h in hist]}, eval {res.final_eval}")
+    if not os.path.exists(spec.fl.ckpt_path):
+        fail("hier_100k_topk_host: no checkpoint written")
+    if not rec["bank_pinned"]:
+        fail("hier_100k_topk_host: the host bank is not pinned")
+    emit({"phase": "hier_100k_topk_host", "spec": str(
+              HIER_SPEC.relative_to(ROOT)),
+          "K": spec.fl.num_clients,
+          "chunk": pick_chunk(spec.fl.num_clients, spec.fl.chunk_size),
+          "rounds": len(hist),
+          "tiers": spec.fl.tiers, "ckpt_every": spec.fl.ckpt_every,
+          "seconds": seconds, "ms_per_round": steady_ms(rec),
+          "ms_per_round_of": "rounds 2-20 but the profiled round 4",
+          "round_ms": rec["ms"], "profile": rec["profile"],
+          "host_draws_ms_per_round": sum(rec["sample_ms"]) / max(
+              len(rec["sample_ms"]), 1),
+          "host_draws_of": "_sample_batches on the prefetcher's thread "
+                           "(100,000 randint draws and the batch gather), "
+                           "the mean over the rounds it drew",
+          "host_bank_gb": rec["host_bank_gb"],
+          "host_chunk_device_bytes": rec["chunk_device_bytes"],
+          "peak_mem_gb": peak / 1e9,
+          "peak_mem_of": "the run's own, above what earlier phases hold",
+          "tier_bytes_last_round": rec["tiers"][-1],
+          "savings": res.savings,
+          "frac_scalar": [h["frac_scalar"] for h in hist],
+          "loss": [h["loss"] for h in hist],
+          "wire_bytes": [h["wire_bytes"] for h in hist],
+          "test_acc": res.final_eval.get("test_acc"),
+          "launches": launches, "launches_by_shape": by_shape})
+    return {"history": hist, "params": rec["params"], "peak": peak}
+
+
+def hier_100k_vs_topk(totals, tmp, host):
+    """``hier_100k_vs_topk``: the same spec for 3 rounds with the
+    in-memory ``topk`` bank and no tiers must give the ``topk-host`` run's
+    first 3 rounds bit for bit (every history field, the params); then
+    ``topk-host`` at K = 10,000 (n = 40,000, the same tiers, 3 rounds):
+    the K = 100,000 peak may exceed its peak by HIER_PEAK_SHARE of the
+    in-memory bank."""
+    import torch
+    spec = hier_spec(tmp, **{"fl.lbg_variant": "topk", "fl.tiers": None,
+                             "rounds": HIER_CMP_ROUNDS})
+    res, rec, peak_topk, launches, _ = hier_run(
+        "hier_100k_vs_topk", spec, totals, keep_params_at=(HIER_CMP_ROUNDS,))
+    want = host["history"][:HIER_CMP_ROUNDS]
+    for r, (a, b) in enumerate(zip(res.history, want)):
+        for k in HIST_KEYS:
+            if a[k] != b[k]:
+                fail(f"hier_100k_vs_topk round {r + 1}: {k} {a[k]} (topk) "
+                     f"vs {b[k]} (topk-host)")
+    pa, pb = rec["params"][HIER_CMP_ROUNDS], host["params"][HIER_CMP_ROUNDS]
+    diff = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    if diff:
+        fail(f"hier_100k_vs_topk: params {diff} differ after round 3")
+    # the in-memory bank: K rows of (idx int32, val fp32) per leaf's kb
+    from repro_torch.core.lbgm import _block_layout
+    k_frac = spec.fl.lbg_kw["k_frac"]
+    per_client = sum(8 * nb * kb for nb, _, kb in (
+        _block_layout(int(v.numel()), k_frac) for v in pa.values()))
+    bank = per_client * spec.fl.num_clients
+    small = hier_spec(tmp, **{"fl.num_clients": 10000,
+                              "data.kw.n": 40000,
+                              "rounds": HIER_CMP_ROUNDS})
+    _, _, peak_10k, _, _ = hier_run("hier_10k_topk_host", small, totals)
+    grow = host["peak"] - peak_10k
+    out = {"phase": "hier_100k_vs_topk", "rounds": HIER_CMP_ROUNDS,
+           "bit_for_bit": True,
+           "peak_mem_gb_topk_in_memory": peak_topk / 1e9,
+           "peak_mem_gb_topk_host_100k": host["peak"] / 1e9,
+           "peak_mem_gb_topk_host_10k": peak_10k / 1e9,
+           "in_memory_bank_gb": bank / 1e9,
+           "peak_growth_mb_10k_to_100k": grow / 1e6,
+           "peak_growth_limit_mb": HIER_PEAK_SHARE * bank / 1e6,
+           "ms_per_round_topk": steady_ms(rec), "launches": launches}
+    emit(out)
+    if grow > HIER_PEAK_SHARE * bank:
+        fail(f"hier_100k_vs_topk: the topk-host peak grew by "
+             f"{grow / 1e6:.1f} MB from K=10,000 to K=100,000, over "
+             f"{HIER_PEAK_SHARE * bank / 1e6:.1f} MB")
+    return out
+
+
+def hier_100k_resume(totals, tmp, host):
+    """``hier_100k_resume``: ``python -m repro_torch.fed.run --spec
+    examples/specs/hier_100k.json`` (its ``main``, in this process) for
+    10 rounds, which checkpoints at 5 and 10; then the same with
+    ``--rounds 20 --resume`` in a new engine: every record and the final
+    params equal the uninterrupted run's bit for bit."""
+    import torch
+    from repro_torch.fed import run as fed_run
+    from repro_torch.kernels import _build
+    ckpt = os.path.join(tmp, "resume.ckpt.npz")
+    argv = ["--spec", str(HIER_SPEC), "--set", f"fl.ckpt_path={ckpt}"]
+    outs = []
+    t0 = time.perf_counter()
+    for rounds, extra in ((HIER_SAVE, []), (HIER_ROUNDS, ["--resume"])):
+        out = os.path.join(tmp, f"resume-{rounds}.json")
+        _build.reset_launch_counts()
+        with round_probe(keep_params_at=(HIER_ROUNDS,)) as rec:
+            if fed_run.main(argv + ["--rounds", str(rounds), "--out", out]
+                            + extra) != 0:
+                fail("hier_100k_resume: the CLI exited non-zero")
+        count_launches("hier_100k_resume", totals,
+                       {"lbgm_sparse_decision": None})
+        with open(out) as f:
+            outs.append((json.load(f)["records"], rec))
+    seconds = time.perf_counter() - t0
+    (first, _), (resumed, rec) = outs
+    if rec["rounds"] != list(range(HIER_SAVE + 1, HIER_ROUNDS + 1)):
+        fail(f"hier_100k_resume: the resumed run ran rounds {rec['rounds']}")
+    for r, (a, b) in enumerate(zip(resumed, host["history"])):
+        for k in HIST_KEYS:
+            if a[k] != b[k]:
+                fail(f"hier_100k_resume round {r + 1}: {k} {a[k]} vs "
+                     f"{b[k]} uninterrupted")
+    if len(resumed) != HIER_ROUNDS or first != resumed[:HIER_SAVE]:
+        fail("hier_100k_resume: the resumed records are not the first run's"
+             " 10 and 10 more")
+    pa, pb = rec["params"][HIER_ROUNDS], host["params"][HIER_ROUNDS]
+    diff = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    if diff:
+        fail(f"hier_100k_resume: final params {diff} differ")
+    out = {"phase": "hier_100k_resume", "saved_at": HIER_SAVE,
+           "resumed_to": HIER_ROUNDS, "bit_for_bit": True,
+           "seconds": seconds, "resumed_ms_per_round": steady_ms(rec),
+           "entry": "python -m repro_torch.fed.run --spec "
+                    f"{HIER_SPEC.relative_to(ROOT)} --resume (its main)"}
+    emit(out)
+    return out
+
+
+def hier_card_vs_cpu(totals, tmp):
+    """``hier_card_vs_cpu``: the spec at K = 2,000 (n 8,000), chunk 100,
+    tiers [16, 4] shuffled, 3 rounds, on the card and on the CPU from one
+    set of initial params: uplink floats, scalar fraction, wire bytes,
+    savings and each round's tier bytes equal; loss within 1e-4, the
+    run's update within 1e-3 relative L2 (PERF.md §2); no client's sin²
+    within 1e-5 of delta. Delta 0.45: at the spec's 0.5 a client's sin²
+    lies 2.5e-6 from delta in this cohort (the CPU run), close enough for
+    a float-level difference to flip its decision; at 0.45 the nearest
+    lies 5.4e-4 away."""
+    import numpy as np
+    import torch
+    from repro_torch.fed.experiment import build_experiment, run_experiment
+    spec = hier_spec(tmp, **{
+        "fl.num_clients": 2000, "data.kw.n": 8000, "fl.chunk_size": 100,
+        "fl.tiers": {"levels": [16, 4], "assign": "shuffle"},
+        "fl.delta_threshold": 0.45, "rounds": HIER_CMP_ROUNDS})
+    eng, _ = build_experiment(spec, device="cpu")
+    p0 = {k: v.numpy() for k, v in eng.params.items()}
+    del eng
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with round_probe(keep_params_at=(HIER_CMP_ROUNDS,)) as rec:
+            res = run_experiment(spec, device=dev, params=p0)
+        runs[dev] = (res, rec)
+    (gres, grec), (cres, crec) = runs["cuda"], runs["cpu"]
+    for r, (a, b) in enumerate(zip(gres.history, cres.history)):
+        for k in ("uplink_floats", "frac_scalar", "wire_bytes", "savings"):
+            if a[k] != b[k]:
+                fail(f"hier_card_vs_cpu round {r + 1}: {k} {a[k]} vs {b[k]}")
+        if abs(a["loss"] - b["loss"]) > FL_ROBUST_LOSS_RTOL * abs(b["loss"]):
+            fail(f"hier_card_vs_cpu round {r + 1}: loss {a['loss']} vs "
+                 f"{b['loss']}")
+    if grec["tiers"] != crec["tiers"]:
+        fail(f"hier_card_vs_cpu: tier bytes {grec['tiers']} vs "
+             f"{crec['tiers']}")
+    num = den = 0.0
+    for k, v0 in p0.items():
+        u_g = grec["params"][HIER_CMP_ROUNDS][k].double() - \
+            torch.from_numpy(v0).double()
+        u_c = crec["params"][HIER_CMP_ROUNDS][k].double() - \
+            torch.from_numpy(v0).double()
+        num += float(((u_g - u_c) ** 2).sum())
+        den += float((u_c ** 2).sum())
+    rel = (num / max(den, 1e-300)) ** 0.5
+    delta = spec.fl.delta_threshold
+    margin = min(float(np.min(np.abs(s - delta))) for s in grec["sin2"])
+    out = {"phase": "hier_card_vs_cpu", "K": 2000, "chunk": 100,
+           "tiers": spec.fl.tiers, "rounds": HIER_CMP_ROUNDS,
+           "update_rel_l2": rel, "sin2_margin": margin,
+           "tier_bytes": grec["tiers"],
+           "frac_scalar": [h["frac_scalar"] for h in gres.history],
+           "gpu_ms_per_round": gres.us_per_round / 1e3,
+           "cpu_ms_per_round": cres.us_per_round / 1e3}
+    emit(out)
+    if rel > FL_ROBUST_UPDATE_RTOL:
+        fail(f"hier_card_vs_cpu: update {rel:.3g} relative L2 off the CPU's")
+    if margin < 1e-5:
+        fail(f"hier_card_vs_cpu: a client's sin² lies {margin:.3g} from "
+             "delta")
+    return out
+
+
+def fl_lm_qwen3_topk_host(totals, inmem):
+    """``fl_lm_qwen3_topk_host``: ``fl_lm_qwen3_topk_int8``'s settings
+    (full-width qwen3, K=4, chunk 2, top-k 0.01, int8, 3 rounds) with the
+    ``topk-host`` bank and tiers [2] (accounting-only under a codec): its
+    history equals the in-memory phase's bit for bit; round 3 profiled
+    for the streamer's copies against the chunk's kernels."""
+    spec = fl_lm_spec("qwen3-1.7b", **{
+        "fl.lbg_variant": "topk-host", "fl.lbg_kw": {"k_frac": 0.01},
+        "fl.chunk_size": 2, "fl.codec": "int8", "fl.tiers": [2]})
+    want = fl_lm_expected(spec)
+    history, final, rec, peak = fl_lm_run(spec, profile_round=3)
+    for got in rec["launches"]:
+        for k, n in got.items():
+            totals[k] += n
+    for r, (a, b) in enumerate(zip(history, inmem)):
+        for k in HIST_KEYS:
+            if a[k] != b[k]:
+                fail(f"fl_lm_qwen3_topk_host round {r + 1}: {k} {a[k]} vs "
+                     f"{b[k]} in memory")
+    out = fl_lm_record("fl_lm_qwen3_topk_host", spec, history, final, rec,
+                       peak, want, tiers=spec.fl.tiers,
+                       host_bank_gb=rec["host_bank_gb"],
+                       host_chunk_device_bytes=rec["chunk_device_bytes"],
+                       profile=rec["profile"], bit_for_bit_in_memory=True,
+                       entry="repro_torch.fed.experiment.run_experiment")
+    emit(out)
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 def main():
@@ -3489,6 +3957,18 @@ def main():
     uplink_launches()
     robust_phases(totals)
 
+    # one-host scale-out: the shipped 100,000-client spec on the topk-host
+    # bank, held against the in-memory bank, a resume and the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        t_hier = time.perf_counter()
+        host = hier_100k_topk_host(totals, tmp)
+        hier_100k_vs_topk(totals, tmp, host)
+        hier_100k_resume(totals, tmp, host)
+        del host
+        hier_card_vs_cpu(totals, tmp)
+        emit({"phase": "hier_total",
+              "seconds": time.perf_counter() - t_hier})
+
     # LM serving, then training: full-width qwen3-1.7b and rwkv6-3b, one
     # model at a time; the training phases that start from the serving
     # weights (seed 0, as launch.train draws them) run before they go. The
@@ -3509,8 +3989,10 @@ def main():
 
     # LBGM federated rounds of the LMs through the engine, full width
     fl_lm_qwen3_dense()
-    fl_lm_topk("fl_lm_qwen3_topk_int8", "qwen3-1.7b",
-               **{"fl.chunk_size": 2, "fl.codec": "int8"})
+    inmem = fl_lm_topk("fl_lm_qwen3_topk_int8", "qwen3-1.7b",
+                       **{"fl.chunk_size": 2, "fl.codec": "int8"})
+    fl_lm_qwen3_topk_host(totals, inmem)
+    del inmem
     fl_lm_topk("fl_lm_rwkv6_topk", "rwkv6-3b",
                **{"fl.num_clients": 2, "data.kw.n": 2})
     fl_lm_qwen3_buffered_scalar_median()

@@ -37,11 +37,11 @@ so this holds on the CPU and on the card alike.
 
 Stochastic rounding draws one seed per client per round from the
 dedicated :func:`codec_rng` stream — the JAX package's draws, seed for
-seed — riding the batch dict under ``WIRE_KEY``. The uniforms themselves
-come from a counter-based integer hash of (seed, leaf, row, column)
-(:func:`hash_uniform`), not from ``jax.random``: they cannot replay the
-JAX package's threefry bits, but they are the same on the CPU and on the
-card.
+seed — riding the batch dict under ``WIRE_KEY``. The uniforms are the JAX
+package's too, bit for bit: leaf ``i`` (in sorted-name order) of client c
+rounds with ``jax.random.uniform(fold_in(PRNGKey(seed_c), i), f.shape)``,
+replayed on the payload's device by ``core.jax_prng`` (threefry on int64
+lanes), so the CPU and the card draw the same uniforms as the reference.
 
 The port's convention is batched: payload leaves carry a leading client
 axis ``(C, nb, kb)``, seeds are a ``(C,)`` int64 tensor, and every byte
@@ -53,6 +53,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.jax_prng import fold_in_t, prng_key_t, uniform_rows
 from repro_torch.fed.registry import CODECS, register_codec
 
 #: reserved batch-dict key for the per-client stochastic-rounding seed
@@ -60,8 +61,6 @@ WIRE_KEY = "_wire_seed"
 
 #: e4m3 largest finite magnitude (S.1111.110 = 1.75 * 2^8)
 E4M3_MAX = 448.0
-
-_M32 = 0xFFFFFFFF
 
 
 def codec_rng(seed: int) -> np.random.RandomState:
@@ -78,33 +77,6 @@ def stochastic_round(f, u):
     ``u`` is uniform on [0, 1); exact integers round to themselves."""
     lo = torch.floor(f)
     return lo + (u < (f - lo)).to(f.dtype)
-
-
-def _mix32(x):
-    """A bijective 32-bit integer mixer on int64 lanes (or a Python int)
-    in [0, 2^32). Both multipliers are odd and below 2^31, so no product
-    reaches 2^63."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x1B873593) & _M32
-    return x ^ (x >> 16)
-
-
-def hash_uniform(seed: torch.Tensor, leaf: int, shape) -> torch.Tensor:
-    """Counter-based uniforms on [0, 1): ``(C,)`` int64 seeds and a leaf
-    index -> ``(C, rows, cols)`` fp32. Element (c, r, j) hashes
-    (seed_c, leaf, r * cols + j) with integer ops only, so the same seed
-    gives the same uniforms on every device. The top 24 bits of the hash
-    times 2^-24 are exact in fp32."""
-    rows, cols = shape
-    dev = seed.device
-    key = _mix32((seed.long() & _M32) ^ _mix32(leaf + 0x632BE5AB))
-    key = key.reshape(-1, 1, 1)
-    ctr = (torch.arange(rows, device=dev).reshape(-1, 1) * cols
-           + torch.arange(cols, device=dev)) & _M32
-    h = _mix32((_mix32(ctr ^ key) + key) & _M32)
-    return (h >> 8).float() * (2.0 ** -24)
 
 
 def _exp2_int(e: torch.Tensor) -> torch.Tensor:
@@ -262,9 +234,14 @@ class _QuantizedCodec(WireCodec):
         self.stochastic = bool(stochastic)
 
     def _round(self, f, seed, leaf: int):
+        """Round ``f`` (C, rows, cols) to the grid: stochastically with
+        client c's uniforms ``jax.random.uniform(fold_in(PRNGKey(seed_c),
+        leaf), (rows, cols))``, or to nearest."""
         if self.stochastic:
-            return stochastic_round(
-                f, hash_uniform(seed, leaf, f.shape[1:]))
+            C, rows, cols = f.shape
+            key = fold_in_t(prng_key_t(seed.to(f.device)), leaf)
+            u = uniform_rows(key, rows * cols).reshape(C, rows, cols)
+            return stochastic_round(f, u)
         return torch.round(f)
 
     def quantize(self, val, seed, leaf: int):

@@ -26,11 +26,13 @@ replays those draws here so that its iterates are the reference's:
   round differently).
 
 The same draws run on device tensors too (:func:`random_bits_rows`,
-:func:`normal_rows`): a batch of keys, one per row, each row
+:func:`uniform_rows`, :func:`normal_rows`): a batch of keys, one per row,
+each row ``jax.random.uniform(key_c, (n,))`` or
 ``jax.random.normal(key_c, (n,))``. The uint32
 words are carried in int64 tensors and masked to 32 bits after every add
 and shift, so the bits are the NumPy path's on any device; the Byzantine
-attacks draw their noise there, on the card, rather than on the host.
+attacks draw their noise there, and the stochastic wire codecs their
+rounding uniforms, on the card rather than on the host.
 """
 from __future__ import annotations
 
@@ -131,7 +133,8 @@ def normal(key, shape) -> np.ndarray:
 # ------------------------------------------------------ on device tensors
 
 _M32 = 0xFFFFFFFF
-#: elements of one (rows x slice) piece of :func:`normal_rows`: bounds the
+#: elements of one (rows x slice) piece of :func:`uniform_rows` and
+#: :func:`normal_rows`: bounds the
 #: int64 temporaries (8 bytes each, a handful live) whatever the leaf size
 _PIECE = 1 << 22
 
@@ -189,6 +192,36 @@ def random_bits_rows(key, start: int, stop: int) -> torch.Tensor:
     return b0 ^ b1
 
 
+_ONE_BITS = int(np.array(1.0, np.float32).view(np.uint32))
+
+
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """:func:`uniform`'s float step on int64 lanes of uint32 bits: 23
+    mantissa bits under the exponent of 1.0, minus 1 -> [0, 1) fp32."""
+    return ((bits >> 9) | _ONE_BITS).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
+def _pieces(rows: int, n: int):
+    step = max(1, _PIECE // max(rows, 1))
+    for s0 in range(0, n, step):
+        yield s0, min(n, s0 + step)
+
+
+def uniform_rows(key, n: int) -> torch.Tensor:
+    """Row c is ``jax.random.uniform(key_c, (n,), float32)`` (minval 0,
+    maxval 1): (C, n) fp32 on the keys' device, bit for bit, drawn in
+    pieces of at most ``_PIECE`` elements."""
+    rows = key[0].shape[0]
+    out = torch.empty((rows, n), dtype=torch.float32, device=key[0].device)
+    for s0, s1 in _pieces(rows, n):
+        # JAX's floats * (maxval - minval) + minval is exact at [0, 1), and
+        # the clamp at minval keeps -0.0 out
+        out[:, s0:s1] = torch.clamp(
+            _unit_floats(random_bits_rows(key, s0, s1)), min=0.0)
+    return out
+
+
 def normal_rows(key, n: int) -> torch.Tensor:
     """Row c is ``jax.random.normal(key_c, (n,), float32)``: (C, n) fp32 on
     the keys' device, drawn in pieces of at most ``_PIECE`` elements."""
@@ -198,13 +231,9 @@ def normal_rows(key, n: int) -> torch.Tensor:
     lo32 = np.nextafter(np.float32(-1.0), np.float32(0.0))
     lo, span = float(lo32), float(np.float32(1.0) - lo32)
     sqrt2 = float(np.float32(np.sqrt(2)))
-    one = int(np.array(1.0, np.float32).view(np.uint32))
-    step = max(1, _PIECE // max(rows, 1))
     out = torch.empty((rows, n), dtype=torch.float32, device=key[0].device)
-    for s0 in range(0, n, step):
-        s1 = min(n, s0 + step)
-        bits = (random_bits_rows(key, s0, s1) >> 9) | one
-        u = bits.to(torch.int32).view(torch.float32) - 1.0
+    for s0, s1 in _pieces(rows, n):
+        u = _unit_floats(random_bits_rows(key, s0, s1))
         u = torch.clamp(u * span + lo, min=lo)
         out[:, s0:s1] = sqrt2 * _erfinv_t(u)
     return out

@@ -8,9 +8,11 @@ ATOMO, with or without error feedback), the ``"mean"`` streaming fold
 ``SparseCodecAggregator`` for its quantized payloads), the robust rules
 of ``fed.robust`` in collect mode, every wire codec (``none``,
 ``delta_idx``, ``int8``, ``fp8``), the Byzantine attacks of
-``fed.attacks`` and straggler dropout. The host-bank, sharded, tier and
-checkpoint branches of the JAX engine are later slices; ``FLConfig``
-rejects their keys until then.
+``fed.attacks`` and straggler dropout, the out-of-core ``"topk-host"``
+store (:class:`HostTopKLBGStore`, streamed by :class:`_HostBankStreamer`),
+hierarchical tiers (``fed.hierarchy``) and checkpoint/resume. The sharded
+scheduler and ``model_sharding="auto"`` (multi-GPU) are later slices;
+``FLConfig`` rejects their keys until then.
 
 One round:
 
@@ -45,7 +47,22 @@ One round:
    ``"buffered"`` scheduler writes each dispatched payload into its
    client's slot of a staleness buffer (in the codec's wire dtype) and
    folds the slots that arrive this round, staleness-discounted;
-4. the server steps the params and ``CommLedger`` counts the uplink.
+4. the server steps the params and ``CommLedger`` counts the uplink
+   (and, under ``FLConfig.tiers``, the bytes of each aggregation tier).
+
+``"topk-host"`` keeps the top-k bank in host memory (pinned on a CUDA
+engine) and runs the round chunk by chunk: a side CUDA stream uploads
+chunk c+1's bank and batch rows while chunk c computes and copies chunk
+c's new rows back, so the device holds O(chunk) bank rows whatever K. Its
+history is the in-memory ``"topk"`` store's bit for bit.
+
+Every ``FLConfig.ckpt_every`` rounds :meth:`FLEngine.run` saves params,
+banks, residuals, the staleness buffer, every host rng stream, the
+buffered delivery plan, the ledger and the history
+(``checkpoint.ckpt``); ``run(resume=True)`` continues the run bit for
+bit. The thread that draws a round snapshots the host streams right
+after its draws and hands the snapshot over with the round, so the cut is
+exact with rounds queued ahead.
 
 Device: the engine runs on the CUDA card unless it is given
 ``device="cpu"``; without a card it raises rather than carry on quietly on
@@ -60,11 +77,13 @@ from __future__ import annotations
 import queue
 import threading
 import warnings
+import weakref
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.comm.accounting import CommLedger
 from repro_torch.comm.wire import WIRE_KEY, codec_rng, make_codec
 from repro_torch.compression import make_uplink_pipeline
@@ -74,6 +93,7 @@ from repro_torch.core.tree_math import tree_size
 from repro_torch.fed.attacks import (BYZ_KEY, STALE_KEY, fault_rng,
                                      make_attack, select_byzantine)
 from repro_torch.fed.flconfig import FLConfig  # noqa: F401  (re-export)
+from repro_torch.fed.hierarchy import HierarchicalAggregator, make_tier_map
 from repro_torch.fed.latency import make_latency
 from repro_torch.fed.registry import (LBG_STORES, SCHEDULERS,
                                       register_lbg_store, register_scheduler)
@@ -201,6 +221,36 @@ class TopKLBGStore:
         return stats.uplink_floats
 
 
+class HostTopKLBGStore(TopKLBGStore):
+    """The top-k bank kept in host memory (``"topk-host"``).
+
+    The decision, cost model and aggregator are :class:`TopKLBGStore`'s,
+    and the history is the in-memory store's bit for bit; ``init``
+    allocates the (Kp, nb, kb) idx and val banks as CPU tensors, pinned
+    when the params live on a CUDA device (the engine then streams them
+    with asynchronous copies; a bank that cannot be pinned raises). The
+    engine sees ``host_resident`` and runs each round through the
+    out-of-core chunk loop, so the device holds O(chunk * k_frac * M) bank
+    bytes whatever K."""
+
+    #: engine marker: run the round over bank chunks streamed from the host
+    host_resident = True
+
+    def init(self, params, num_clients: int, promote=None):
+        proto = lbgm_lib.init_topk_lbg(params, self.k_frac)
+        pin = next(iter(params.values())).device.type == "cuda"
+
+        def host(x):
+            t = torch.zeros((num_clients,) + tuple(x.shape), dtype=x.dtype,
+                            pin_memory=pin)
+            if pin and not t.is_pinned():
+                raise RuntimeError(
+                    "lbg_variant='topk-host': the host bank could not be "
+                    "pinned; pageable memory would serialize the streamer")
+            return t
+        return _tmap(host, proto)
+
+
 def _lbg_kw(cfg: FLConfig) -> dict:
     """User lbg_kw, refusing the engine-controlled keys."""
     kw = dict(cfg.lbg_kw or {})
@@ -225,6 +275,10 @@ register_lbg_store("topk")(
     lambda cfg: TopKLBGStore(cfg.delta_threshold,
                              fused=resolve_fused_kernels(cfg),
                              **_lbg_kw(cfg)))
+register_lbg_store("topk-host")(
+    lambda cfg: HostTopKLBGStore(cfg.delta_threshold,
+                                 fused=resolve_fused_kernels(cfg),
+                                 **_lbg_kw(cfg)))
 
 
 def make_lbg_store(cfg: FLConfig):
@@ -261,15 +315,28 @@ class DenseAggregator:
         return acc
 
 
+def _ordered_add_(acc: torch.Tensor, pos: torch.Tensor, val: torch.Tensor):
+    """``acc[pos[i]] += val[i]`` over i in one call, ``acc`` flat. On the
+    CPU ``index_add_`` adds in i order, so a client-major ``pos`` is the
+    strictly sequential client fold bit for bit. On the card
+    ``index_put_`` with ``accumulate`` sorts the positions stably and sums
+    each position's run in a fixed order: deterministic, the same on every
+    call, but reassociated against the CPU's order."""
+    if acc.is_cuda:
+        acc.index_put_((pos,), val, accumulate=True)
+    else:
+        acc.index_add_(0, pos, val)
+
+
 class SparseTopKAggregator:
     """Sparse scalar-round aggregation for the top-k store.
 
     The carry is a per-leaf ``(nb, block)`` fp32 accumulator in the bank's
     block layout. Client k contributes only its payload:
-    ``a[row, idx] = a[row, idx] + where(w_k > 0, (w_k * gscale_k) * val,
-    0)``, clients strictly in order. It is a gather-modify-scatter, with
-    no atomics: top-k indices are unique within a block row. The carry is
-    updated in place.
+    ``a[row, idx] += where(w_k > 0, (w_k * gscale_k) * val, 0)``, clients
+    in order. A chunk's clients fold in one :func:`_ordered_add_` per leaf:
+    top-k indices are unique within a block row, so positions repeat only
+    across clients. The carry is updated in place.
     """
 
     def __init__(self, params, k_frac: float):
@@ -286,16 +353,16 @@ class SparseTopKAggregator:
 
     def accumulate(self, acc, w, out):
         send, gscale = out            # leaves (C, nb, kb); gscale (C,)
-        idx = {name: send[name]["idx"].long() for name in acc}
-        for k in range(w.shape[0]):
-            w_k = w[k]
-            on = w_k > 0
-            coeff = w_k * gscale[k]
-            for name in sorted(acc):
-                a, i_k = acc[name], idx[name][k]
-                new = a.gather(1, i_k) + torch.where(
-                    on, coeff * send[name]["val"][k], 0.0)
-                a.scatter_(1, i_k, new)
+        coeff = (w * gscale)[:, None, None]
+        on = (w > 0)[:, None, None]
+        for name in sorted(acc):
+            a = acc[name]
+            sk = send[name]
+            nb, block = a.shape
+            row = torch.arange(nb, device=a.device)[:, None] * block
+            pos = (row + sk["idx"].long()).reshape(-1)
+            val = torch.where(on, coeff * sk["val"], 0.0).reshape(-1)
+            _ordered_add_(a.view(-1), pos, val)
         return acc
 
     def finalize(self, acc):
@@ -631,6 +698,9 @@ class FLEngine:
         self._data_cat = {k: np.concatenate([d[k] for d in client_data])
                           for k in client_data[0]}
         self.store = make_lbg_store(flcfg)
+        #: "topk-host": the bank lives in host memory and the round streams
+        #: it chunk by chunk (HostTopKLBGStore, _HostBankStreamer)
+        self._host_bank = bool(getattr(self.store, "host_resident", False))
         # the codec's rounding seeds come from their own stream, drawn only
         # when the codec is stochastic: a deterministic codec leaves every
         # other draw where it was
@@ -638,6 +708,25 @@ class FLEngine:
         self._codec_rng = codec_rng(flcfg.seed)
         self.agg, self._sparse_agg = make_aggregator(flcfg, self.store,
                                                      self.params, self.codec)
+        # hierarchical tiers: the streaming fold keeps its flat carry and
+        # folds per-edge partials beside it (finalize is the flat fold bit
+        # for bit); under a collect rule or a lossy codec's fold the tier
+        # map only attributes bytes
+        self.tiers = make_tier_map(flcfg)
+        self._tiered_fold = False
+        if self.tiers is not None and type(self.agg) in (
+                SparseTopKAggregator, DenseAggregator):
+            self.agg = HierarchicalAggregator(
+                self.agg, self.tiers.edge_ids_padded(K + self._pad),
+                self.tiers.n_edges)
+            self._tiered_fold = True
+        if self._host_bank and getattr(self.agg, "collect", False):
+            raise ValueError(
+                f"lbg_variant='topk-host' streams bank chunks and folds "
+                f"payloads as they arrive, but aggregator="
+                f"{flcfg.aggregator!r} runs in collect mode (a full "
+                "(K, payload) device stack — exactly the O(K) memory the "
+                "host store exists to avoid); use aggregator='mean'")
         if self.codec.lossy and not (
                 self._sparse_agg or isinstance(self.store, NullLBGStore)):
             raise ValueError(
@@ -682,9 +771,20 @@ class FLEngine:
         self._client_fn = self._build_client_fn()
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        self._streamer = None
+        if self._host_bank:
+            self._streamer = _HostBankStreamer(self.lbg, self._chunk,
+                                               self.device)
+            # the finalizer holds the streamer only, not the engine
+            self._streamer_finalizer = weakref.finalize(
+                self, self._streamer.close)
         self.ledger = CommLedger()
         self.history: List[Dict[str, float]] = []
         self.sin2_history: List[np.ndarray] = []
+        #: the host streams and buffered plan right after the draws of the
+        #: round that ran last, taken by the thread that drew it: the cut
+        #: save_checkpoint persists
+        self._host_snapshot: Optional[dict] = None
 
     # -------------------------------------------------------------- build
     def _init_buffer(self, Kp):
@@ -896,9 +996,12 @@ class FLEngine:
         maskf = torch.as_tensor(mask.astype(np.float32), device=self.device)
         w = self.weights * maskf
         w = w / torch.clamp(w.sum(), min=1e-12)
-        agg, losses, uplink, scalar, wire, sin2 = self.sched.run(
-            self._client_fn, self.agg, self.params, batch, self.lbg,
-            self.residual, w, maskf)
+        if self._host_bank:
+            out = self._run_host_chunks(batch, w, maskf)
+        else:
+            out = self.sched.run(self._client_fn, self.agg, self.params,
+                                 batch, self.lbg, self.residual, w, maskf)
+        agg, losses, uplink, scalar, wire, sin2 = out
         self.params = {k: p - cfg.lr * agg[k].to(p.dtype)
                        for k, p in self.params.items()}
         metrics = torch.stack([
@@ -911,24 +1014,82 @@ class FLEngine:
         return dict(zip(("loss", "uplink_floats", "frac_scalar",
                          "wire_bytes"), metrics))
 
+    def _run_host_chunks(self, batch, w, maskf):
+        """The ``"topk-host"`` round: the chunked scheduler's ``run`` with
+        the same chunk body (``client_fn``, the aggregator's ``accumulate``,
+        the sampled rows written back), but each chunk's bank and batch rows
+        arrive from the host through the streamer's double buffer, and its
+        new rows go back to the host bank. Nothing here waits for the
+        device; the per-chunk outputs are concatenated at the end, and
+        ``finish_round`` is the round's one barrier (the host bank is then
+        the post-round bank)."""
+        K, chunk, pad = self.cfg.num_clients, self._chunk, self._pad
+        client_fn, agg, params = self._client_fn, self.agg, self.params
+        if pad:
+            w = torch.cat([w, w.new_zeros(pad)])
+            maskf = torch.cat([maskf, maskf.new_zeros(pad)])
+        n_chunks = (K + pad) // chunk
+        acc = agg.init(params)
+        st = self._streamer
+        st.begin_round(batch, n_chunks)
+        ys = []
+        try:
+            for c in range(n_chunks):
+                s = slice(c * chunk, (c + 1) * chunk)
+                l_c, b_c = st.get(c)
+                gt, nl, _, *y = client_fn(params, b_c, l_c, {})
+                acc = agg.accumulate(acc, w[s], gt)
+                st.put_writeback(c, _keep_sampled(maskf[s], nl, l_c))
+                ys.append(y)
+        finally:
+            st.finish_round()
+        y = [torch.cat(col)[:K] for col in zip(*ys)]
+        return (agg.finalize(acc), *y)
+
+    def host_chunk_device_bytes(self) -> int:
+        """Device bytes of one streamed chunk of bank rows: the round holds
+        two (the double buffer) plus the chunk's new rows, whatever
+        ``num_clients``."""
+        if not self._host_bank:
+            raise ValueError("host_chunk_device_bytes: engine does not "
+                             "run the topk-host store")
+        leaves = []
+        _tmap(leaves.append, self.lbg)
+        return int(sum(v[0].numel() * v.element_size() for v in leaves)
+                   * self._chunk)
+
     # -------------------------------------------------------------- data
     def _sample_batches(self, rng: np.random.RandomState):
         """Per-round (K + pad, tau, b, ...) host batches. The K per-client
         index draws run in client order — the JAX engine's stream, draw for
-        draw. The reserved keys ride along, as the JAX engine draws them: a
+        draw (one ``randint`` call with per-client bounds). The reserved keys ride along, as the JAX engine draws them: a
         payload attack's Byzantine flags and per-round extras (fault
         stream), a stochastic codec's rounding seed per client (codec
         stream), and under the buffered scheduler the round's delays
         (fault stream, kept for :meth:`_sample_mask`; also under
         ``STALE_KEY`` for an attack) and the local-step budgets. The fault
         stream's order each round: attack extras, delays, dropout. Pad rows
-        get zeros; uint32 seeds travel as int64."""
+        get zeros; uint32 seeds travel as int64.
+
+        Under ``"topk-host"`` the batch stays on the host, as CPU tensors
+        (pinned on a CUDA engine: the data rows are gathered straight into
+        them), and the streamer uploads each chunk's rows beside its bank
+        rows: nothing O(K) is staged on the device."""
         cfg = self.cfg
-        idx = np.empty((cfg.num_clients, cfg.tau, cfg.batch_size), np.int64)
-        for k, n in enumerate(self._data_sizes):
-            idx[k] = rng.randint(0, n, size=(cfg.tau, cfg.batch_size))
+        K = cfg.num_clients
+        # one call with per-client bounds: numpy's legacy bounded draw takes
+        # the elements in order, each from its own bound, so these are the
+        # per-client loop's draws (the JAX engine's), draw for draw
+        idx = rng.randint(0, self._data_sizes[:, None, None],
+                          size=(K, cfg.tau, cfg.batch_size)).astype(np.int64)
         idx += self._data_offsets[:, None, None]
-        stacked = {k: v[idx] for k, v in self._data_cat.items()}
+        if self._host_bank:
+            data = {k: self._gather_host(v, idx)
+                    for k, v in self._data_cat.items()}
+            stacked = {}
+        else:
+            data = {}
+            stacked = {k: v[idx] for k, v in self._data_cat.items()}
         if self._payload_attack is not None:
             stacked[BYZ_KEY] = self._byz
             stacked.update(self._payload_attack.round_extras(
@@ -946,7 +1107,29 @@ class FLEngine:
                 stacked[TAU_KEY] = np.asarray(self._tau_vec, np.int32)
         stacked = {k: v.astype(np.int64) if v.dtype == np.uint32 else v
                    for k, v in stacked.items()}
-        return self.sched.prepare_batch(stacked)
+        stacked = self.sched.prepare_batch(stacked)
+        if not self._host_bank:
+            return stacked
+        pin = self.device.type == "cuda"
+        data.update({k: torch.from_numpy(np.ascontiguousarray(v))
+                     for k, v in stacked.items()})
+        return {k: v.pin_memory() if pin and k in stacked else v
+                for k, v in data.items()}
+
+    def _gather_host(self, v: np.ndarray, idx: np.ndarray) -> torch.Tensor:
+        """``v[idx]`` zero-padded to K + pad rows, gathered straight into a
+        CPU tensor (pinned on a CUDA engine)."""
+        K = idx.shape[0]
+        src = torch.from_numpy(v)
+        out = torch.empty((K + self._pad,) + idx.shape[1:] + v.shape[1:],
+                          dtype=src.dtype,
+                          pin_memory=self.device.type == "cuda")
+        # torch's gather runs without the interpreter lock, so the round
+        # loop on the main thread keeps running beside it
+        torch.index_select(src, 0, torch.from_numpy(idx.reshape(-1)),
+                           out=out[:K].view((-1,) + v.shape[1:]))
+        out[K:].zero_()
+        return out
 
     def _sample_mask(self, rng: np.random.RandomState):
         """Algorithm-3 participation mask: exactly ``num_clients`` uniforms
@@ -1033,15 +1216,20 @@ class FLEngine:
         """One FL round. ``rng`` is a ``np.random.RandomState`` (host prep
         in line) or a :class:`RoundPrefetcher` (same draw stream)."""
         if isinstance(rng, RoundPrefetcher):
-            batch, mask, ev = rng.next()
+            # the producer's post-draw snapshot of the host streams comes
+            # with the round: the one kept is always the round that runs
+            batch, mask, ev, self._host_snapshot = rng.next()
             if ev is not None:
                 cur = torch.cuda.current_stream(self.device)
                 cur.wait_event(ev)
                 for v in batch.values():
                     v.record_stream(cur)
         else:
-            batch, _ = self._stage(self._sample_batches(rng))
+            batch = self._sample_batches(rng)
+            if not self._host_bank:
+                batch, _ = self._stage(batch)
             mask = self._sample_mask(rng)
+            self._host_snapshot = self._capture_host_state(rng)
         with torch.no_grad():
             if isinstance(mask, dict):
                 # the buffered plan: uplink and wire (and the vanilla
@@ -1054,8 +1242,18 @@ class FLEngine:
             else:
                 m = self._round(batch, mask)
                 vanilla = float(mask.sum()) * tree_size(self.params)
+        tiers = None
+        if self.tiers is not None:
+            # the edge links carried this round's client payloads (the
+            # delivered ones under the buffered plan); each active edge and
+            # region forwards one dense fp32 partial carry
+            active = mask["deliver"] if isinstance(mask, dict) else mask
+            tiers = self.tiers.round_bytes(
+                active, m["wire_bytes"],
+                carry_bytes=4.0 * tree_size(self.params))
         self.ledger.record(m["uplink_floats"], vanilla,
-                           wire=m["wire_bytes"], vanilla_wire=4.0 * vanilla)
+                           wire=m["wire_bytes"], vanilla_wire=4.0 * vanilla,
+                           tiers=tiers)
         m["total_uplink"] = self.ledger.uplink_floats
         m["vanilla_uplink"] = self.ledger.vanilla_floats
         m["savings"] = self.ledger.savings
@@ -1072,23 +1270,164 @@ class FLEngine:
     def vanilla_uplink(self) -> float:
         return self.ledger.vanilla_floats
 
+    # ----------------------------------------------------- checkpointing
+    @staticmethod
+    def _rng_state(rng: np.random.RandomState) -> dict:
+        _, keys, pos, has_gauss, cached = rng.get_state()
+        return {"keys": keys.copy(), "pos": np.int64(pos),
+                "has_gauss": np.int64(has_gauss),
+                "cached": np.float64(cached)}
+
+    @staticmethod
+    def _set_rng_state(rng: np.random.RandomState, s: dict) -> None:
+        rng.set_state(("MT19937", _np(s["keys"]).astype(np.uint32),
+                       int(s["pos"]), int(s["has_gauss"]),
+                       float(s["cached"])))
+
+    def _capture_host_state(self, rng: np.random.RandomState) -> dict:
+        """Snapshot of every host stream that feeds the round draws: the
+        batch/mask rng, the fault and codec streams, and the buffered
+        delivery plan. Taken by the thread that draws a round (the
+        prefetcher's producer, or ``run_round`` in line) right after its
+        draws: the cut that makes resume exact. A prefetcher may have
+        drawn rounds ahead at save time, but the snapshot the engine holds
+        is the round that ran, and the queued draws are drawn again, the
+        same, from the restored streams."""
+        s = {"rng": self._rng_state(rng),
+             "fault_rng": self._rng_state(self._fault_rng),
+             "codec_rng": self._rng_state(self._codec_rng)}
+        if self._latency is not None:
+            s["arrival"] = self._arrival.copy()
+            s["dispatch_round"] = self._dispatch_round.copy()
+            s["plan_round"] = np.int64(self._plan_round)
+        return s
+
+    def _restore_host_state(self, host: dict, rng: np.random.RandomState):
+        """Set ``rng``, the fault and codec streams and the buffered plan
+        from a :meth:`_capture_host_state` snapshot."""
+        self._set_rng_state(rng, host["rng"])
+        self._set_rng_state(self._fault_rng, host["fault_rng"])
+        self._set_rng_state(self._codec_rng, host["codec_rng"])
+        if self._latency is not None:
+            self._arrival[...] = _np(host["arrival"]).astype(np.int64)
+            self._dispatch_round[...] = _np(
+                host["dispatch_round"]).astype(np.int64)
+            self._plan_round = int(host["plan_round"])
+            self._pending_delays = None
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the run's state after the last completed round to ``path``
+        (atomically, ``checkpoint.ckpt``'s format): params, the LBG bank
+        (the host bank under topk-host), the residual, the staleness buffer
+        and delivered count, every host stream, the ledger and the history
+        — what :meth:`restore_checkpoint` needs to continue bit for bit."""
+        if self._host_snapshot is None:
+            raise ValueError(
+                "save_checkpoint: no completed round to snapshot — run "
+                "at least one round first")
+        state = {
+            "params": self.params,
+            "lbg": self.lbg,
+            "residual": self.residual,
+            "host": self._host_snapshot,
+            "ledger": self.ledger.state_dict(),
+            "history": self.history,
+        }
+        if self._buffer is not None:
+            # numpy has no fp8: a 1-byte float leaf is saved as its bits
+            state["buffer"] = _tmap(
+                lambda t: t.view(torch.uint8) if _is_byte_float(t) else t,
+                self._buffer)
+            state["n_delivered"] = np.float64(self.n_delivered)
+        ckpt_lib.save_checkpoint(path, state, metadata={
+            "version": 1, "round": len(self.history),
+            "config": self.cfg.to_dict()})
+
+    def restore_checkpoint(self, path: str,
+                           rng: np.random.RandomState) -> int:
+        """Load ``path`` into this engine, built from the same FLConfig
+        (checked against the checkpoint's metadata), and set ``rng``, the
+        caller's batch/mask stream for the rounds to come. Every bank and
+        buffer is written in place, so the topk-host streamer keeps its
+        reference to the host bank. Returns the number of completed
+        rounds (the index to resume from)."""
+        tree, meta = ckpt_lib.load_checkpoint(path)
+        if meta.get("config") != self.cfg.to_dict():
+            raise ValueError(
+                "restore_checkpoint: checkpoint was written under a "
+                "different FLConfig — rebuild the engine with the "
+                f"original config. Checkpoint config: {meta.get('config')}")
+        self.params = {k: tree["params"][k].to(device=self.device,
+                                                dtype=p.dtype)
+                       for k, p in self.params.items()}
+        for name, have in (("lbg", self.lbg), ("residual", self.residual),
+                           ("buffer", self._buffer)):
+            if have:
+                _tmap(_copy_in, have, tree[name])
+        if self._buffer is not None:
+            self.n_delivered = float(tree["n_delivered"])
+        host = tree["host"]
+        self._restore_host_state(host, rng)
+        self.ledger.load_state(tree["ledger"])
+        self.history = [{k: float(v) for k, v in h.items()}
+                        for h in tree.get("history", [])]
+        self._host_snapshot = host
+        return int(meta["round"])
+
     def run(self, rounds: int, eval_fn: Optional[Callable] = None,
             eval_every: int = 10, verbose: bool = False,
-            prefetch: bool = True):
-        rng = np.random.RandomState(self.cfg.seed + 1)
+            prefetch: bool = True, resume: bool = False):
+        """Rounds up to ``rounds`` in all; ``resume=True`` first restores
+        the checkpoint at ``FLConfig.ckpt_path`` and runs the rest. Every
+        ``ckpt_every`` completed rounds the state goes to ``ckpt_path``."""
+        cfg = self.cfg
+        rng = np.random.RandomState(cfg.seed + 1)
+        start = 0
+        if resume:
+            if not cfg.ckpt_path:
+                raise ValueError(
+                    "run(resume=True) needs FLConfig.ckpt_path")
+            start = self.restore_checkpoint(cfg.ckpt_path, rng)
         src = self.prefetcher(rng) if prefetch else rng
         try:
-            for r in range(rounds):
+            for r in range(start, rounds):
                 m = self.run_round(src)
                 if eval_fn is not None and (r + 1) % eval_every == 0:
                     m.update(eval_fn(self.params))
                 if verbose and (r + 1) % eval_every == 0:
                     print(f"round {r+1:4d} " +
                           " ".join(f"{k}={v:.4g}" for k, v in m.items()))
+                if cfg.ckpt_every and (r + 1) % cfg.ckpt_every == 0:
+                    self.save_checkpoint(cfg.ckpt_path)
         finally:
             if prefetch:
                 src.close()
         return self.history
+
+    def close(self):
+        """Stop the topk-host streamer (also done when the engine is
+        collected)."""
+        if self._streamer is not None:
+            self._streamer_finalizer()
+
+
+def _is_byte_float(t: torch.Tensor) -> bool:
+    return t.element_size() == 1 and t.is_floating_point()
+
+
+def _copy_in(dst: torch.Tensor, src: torch.Tensor):
+    """Write a loaded checkpoint leaf into ``dst`` in place (a 1-byte
+    float leaf arrives as its uint8 bits)."""
+    if _is_byte_float(dst):
+        dst.view(torch.uint8).copy_(src)
+    else:
+        dst.copy_(src.to(dst.dtype))
+
+
+def _np(x) -> np.ndarray:
+    """A checkpoint leaf (a CPU tensor after a load, or an array) as an
+    array."""
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 # ------------------------------------------------------------- prefetcher
@@ -1099,11 +1438,17 @@ class RoundPrefetcher:
     A daemon thread draws each round's ``(batch, mask)`` from the engine's
     rng in round order (batches first, then the mask — the synchronous
     order, which also draws the fault stream in its order: attack extras,
-    delays, dropout) and, on a CUDA device, copies the batch to the card
+    delays, dropout), snapshots the host streams right after (the cut a
+    checkpoint saves) and, on a CUDA device, copies the batch to the card
     on a side stream from pinned memory, so round t+1's host prep and copy
-    overlap round t. While alive it is the rng's only consumer, so the
-    history is identical to the synchronous path; ``close()`` leaves the
-    rng advanced by the rounds still queued.
+    overlap round t (under ``"topk-host"`` the batch stays on the host: the
+    bank streamer uploads it chunk by chunk). While alive it is the rng's
+    only consumer, so the history is identical to the synchronous path.
+    ``close()`` rewinds the rng, the fault and codec streams and the
+    buffered plan to the snapshot of the last round it handed out (to
+    their state at construction if it handed out none): the rounds still
+    queued are dropped as if never drawn, and a synchronous
+    ``run_round`` on the same rng continues the run exactly.
     """
 
     _SENTINEL = object()
@@ -1112,6 +1457,8 @@ class RoundPrefetcher:
                  depth: int = 2):
         self._engine = engine
         self._rng = rng
+        # the streams as they stand before any draw of this prefetcher
+        self._last = engine._capture_host_state(rng)
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
         self._err: Optional[BaseException] = None
@@ -1127,8 +1474,12 @@ class RoundPrefetcher:
                 if self._stop.is_set():
                     break
                 mask = eng._sample_mask(self._rng)
-                batch, ev = eng._stage(host, eng._copy_stream)
-                item = (batch, mask, ev)
+                snap = eng._capture_host_state(self._rng)
+                if eng._host_bank:
+                    batch, ev = host, None
+                else:
+                    batch, ev = eng._stage(host, eng._copy_stream)
+                item = (batch, mask, ev, snap)
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.05)
@@ -1145,10 +1496,10 @@ class RoundPrefetcher:
                     continue
 
     def next(self):
-        """The next round's (batch, mask, copy event); raises if the
-        thread died or after ``close()`` (whatever the queue still holds:
-        a producer blocked in ``put()`` may land a round after the
-        drain)."""
+        """The next round's (batch, mask, copy event, host snapshot);
+        raises if the thread died or after ``close()`` (whatever the queue
+        still holds: a producer blocked in ``put()`` may land a round after
+        the drain)."""
         while True:
             if self._stop.is_set():
                 raise RuntimeError("RoundPrefetcher used after close()")
@@ -1162,6 +1513,7 @@ class RoundPrefetcher:
             if item is self._SENTINEL:
                 raise RuntimeError(
                     "round prefetch thread failed") from self._err
+            self._last = item[3]
             return item
 
     def _drain(self):
@@ -1182,3 +1534,127 @@ class RoundPrefetcher:
             warnings.warn(
                 "RoundPrefetcher thread did not exit within 10s of close(); "
                 "it may still hold the rng", RuntimeWarning)
+        elif self._last is not None:
+            # drop the queued rounds' draws: the streams as the synchronous
+            # path leaves them after the rounds that ran
+            self._engine._restore_host_state(self._last, self._rng)
+
+
+# ----------------------------------------------------- host bank streamer
+
+class _HostBankStreamer:
+    """Streams the ``"topk-host"`` bank's chunks through a double buffer
+    of device rows.
+
+    On a CUDA engine the copies run on one side stream, ordered by events,
+    and the host never waits inside the round:
+
+    * ``begin_round`` uploads chunks 0 and 1 (bank rows from the pinned
+      bank, batch rows from the round's pinned batch) into buffers 0 and
+      1, each upload ending in an event;
+    * ``get(c)`` makes the compute stream wait on chunk c's upload event
+      and returns buffer ``c % 2``;
+    * ``put_writeback(c, rows)`` records an event on the compute stream
+      after chunk c, has the side stream wait on it, copies the new rows
+      into the pinned bank (``record_stream`` keeps the allocator off
+      them until the copy ran), and uploads chunk c + 2 into the buffer
+      chunk c has finished with;
+    * ``finish_round`` is the round's one barrier: the side stream is
+      synchronized, so the host bank is the post-round bank before
+      anything reads it (the next round, a checkpoint, a test).
+
+    The stream's order puts a chunk's write-back before any later
+    upload of the same rows. On a CPU engine the same steps run as plain
+    copies."""
+
+    def __init__(self, host_bank, chunk: int, device: torch.device):
+        self._bank = host_bank   # {name: {idx, val: (Kp, nb, kb)}}
+        self._chunk = chunk
+        self._device = device
+        self._side = (torch.cuda.Stream(device) if device.type == "cuda"
+                      else None)
+        self._bufs = None        # two {"bank": ..., "batch": ...} sets
+        self._free = [None, None]    # compute events: buffer i unused
+        self._up = {}                # chunk -> upload event
+        self._batch = None
+        self._n = 0
+
+    def _rows(self, c):
+        return slice(c * self._chunk, (c + 1) * self._chunk)
+
+    def _alloc(self, batch):
+        def like(x):
+            return torch.empty((self._chunk,) + tuple(x.shape[1:]),
+                               dtype=x.dtype, device=self._device)
+        return [{"bank": _tmap(like, self._bank),
+                 "batch": {k: like(v) for k, v in batch.items()}}
+                for _ in range(2)]
+
+    def begin_round(self, batch, n_chunks: int):
+        if self._bufs is None or set(self._bufs[0]["batch"]) != set(batch):
+            self._bufs = self._alloc(batch)
+        self._batch, self._n = batch, n_chunks
+        self._up = {}
+        self._upload(0)
+        self._upload(1)
+
+    def _upload(self, c: int):
+        if c >= self._n:
+            return
+        slot, sl = c % 2, self._rows(c)
+        buf = self._bufs[slot]
+        pairs = []
+        _tmap(lambda d, h: pairs.append((d, h[sl])), buf["bank"], self._bank)
+        pairs += [(buf["batch"][k], v[sl]) for k, v in self._batch.items()]
+        if self._side is None:
+            for d, h in pairs:
+                d.copy_(h)
+            return
+        with torch.cuda.stream(self._side):
+            if self._free[slot] is not None:
+                self._side.wait_event(self._free[slot])
+            for d, h in pairs:
+                d.copy_(h, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._side)
+        self._up[c] = ev
+
+    def get(self, c: int):
+        """Chunk c's device ``(bank rows, batch rows)``, ready for the
+        compute stream."""
+        buf = self._bufs[c % 2]
+        if self._side is not None:
+            torch.cuda.current_stream(self._device).wait_event(
+                self._up.pop(c))
+        return buf["bank"], buf["batch"]
+
+    def put_writeback(self, c: int, new_rows):
+        """Copy chunk c's new bank rows into the host bank, then upload
+        chunk c + 2 into the buffer chunk c used."""
+        sl = self._rows(c)
+        if self._side is None:
+            _tmap(lambda h, d: h[sl].copy_(d), self._bank, new_rows)
+        else:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self._device))
+            self._free[c % 2] = done
+            with torch.cuda.stream(self._side):
+                self._side.wait_event(done)
+
+                def back(h, d):
+                    h[sl].copy_(d, non_blocking=True)
+                    d.record_stream(self._side)
+                _tmap(back, self._bank, new_rows)
+        self._upload(c + 2)
+
+    def finish_round(self):
+        if self._side is not None:
+            self._side.synchronize()
+        self._batch = None
+        self._up = {}
+
+    def close(self):
+        if self._side is not None:
+            self._side.synchronize()
+        self._bufs = None
+        self._batch = None

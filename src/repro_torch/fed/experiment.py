@@ -290,21 +290,38 @@ def build_experiment(spec: ExperimentSpec, params=None, device="cuda"):
 
 
 def run_experiment(spec: ExperimentSpec, rounds: Optional[int] = None,
-                   device="cuda", params=None) -> ExperimentResult:
+                   device="cuda", params=None,
+                   resume: bool = False) -> ExperimentResult:
     """Build the spec's experiment on ``device``, run it, and return the
     typed result. The round loop is ``FLEngine.run``'s (same rng stream,
     host prep on the engine's :class:`RoundPrefetcher`); ``duration_s``
     counts round time only, each round ending in a host read of its
-    metrics (which waits for the device)."""
+    metrics (which waits for the device). Every ``fl.ckpt_every`` rounds
+    the engine's state goes to ``fl.ckpt_path``.
+
+    ``resume=True`` restores the checkpoint at ``spec.fl.ckpt_path`` first
+    and runs the remaining rounds; the history is the uninterrupted run's
+    bit for bit. The records of the restored rounds carry no eval (eval
+    only reads params and can be run again offline), and ``sin2`` holds
+    the rounds run since the resume."""
     rounds = spec.rounds if rounds is None else rounds
     engine, eval_fn = build_experiment(spec, params=params, device=device)
     policy = spec.eval
     records: List[RoundRecord] = []
     rng = np.random.RandomState(spec.fl.seed + 1)
+    start = 0
+    if resume:
+        if not spec.fl.ckpt_path:
+            raise ValueError("run_experiment(resume=True) needs "
+                             "fl.ckpt_path set in the spec")
+        start = engine.restore_checkpoint(spec.fl.ckpt_path, rng)
+        records = [RoundRecord(round=i + 1, eval={},
+                               **{k: h[k] for k in _HISTORY_KEYS})
+                   for i, h in enumerate(engine.history)]
     duration = 0.0
     src = engine.prefetcher(rng)
     try:
-        for r in range(rounds):
+        for r in range(start, rounds):
             t0 = time.perf_counter()
             m = engine.run_round(src)
             duration += time.perf_counter() - t0
@@ -318,8 +335,11 @@ def run_experiment(spec: ExperimentSpec, rounds: Optional[int] = None,
                                    for k, v in shown.items()))
             records.append(RoundRecord(round=r + 1, eval=ev,
                                        **{k: m[k] for k in _HISTORY_KEYS}))
+            if spec.fl.ckpt_every and (r + 1) % spec.fl.ckpt_every == 0:
+                engine.save_checkpoint(spec.fl.ckpt_path)
     finally:
         src.close()
+        engine.close()
     final_eval = eval_fn(engine.params) if policy.final else {}
     return ExperimentResult(
         spec=spec, rounds=rounds, records=records, final_eval=final_eval,

@@ -4,10 +4,9 @@ Same fields, defaults, validation and JSON form as
 ``repro.fed.flconfig.FLConfig``, so one spec file drives either package.
 Registry-keyed fields are checked against the PORT's registries
 (``repro_torch.fed.registry``); a key the port has not ported yet fails
-with the usual "unknown ...; registered: [...]" error. Knobs whose
-features are not ported yet (hierarchical ``tiers``, checkpointing,
-``model_sharding="auto"``) are rejected here for the same reason: they
-must not silently run something else.
+with the usual "unknown ...; registered: [...]" error.
+``model_sharding="auto"`` (multi-GPU) is not ported yet and is rejected
+here for the same reason: it must not silently run something else.
 
 This module stays import-light (no torch): registries are consulted
 lazily, which also lets ``repro_torch.configs`` import it without cycles.
@@ -41,7 +40,8 @@ class FLConfig:
     chunk_size: int = 16             # max clients per chunk
     mesh: Union[None, int, list] = None     # sharded scheduler (not ported)
     model_sharding: str = "replicate"
-    lbg_variant: str = "dense"       # registry key: dense | topk | null
+    lbg_variant: str = "dense"       # registry key: dense | topk |
+    #                                  topk-host | null
     lbg_kw: Optional[dict] = None    # e.g. {"k_frac": 0.1} for topk
     aggregator: str = "mean"         # registry key: mean | trimmed_mean |
     #   coordinate_median | geometric_median | scalar_median
@@ -68,8 +68,12 @@ class FLConfig:
     latency_kw: Optional[dict] = None      # e.g. {"frac": 0.2, "delay": 4};
     #   {"max_staleness": s} evicts payloads older than s rounds
     tiers: Union[None, list, dict] = None
-    ckpt_every: int = 0
-    ckpt_path: Optional[str] = None
+    # ^ hierarchical tiers (repro_torch.fed.hierarchy): [e] or [e, r]
+    #   edges (and regions), contiguous in client order, or
+    #   {"levels": [e, r], "assign": "shuffle"}; the global update stays
+    #   bit for bit the flat fold, and CommLedger attributes per-tier bytes
+    ckpt_every: int = 0              # checkpoint every N rounds; 0 = off
+    ckpt_path: Optional[str] = None  # .npz checkpoint path (run --resume)
 
     # ---------------------------------------------------------- validation
     def __post_init__(self):
@@ -150,16 +154,71 @@ class FLConfig:
                 bad("scheduler='buffered' runs the replicated chunked "
                     "layout; model_sharding="
                     f"{self.model_sharding!r} needs scheduler='sharded'")
+        # topk-host keeps the bank on the host and streams it chunk by
+        # chunk through the chunked scheduler's client-block layout; a dense
+        # error-feedback residual would put an O(K, M) tensor back on the
+        # device
+        if self.use_lbgm and self.resolved_lbg_variant == "topk-host":
+            if self.scheduler != "chunked":
+                bad("lbg_variant='topk-host' streams host-resident bank "
+                    "chunks through the chunked client-block layout — set "
+                    f"scheduler='chunked', got {self.scheduler!r}")
+            ef_on = self.error_feedback is True or (
+                self.error_feedback is None and self.compressor == "topk")
+            if ef_on:
+                bad("lbg_variant='topk-host' cannot run error feedback: "
+                    "the dense (K, M) residual bank would live on device "
+                    "and defeat out-of-core banks — set "
+                    "error_feedback=False or compressor='none'")
+            if self.fused_kernels is False:
+                bad("lbg_variant='topk-host' requires the sparse "
+                    "aggregation contract; fused_kernels=False selects "
+                    "the legacy dense fold — leave fused_kernels unset "
+                    "(auto) or True")
+        if self.tiers is not None:
+            levels, assign = self.tiers, "contiguous"
+            if isinstance(self.tiers, dict):
+                unknown = set(self.tiers) - {"levels", "assign"}
+                if unknown:
+                    bad(f"tiers dict keys {sorted(unknown)} unknown; "
+                        "valid keys: ['assign', 'levels']")
+                levels = self.tiers.get("levels")
+                assign = self.tiers.get("assign", "contiguous")
+            if assign not in ("contiguous", "shuffle"):
+                bad("tiers assign must be 'contiguous' or 'shuffle', "
+                    f"got {assign!r}")
+            if (not isinstance(levels, (list, tuple)) or
+                    not 1 <= len(levels) <= 2 or
+                    not all(int_ge1(n) for n in levels)):
+                bad("tiers levels must be [n_edges] or "
+                    "[n_edges, n_regions] with ints >= 1, got "
+                    f"{levels!r}")
+            levels = [int(n) for n in levels]
+            if levels[0] > self.num_clients:
+                bad(f"tiers asks for {levels[0]} edges but only "
+                    f"{self.num_clients} clients exist")
+            if len(levels) == 2 and levels[1] > levels[0]:
+                bad(f"tiers levels must descend edge -> region, got "
+                    f"{levels!r}")
+            # lists, so the form compares equal after a JSON round trip
+            if isinstance(self.tiers, dict):
+                object.__setattr__(
+                    self, "tiers", {"levels": levels, "assign": assign})
+            else:
+                object.__setattr__(self, "tiers", levels)
+            if self.scheduler == "sharded":
+                bad("tiers are not supported with scheduler='sharded': "
+                    "the hierarchical carry pytree has no mesh partition "
+                    "spec — use vmap/chunked/buffered")
         if self.ckpt_every < 0:
             bad(f"ckpt_every must be >= 0, got {self.ckpt_every}")
-        # features the port has not reached yet (see ROADMAP.md §1)
-        for name, on in (("model_sharding='auto'",
-                          self.model_sharding == "auto"),
-                         ("tiers", self.tiers is not None),
-                         ("ckpt_every > 0", self.ckpt_every > 0)):
-            if on:
-                bad(f"{name} is not ported to repro_torch yet; use the JAX "
-                    "package (repro) for it")
+        if self.ckpt_every > 0 and not self.ckpt_path:
+            bad(f"ckpt_every={self.ckpt_every} needs a ckpt_path to "
+                "write to")
+        # multi-GPU, not ported yet (see ROADMAP.md §1)
+        if self.model_sharding == "auto":
+            bad("model_sharding='auto' is not ported to repro_torch yet; "
+                "use the JAX package (repro) for it")
         from repro_torch.fed import registry as reg
         if self.scheduler not in reg.SCHEDULERS:
             bad(f"unknown scheduler {self.scheduler!r}; registered "

@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.fed.run --spec spec.json \
         --set fl.delta_threshold=0.4 --set model.name=cnn --rounds 20
 
-The same spec files and ``--set`` overrides as ``python -m repro.fed.run``.
+The same spec files and ``--set`` overrides as ``python -m repro.fed.run``,
+and its ``--resume`` (continue from the checkpoint at ``fl.ckpt_path``).
 Without ``--spec`` a small built-in spec runs (4-client FCN on the mixture
 dataset); ``--print-spec`` dumps the resolved spec as JSON without
 running. It runs on the CUDA card; ``--device cpu`` runs on the CPU
@@ -67,6 +68,11 @@ def main(argv: Optional[list] = None) -> int:
                     help="write the full result (records + spec) as JSON")
     ap.add_argument("--print-spec", action="store_true",
                     help="print the resolved spec as JSON and exit")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the checkpoint at fl.ckpt_path "
+                         "(requires fl.ckpt_every/fl.ckpt_path in the "
+                         "spec); the completed history is bit-for-bit "
+                         "the uninterrupted run's")
     args = ap.parse_args(argv)
 
     spec = (ExperimentSpec.load(args.spec) if args.spec else default_spec())
@@ -79,7 +85,7 @@ def main(argv: Optional[list] = None) -> int:
         print(spec.to_json())
         return 0
 
-    result = run_experiment(spec, device=args.device)
+    result = run_experiment(spec, device=args.device, resume=args.resume)
     last = result.records[-1]
     print(f"[{spec.name}] {result.rounds} rounds on {result.device} in "
           f"{result.duration_s:.2f}s "

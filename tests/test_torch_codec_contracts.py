@@ -3,10 +3,11 @@
 The contract tests of ``tests/test_wire.py`` (byte oracles, the >= 3x
 int8 byte cut, 1-byte scalar rounds, the lossy-codec guard, no seeds
 drawn by a deterministic codec) run on the port. Stochastic rounding
-cannot replay the JAX package's threefry uniforms, so the stochastic
-codecs are held to statistics: the same history from the same spec
-twice, and an unbiased round-1 aggregate whose noise is the size of the
-JAX package's.
+replays the JAX package's threefry uniforms bit for bit (the engine
+histories are held against the JAX package's in
+``test_torch_codec_engine.py``); here the stochastic codecs are also held
+to statistics: the same history from the same spec twice, and an
+unbiased round-1 aggregate whose noise is the size of the JAX package's.
 """
 import numpy as np
 import pytest

@@ -63,7 +63,8 @@ def test_fig7_spec_through_both_clis(tmp_path, monkeypatch):
     p0 = {k: np.asarray(v) for k, v in jeng.params.items()}
     real = trun.run_experiment
     monkeypatch.setattr(trun, "run_experiment",
-                        lambda s, device: real(s, device=device, params=p0))
+                        lambda s, device, **kw: real(s, device=device,
+                                                     params=p0, **kw))
     assert jrun.main(argv + ["--out", str(tmp_path / "j.json")]) == 0
     assert trun.main(argv + ["--device", "cpu",
                              "--out", str(tmp_path / "t.json")]) == 0

@@ -15,6 +15,12 @@ match exactly. Loss rtol 1e-5; final params rtol 1e-4 / atol 1e-6 (five
 rounds of fp32 SGD with sums in other orders). No client's sin^2 may lie
 within 1e-5 of delta, so a float-level difference cannot flip a decision
 and fail the exact checks for no real reason.
+
+The paper CNN (``cnn-*`` cases, dense and top-k at delta 0.7) is held at
+its own floor instead: twice what a one-ulp nudge of the port's own
+initial params moves the port's history (``CNN_TOL``). Its convolutions
+sum in other orders than XLA's, and five rounds of fp32 SGD carry that as
+far as the nudge does; the exact fields and the sin² margin still hold.
 """
 import numpy as np
 import pytest
@@ -48,14 +54,25 @@ CASES = {
     "chunked-topk-pad": dict(TOPK, num_clients=7, scheduler="chunked",
                              chunk_size=4, fused_kernels=True),
     "vmap-null": dict(use_lbgm=False),
+    "cnn-vmap-dense": dict(model="cnn"),
+    "cnn-vmap-topk": dict(TOPK, model="cnn"),
 }
 
+#: the CNN's floor, per store: (loss rtol, params max-abs error over the
+#: leaf's max-abs), twice what a one-ulp nudge of the port's initial
+#: params moved the port's 5 rounds, the larger of two measurements
+#: (nudged towards -inf: 8.5e-5 / 2.1e-3 dense, 9.9e-4 / 2.8e-2 top-k;
+#: towards +inf: 9.5e-5 / 1.4e-3 and 3.4e-4 / 2.7e-2). The port against
+#: JAX measured 3.7e-5 / 1.5e-3 dense and 1.2e-3 / 3.4e-2 top-k
+CNN_TOL = {"dense": (2 * 9.5e-5, 2 * 2.1e-3),
+           "topk": (2 * 9.9e-4, 2 * 2.8e-2)}
 
-def fig5_spec(**fl):
+
+def fig5_spec(model="fcn", **fl):
     base = dict(num_clients=20, tau=2, lr=0.05, batch_size=16, seed=0,
                 delta_threshold=0.2)
     base.update(fl)
-    return {"name": "fig5", "model": {"name": "fcn", "kw": {}},
+    return {"name": "fig5", "model": {"name": model, "kw": {}},
             "data": {"name": "mixture",
                      "kw": {"n": 2000, "n_eval": 500, "seed": 0}},
             "partition": {"name": "label_skew",
@@ -75,6 +92,9 @@ def test_fig5_parity(case):
     assert teng._sparse_agg == jeng._sparse_agg
     if case.endswith("pad"):
         assert teng._pad > 0
+    cnn = CNN_TOL.get(case.rsplit("-", 1)[-1]) \
+        if case.startswith("cnn") else None
+    loss_rtol = cnn[0] if cnn else 1e-5
     jh = jeng.run(5)
     th = teng.run(5)
     assert len(th) == len(jh) == 5
@@ -82,7 +102,7 @@ def test_fig5_parity(case):
     for r, (a, b) in enumerate(zip(jh, th)):
         for k in EXACT:
             assert a[k] == b[k], (case, r, k, a[k], b[k])
-        np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-5,
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=loss_rtol,
                                    err_msg=f"{case} round {r}")
     if teng.cfg.use_lbgm:
         margin = min(float(np.min(np.abs(s - delta)))
@@ -92,8 +112,12 @@ def test_fig5_parity(case):
     if case != "vmap-null":
         assert max(scalar) > 0, f"{case}: no recycle round to test"
     for k, v in jeng.params.items():
-        np.testing.assert_allclose(teng.params[k].numpy(), np.asarray(v),
-                                   rtol=1e-4, atol=1e-6, err_msg=k)
+        t, j = teng.params[k].numpy(), np.asarray(v)
+        if cnn:
+            assert np.abs(t - j).max() <= cnn[1] * np.abs(j).max(), k
+        else:
+            np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
 
 
 def test_run_experiment_matches_engine_history():

@@ -48,9 +48,16 @@ from repro_torch.kernels import ref  # noqa: E402
 class _StubEngine:
     """What ``RoundPrefetcher`` calls on an engine: numbered rounds."""
     _copy_stream = None
+    _host_bank = False
 
     def __init__(self):
         self.rounds = 0
+
+    def _capture_host_state(self, rng):
+        return None
+
+    def _restore_host_state(self, host, rng):
+        pass
 
     def _sample_batches(self, rng):
         self.rounds += 1

@@ -44,7 +44,7 @@ def test_scan_covers_the_port():
         "core/device.py", "core/jax_prng.py", "launch/train.py",
         "checkpoint/ckpt.py", "optim/sgd.py", "data/synthetic.py",
         "optim/adam.py", "optim/schedules.py", "fed/robust.py",
-        "fed/attacks.py", "fed/latency.py")} \
+        "fed/attacks.py", "fed/latency.py", "fed/hierarchy.py")} \
         | {"chip_smoke.py"} <= names
 
 
@@ -66,7 +66,8 @@ def test_importing_the_entry_points_loads_neither_jax_nor_repro():
             "repro_torch.train.trainer, repro_torch.models.transformer, "
             "repro_torch.configs.qwen3_1_7b, repro_torch.configs.rwkv6_3b, "
             "repro_torch.fed.robust, repro_torch.fed.attacks, "
-            "repro_torch.fed.latency, repro_torch.optim\n"
+            "repro_torch.fed.latency, repro_torch.fed.hierarchy, "
+            "repro_torch.optim\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad); sys.exit(1 if bad else 0)")

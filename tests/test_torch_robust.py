@@ -50,6 +50,27 @@ EXACT = ("uplink_floats", "frac_scalar", "wire_bytes", "savings",
          "total_uplink", "vanilla_uplink", "total_wire_bytes",
          "wire_savings")
 TOPK = {"lbg_variant": "topk", "lbg_kw": {"k_frac": 0.1}}
+#: behind the stochastic int8/fp8 wire a float-level difference in a value
+#: moves it across a rounding tie now and then (the uniforms are the JAX
+#: package's, bit for bit): at most TIE_FRACTION of a leaf's elements may
+#: sit off the params tolerance, each by at most TIE_ATOL, the rule of
+#: ``test_torch_fl_lm.py`` (measured: 4 of fc1/w's 100,352 elements, by up
+#: to 3.8e-5, in ``quantized_lbgm.json``'s 5 rounds; 6 by up to 2.1e-5 in
+#: ``test_torch_host_bank.py``'s int8 case)
+TIE_FRACTION = 1e-3
+TIE_ATOL = 1e-3
+
+
+def assert_params_close(t, j, msg, ties=False):
+    """Params within rtol 1e-4 / atol 1e-6; with ``ties``, by the
+    TIE_FRACTION rule."""
+    if not ties:
+        np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-6, err_msg=msg)
+        return
+    diff = np.abs(t - j)
+    off = diff > 1e-6 + 1e-4 * np.abs(j)
+    assert off.sum() <= TIE_FRACTION * off.size, (msg, int(off.sum()))
+    assert diff[off].max(initial=0.0) <= TIE_ATOL, (msg, diff[off].max())
 
 
 # ------------------------------------------------------------- the rules
@@ -278,8 +299,10 @@ def engines(d):
     return jeng, teng
 
 
-def assert_runs_agree(case, jeng, teng, jh, th, recycle=True):
-    """Every check of the module docstring over two engines' histories."""
+def assert_runs_agree(case, jeng, teng, jh, th, recycle=True, ties=False):
+    """Every check of the module docstring over two engines' histories;
+    ``ties`` holds the params by the TIE_FRACTION rule (a stochastic
+    wire)."""
     assert len(jh) == len(th)
     for r, (a, b) in enumerate(zip(jh, th)):
         assert set(a) == set(b), (case, r)
@@ -293,9 +316,8 @@ def assert_runs_agree(case, jeng, teng, jh, th, recycle=True):
         getattr(jeng, "n_delivered", None), case
     assert teng.ledger.summary() == jeng.ledger.summary(), case
     for k, v in jeng.params.items():
-        np.testing.assert_allclose(teng.params[k].numpy(), np.asarray(v),
-                                   rtol=1e-4, atol=1e-6,
-                                   err_msg=f"{case} {k}")
+        assert_params_close(teng.params[k].numpy(), np.asarray(v),
+                            f"{case} {k}", ties)
     if teng.cfg.use_lbgm:
         delta = teng.cfg.delta_threshold
         margin = min(float(np.min(np.abs(s - delta)))

@@ -3,7 +3,9 @@
 An ``ExperimentSpec`` JSON round-trips in both packages to equal
 ``FLConfig`` dicts; the ported keys (codecs, compressors, robust rules,
 attacks, the buffered scheduler and its latency models, dropout) are
-accepted with the same JSON form, and the port's ``FLConfig`` rejects every
+accepted with the same JSON form (and the tiers, checkpoint and
+``"topk-host"`` keys, with ``examples/specs/hier_100k.json``), and the
+port's ``FLConfig`` rejects every
 registry key and knob it has not ported with the reference's "unknown
 ...; registered: [...]" error (or a "not ported" error for non-registry
 knobs), instead of running something else.
@@ -68,10 +70,6 @@ def test_flconfig_fields_and_defaults_match():
 @pytest.mark.parametrize("kw,word", [
     (dict(scheduler="sharded"), "unknown scheduler"),
     (dict(lbg_variant="topk-sharded"), "unknown lbg_variant"),
-    (dict(lbg_variant="topk-host", scheduler="chunked"),
-     "unknown lbg_variant"),
-    (dict(tiers=[2]), "not ported"),
-    (dict(ckpt_every=2, ckpt_path="x.npz"), "not ported"),
 ])
 def test_unported_keys_raise(kw, word):
     JFL(**kw)  # valid in the reference
@@ -93,14 +91,31 @@ def test_unported_keys_raise(kw, word):
     dict(scheduler="buffered", lbg_variant="topk"),
     dict(latency="fixed", scheduler="buffered", lbg_variant="topk"),
     dict(dropout_frac=0.1),
+    dict(lbg_variant="topk-host", scheduler="chunked"),
+    dict(tiers=[2]),
+    dict(ckpt_every=2, ckpt_path="x.npz"),
 ])
 def test_ported_robust_attack_buffered_keys_accepted(kw):
     """The robust rules, the attacks, the buffered scheduler with its
-    latency models and dropout are ported: both packages accept them with
-    the same JSON form."""
+    latency models and dropout, the ``"topk-host"`` store, tiers and
+    checkpoints are ported: both packages accept them with the same JSON
+    form."""
     j, t = JFL(**kw), TFL(**kw)
     assert j.to_dict() == t.to_dict()
     assert TFL.from_dict(json.loads(json.dumps(t.to_dict()))) == t
+
+
+@pytest.mark.parametrize("name", ["hier_100k", "quantized_lbgm",
+                                  "async_buffered", "robust_signflip_gm"])
+def test_example_spec_loads_and_roundtrips(name):
+    """An example spec loads in both packages to the same dict, and the
+    port's JSON form loads back to an equal spec."""
+    path = Path(__file__).resolve().parents[1] / "examples" / "specs" / \
+        f"{name}.json"
+    js, ts = jexp.ExperimentSpec.load(str(path)), \
+        texp.ExperimentSpec.load(str(path))
+    assert js.to_dict() == ts.to_dict()
+    assert texp.ExperimentSpec.from_json(ts.to_json()) == ts
 
 
 @pytest.mark.parametrize("kw", [

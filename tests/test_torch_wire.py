@@ -9,11 +9,13 @@ except where the JAX package's ``log2`` is off: for m = qmax * 2^k at some
 k, XLA's CPU ``log2`` lands above k and the JAX package picks 2^(k+1);
 :func:`test_pow2_scale_jax_log2_caveat` pins those inputs.
 
-The port's stochastic uniforms come from a counter-based hash, not from
-``jax.random``, so they are held to statistics instead: mean and
-variance, unbiased rounding, the error bounds of ``tests/test_wire.py``,
-idempotency on grid values for every seed, and the same uniforms from
-the same seed.
+The stochastic codecs draw the JAX package's uniforms bit for bit:
+``core.jax_prng.uniform_rows`` equals ``jax.random.uniform(fold_in(
+PRNGKey(seed), leaf), (n,))`` for every seed, leaf and length (pieces
+shorter than a row too), and the stochastic encoders equal the JAX
+package's per client. They are also held to statistics: unbiased
+rounding, the error bounds of ``tests/test_wire.py``, idempotency on grid
+values for every seed.
 """
 import numpy as np
 import pytest
@@ -24,10 +26,12 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
-
 from repro.comm import wire as jw  # noqa: E402
 from repro.core.lbgm import LBGMStats as JStats  # noqa: E402
+import jax  # noqa: E402
+
 from repro_torch.comm import wire as tw  # noqa: E402
+from repro_torch.core import jax_prng as jp  # noqa: E402
 from repro_torch.core.lbgm import LBGMStats as TStats  # noqa: E402
 
 CODECS = {"int8": (jw.Int8Codec, tw.Int8Codec, 127.0),
@@ -193,6 +197,17 @@ def test_encoders_match_jax_nearest(codec):
     """``encode_sparse`` (payload, bank, e4m3 rho, wire bytes) and
     ``encode_dense`` equal the JAX package's per client, rounding to
     nearest."""
+    _encoders_match_jax(codec, stochastic=False)
+
+
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_encoders_match_jax_stochastic(codec):
+    """The same, rounding stochastically from per-client seeds: leaf i of
+    client c draws ``jax.random.uniform(fold_in(PRNGKey(seed_c), i))``."""
+    _encoders_match_jax(codec, stochastic=True)
+
+
+def _encoders_match_jax(codec, stochastic):
     jcls, tcls, _ = CODECS[codec]
     rng = np.random.RandomState(5)
     C, names = 4, {"a/w": (16, 9), "b/b": (1, 3)}
@@ -203,7 +218,10 @@ def test_encoders_match_jax_nearest(codec):
     lidx = {n: np.roll(i, 1, axis=0) for n, i in idx.items()}
     gscale = (rng.randn(C) * 3).astype(np.float32)
     scalar = np.array([True, False, True, False])
-    tc, jc = tcls(stochastic=False), jcls(stochastic=False)
+    seeds = np.array([0, 17, 2 ** 31 - 2, 123456789], np.int64)
+    tseed = torch.from_numpy(seeds) if stochastic else None
+    jseed = [np.uint32(s) if stochastic else None for s in seeds]
+    tc, jc = tcls(stochastic=stochastic), jcls(stochastic=stochastic)
     t_send = {n: {"idx": torch.from_numpy(idx[n]),
                   "val": torch.from_numpy(val[n])} for n in names}
     t_lbg = {n: {"idx": torch.from_numpy(lidx[n]),
@@ -213,7 +231,7 @@ def test_encoders_match_jax_nearest(codec):
                     sent_scalar=torch.from_numpy(scalar), uplink_floats=z,
                     grad_sq_norm=z)
     (send2, gs2), lbg2, wire = tc.encode_sparse(
-        (t_send, torch.from_numpy(gscale)), t_lbg, tstats, None)
+        (t_send, torch.from_numpy(gscale)), t_lbg, tstats, tseed)
     for c in range(C):
         js = JStats(sin2=0.0, rho=gscale[c], sent_scalar=scalar[c],
                     uplink_floats=0.0, grad_sq_norm=0.0)
@@ -221,7 +239,7 @@ def test_encoders_match_jax_nearest(codec):
             ({n: {"idx": jnp.asarray(idx[n][c]), "val": jnp.asarray(
                 val[n][c])} for n in names}, jnp.asarray(gscale[c])),
             {n: {"idx": jnp.asarray(lidx[n][c]), "val": jnp.asarray(
-                val[n][c])} for n in names}, js, None)
+                val[n][c])} for n in names}, js, jseed[c])
         assert float(wire[c]) == float(jwire)
         assert float(gs2[c]) == float(jgs)
         for n in names:
@@ -232,10 +250,11 @@ def test_encoders_match_jax_nearest(codec):
                 np.testing.assert_array_equal(lbg2[n][k][c].numpy(),
                                               np.asarray(jlbg[n][k]))
     dense = {n: torch.from_numpy(v.reshape(C, -1)) for n, v in val.items()}
-    out, dwire = tc.encode_dense(dense, torch.ones(C), None)
+    out, dwire = tc.encode_dense(dense, torch.ones(C), tseed)
     for c in range(C):
         jout, jdw = jc.encode_dense(
-            {n: jnp.asarray(v[c]) for n, v in dense.items()}, 1.0, None)
+            {n: jnp.asarray(v[c]) for n, v in dense.items()}, 1.0,
+            jseed[c])
         assert float(dwire[c]) == float(jdw)
         for n in names:
             np.testing.assert_array_equal(out[n][c].numpy(),
@@ -258,39 +277,62 @@ def test_lossless_codecs_leave_payload_and_price_bytes():
             wire.numpy(), np.where([False, True, False], scalar, full))
 
 
-# ------------------------------------------------ stochastic (hash) path
+# ------------------------------------------ stochastic (JAX uniform) path
 
 
-def test_hash_uniform_statistics_and_reproducibility():
-    seed = torch.tensor([0, 1, 12345, 2 ** 31 - 2])
-    u = tw.hash_uniform(seed, 3, (40, 1000))
-    assert u.shape == (4, 40, 1000) and u.dtype == torch.float32
+UNIFORM_SEEDS = np.array([0, 1, 12345, 2 ** 31 - 2], np.int64)
+
+
+@pytest.mark.parametrize("n,leaf", [(1, 0), (7, 3), (1000, 1), (4097, 2),
+                                    (70001, 5)])
+def test_uniform_rows_equals_jax_uniform(n, leaf, monkeypatch):
+    """Row c of ``uniform_rows(fold_in_t(prng_key_t(seed), leaf), n)`` is
+    ``jax.random.uniform(fold_in(PRNGKey(seed_c), leaf), (n,))`` bit for
+    bit, drawn in pieces shorter than a row (``_PIECE``), and equals the
+    NumPy replay ``jax_prng.uniform``."""
+    monkeypatch.setattr(jp, "_PIECE", 4096)
+    key = jp.fold_in_t(jp.prng_key_t(torch.from_numpy(UNIFORM_SEEDS)), leaf)
+    u = jp.uniform_rows(key, n)
+    assert u.dtype == torch.float32 and tuple(u.shape) == (4, n)
+    for c, s in enumerate(UNIFORM_SEEDS):
+        k = jax.random.fold_in(jax.random.PRNGKey(np.uint32(s)), leaf)
+        ju = np.asarray(jax.random.uniform(k, (n,), jnp.float32))
+        np.testing.assert_array_equal(u[c].numpy(), ju)
+        np.testing.assert_array_equal(
+            jp.uniform(jp.fold_in(jp.prng_key(int(s)), leaf), (n,)), ju)
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
-    x = u.double()
-    n = x.numel()
-    assert abs(float(x.mean()) - 0.5) < 5 * (1 / 12 / n) ** 0.5
-    assert abs(float(x.var()) - 1 / 12) < 5 * (1 / 180 / n) ** 0.5
-    for c in range(4):                    # each client's stream alone
-        assert abs(float(x[c].mean()) - 0.5) < 5 * (1 / 12 / (n / 4)) ** 0.5
-    # the values are a function of (seed, leaf, position) and nothing else
-    assert torch.equal(u, tw.hash_uniform(seed.clone(), 3, (40, 1000)))
-    assert torch.equal(u[2:3], tw.hash_uniform(seed[2:3], 3, (40, 1000)))
-    assert not torch.equal(u, tw.hash_uniform(seed, 4, (40, 1000)))
-    # neighbouring positions, leaves and seeds are uncorrelated
-    flat = x.reshape(4, -1)
-    for a, b in ((flat[:, :-1], flat[:, 1:]), (flat[0], flat[1]),
-                 (x[0].reshape(-1),
-                  tw.hash_uniform(seed[:1], 4, (40, 1000)).double()
-                  .reshape(-1))):
-        r = np.corrcoef(a.reshape(-1).numpy(), b.reshape(-1).numpy())[0, 1]
-        assert abs(r) < 5 / (a.numel() ** 0.5), r
+
+
+def test_codec_rounds_with_the_leaf_keyed_jax_uniforms():
+    """``_round`` draws leaf i's uniforms from ``fold_in(PRNGKey(seed),
+    i)`` over the (rows, cols) payload, row-major, as JAX's
+    ``uniform(key, f.shape)``: rounding against those uniforms by hand
+    gives the codec's grid values."""
+    rng = np.random.RandomState(3)
+    f = torch.from_numpy((rng.randn(4, 5, 9) * 20).astype(np.float32))
+    seed = torch.from_numpy(UNIFORM_SEEDS)
+    for leaf in (0, 2):
+        got = tw.Int8Codec()._round(f, seed, leaf)
+        for c, s in enumerate(UNIFORM_SEEDS):
+            k = jax.random.fold_in(jax.random.PRNGKey(np.uint32(s)), leaf)
+            u = np.asarray(jax.random.uniform(k, (5, 9), jnp.float32))
+            want = np.asarray(jw.stochastic_round(jnp.asarray(f[c].numpy()),
+                                                  jnp.asarray(u)))
+            np.testing.assert_array_equal(got[c].numpy(), want)
+
+
+def _uniforms(seeds, leaf, shape):
+    """The codecs' (C, rows, cols) uniforms of ``seeds`` at ``leaf``."""
+    u = jp.uniform_rows(jp.fold_in_t(jp.prng_key_t(seeds), leaf),
+                        shape[0] * shape[1])
+    return u.reshape(seeds.shape[0], *shape)
 
 
 def test_stochastic_round_with_hash_uniforms_is_unbiased():
     rng = np.random.RandomState(7)
     f = torch.from_numpy((rng.randn(1, 1, 64) * 7).astype(np.float32))
     seeds = torch.arange(4000)
-    u = tw.hash_uniform(seeds, 0, (1, 64))
+    u = _uniforms(seeds, 0, (1, 64))
     q = tw.stochastic_round(f.expand(4000, 1, 64), u)
     assert torch.equal(q, torch.floor(q))
     frac = (f - torch.floor(f)).double()
@@ -299,7 +341,7 @@ def test_stochastic_round_with_hash_uniforms_is_unbiased():
                  < 5 * sigma + 1e-6).all())
     ints = torch.arange(-5.0, 6.0).reshape(1, 1, 11)
     assert torch.equal(tw.stochastic_round(
-        ints.expand(4000, 1, 11), tw.hash_uniform(seeds, 1, (1, 11))),
+        ints.expand(4000, 1, 11), _uniforms(seeds, 1, (1, 11))),
         ints.expand(4000, 1, 11))
 
 
