@@ -1,13 +1,14 @@
 """Configuration types of the PyTorch port.
 
-``ArchConfig`` keeps the fields of ``repro.configs.base.ArchConfig`` that
-the port runs, with the same defaults: the paper's FCN and CNN, and the
-decoder LMs whose blocks are global attention (``attn``), sliding-window
-attention (``swa``) or RWKV6 (``rwkv6``). The fields of the families the
-port does not run yet (MoE, M-RoPE, vision tokens, encoder-decoder) are
-kept so that such a config is refused by name. ``LBGMConfig`` is the
-arch-side view of :class:`repro_torch.fed.flconfig.FLConfig`, whose shared
-defaults it reads so the two cannot drift.
+``ArchConfig`` keeps the fields of ``repro.configs.base.ArchConfig``, with
+the same defaults, for every family of the JAX package: the paper's FCN
+and CNN, and the LMs whose blocks are global attention (``attn``),
+sliding-window attention (``swa``), RWKV6 (``rwkv6``) or RG-LRU
+(``rglru``), with a dense or MoE FFN, M-RoPE and vision tokens (qwen2-vl)
+or an encoder (whisper). The JAX package's ``unroll`` (a knob of its XLA
+cost pass) has no counterpart. ``LBGMConfig`` is the arch-side view of
+:class:`repro_torch.fed.flconfig.FLConfig`, whose shared defaults it reads
+so the two cannot drift.
 """
 from __future__ import annotations
 
@@ -18,14 +19,6 @@ from typing import Tuple
 from repro_torch.fed.flconfig import FLConfig
 
 _FL_DEFAULTS = {f.name: f.default for f in dataclasses.fields(FLConfig)}
-
-
-#: block kinds the port runs; the others (``rglru``) come with a later slice
-PORTED_BLOCKS = ("attn", "swa", "rwkv6")
-LATER_SLICE = ("not ported yet: the port runs dense attn/swa and rwkv6 "
-               "decoders; MoE, rglru, M-RoPE/vision and encoder-decoder "
-               "models come with later slices of the port (ROADMAP §1, "
-               "the rest of the LM stack)")
 
 
 @dataclass(frozen=True)
@@ -55,7 +48,8 @@ class LBGMConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                  # fcn | cnn | dense | ssm
+    arch_type: str                  # fcn | cnn | dense | moe | ssm | hybrid
+                                    # | audio | vlm
     source: str
     n_layers: int = 2
     d_model: int = 512              # FCN hidden width / CNN base channels
@@ -66,13 +60,16 @@ class ArchConfig:
     head_dim: int = 0               # 0 => d_model // n_heads
     moe: MoEConfig = field(default_factory=MoEConfig)
     # block pattern: tuple cycled over layers; entries "attn" (global),
-    # "swa" (sliding-window attn), "rwkv6" ("rglru": a later slice)
+    # "swa" (sliding-window attn), "rwkv6", "rglru"
     block_pattern: Tuple[str, ...] = ("attn",)
     sliding_window: int = 8192      # used by "swa" blocks / long-context decode
     qk_norm: bool = False
-    mrope: bool = False
-    encdec: bool = False
-    vision_tokens: int = 0
+    mrope: bool = False             # qwen2-vl multimodal rotary
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    encdec: bool = False            # whisper-style encoder-decoder
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500         # whisper stub frame count
+    vision_tokens: int = 0          # qwen2-vl stub patch count (prepended)
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -82,19 +79,6 @@ class ArchConfig:
     lbgm: LBGMConfig = field(default_factory=LBGMConfig)
     # long-context decode policy: "swa" | "recurrent" | "skip" | "full"
     long_context: str = "swa"
-
-    def __post_init__(self):
-        unported = [k for k in self.block_pattern if k not in PORTED_BLOCKS]
-        what = ([f"moe.num_experts={self.moe.num_experts}"]
-                if self.moe.num_experts else []) \
-            + (["mrope"] if self.mrope else []) \
-            + (["encdec"] if self.encdec else []) \
-            + ([f"vision_tokens={self.vision_tokens}"]
-               if self.vision_tokens else []) \
-            + [f"block kind {k!r}" for k in unported]
-        if what:
-            raise ValueError(f"{self.name}: {', '.join(what)} "
-                             f"{LATER_SLICE}")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -115,11 +99,18 @@ class ArchConfig:
             d_ff=min(self.d_ff, 256),
             vocab_size=min(self.vocab_size, 512),
             sliding_window=min(self.sliding_window, 32),
+            encoder_seq=16 if self.encdec else self.encoder_seq,
+            n_encoder_layers=2 if self.encdec else 0,
+            vision_tokens=8 if self.vision_tokens else 0,
             dp_mode="replicated",
             remat=False,
             dtype="float32",
+            mrope_sections=(4, 6, 6) if self.mrope else self.mrope_sections,
             lbgm=dataclasses.replace(self.lbgm, num_clients=4),
         )
+        if self.moe.num_experts:
+            small["moe"] = dataclasses.replace(
+                self.moe, num_experts=min(self.moe.num_experts, 4))
         small.update(overrides)
         return dataclasses.replace(self, **small)
 
@@ -142,7 +133,9 @@ INPUT_SHAPES = {
 
 def param_count(cfg: ArchConfig) -> int:
     """Analytic parameter count (embeddings + blocks + head), the JAX
-    package's formula for the block kinds the port runs."""
+    package's formula term for term. Its rglru term (``4d + 2d^2 + 3d``)
+    counts fewer params than ``init_rglru`` draws (``5d^2 + 8d``); it is
+    kept as the reference writes it."""
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     hd = cfg.resolved_head_dim
     n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
@@ -156,6 +149,30 @@ def param_count(cfg: ArchConfig) -> int:
         elif kind == "rwkv6":
             # r,k,v,g,o projections + decay lora + mixing params
             total += 5 * d * d + 2 * d * 64 + 6 * d
-        total += 3 * d * ff
+        elif kind == "rglru":
+            # conv4 + input/gate projections + recurrent params
+            total += 4 * d + 2 * d * d + 3 * d
+        if cfg.moe.num_experts and kind in ("attn", "swa"):
+            total += cfg.moe.num_experts * 3 * d * ff + d * cfg.moe.num_experts
+        else:
+            total += 3 * d * ff
         total += 2 * d                  # norms
+    if cfg.encdec:
+        # encoder layers: self attn + ffn
+        total += cfg.n_encoder_layers * (
+            d * n_q * hd + 2 * d * n_kv * hd + n_q * hd * d + 3 * d * ff + 2 * d)
+        # decoder cross-attention
+        total += cfg.n_layers * (d * n_q * hd + 2 * d * n_kv * hd + n_q * hd * d + d)
     return total
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Params active per token (MoE: only top_k experts count)."""
+    if not cfg.moe.num_experts:
+        return param_count(cfg)
+    dense = param_count(cfg)
+    d, ff = cfg.d_model, cfg.d_ff
+    moe_layers = sum(1 for l in range(cfg.n_layers)
+                     if cfg.block_kind(l) in ("attn", "swa"))
+    inactive = moe_layers * (cfg.moe.num_experts - cfg.moe.top_k) * 3 * d * ff
+    return dense - inactive

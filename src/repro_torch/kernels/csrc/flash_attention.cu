@@ -27,7 +27,9 @@
 // reads kv head h / (Hq / Hkv); nothing is repeated in memory. Thread
 // (ty, tx) of a 16 x 16 grid owns query rows ty + 16 i (i < 4): it computes
 // the scores of key columns tx + 16 j (j < 4) with float4 loads along hd,
-// and accumulates output columns of its rows in registers. The 16 threads
+// and accumulates output columns of its rows in registers (hd / 16 a row:
+// 64 fp32 registers a thread at hd 256, where the q, k, v and p tiles take
+// 212 KB of shared memory, one CTA per SM). The 16 threads
 // of a row are one half warp, so the row max and row sum are shuffles.
 // Key tiles that lie wholly above the diagonal or before the window are
 // never visited; inside a visited tile a masked entry contributes p = 0
@@ -87,7 +89,8 @@ __global__ void __launch_bounds__(FA_THREADS)
   constexpr int CN = HD / 16;       // output columns per thread
   constexpr int VEC = CN >= 4 ? 4 : CN;
   constexpr int NV = CN / VEC;
-  static_assert(HD % 16 == 0 && CN % VEC == 0, "hd must be 32, 64 or 128");
+  static_assert(HD % 16 == 0 && CN % VEC == 0,
+                "hd must be 32, 64, 128 or 256");
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + FA_BQ * LD;
@@ -239,6 +242,7 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
                           int causal, int window, long long q_offset,
                           cudaStream_t s) {
   constexpr int bytes = fa_smem_bytes<HD>();
+  static_assert(bytes <= 227 * 1024, "the CTA's shared memory is 227 KB");
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
@@ -266,6 +270,9 @@ static cudaError_t dispatch_hd(int hd, const void* q, const void* k,
     case 128:
       return launch<T, 128>(q, k, v, o, B, Tq, Tk, Hq, Hkv, causal, window,
                             q_offset, s);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, Tq, Tk, Hq, Hkv, causal, window,
+                            q_offset, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -273,8 +280,8 @@ static cudaError_t dispatch_hd(int hd, const void* q, const void* k,
 
 // q: (B, Tq, Hq, hd); k, v: (B, Tk, Hkv, hd); o: (B, Tq, Hq, hd); all fp32
 // (bf16 runs flash_attention_sm90.cu's kernel), contiguous, 16-byte
-// aligned. hd in {32, 64, 128}; Hq a multiple of Hkv; window <= 0 means no
-// window. Returns a cudaError_t.
+// aligned. hd in {32, 64, 128, 256}; Hq a multiple of Hkv; window <= 0
+// means no window. Returns a cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Tq,
                                       int Tk, int Hq, int Hkv, int hd,

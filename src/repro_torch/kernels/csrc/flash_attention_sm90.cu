@@ -32,13 +32,14 @@
 //   one thread issues the TMA loads; setmaxnreg moves registers from the
 //   producer (24) to the consumers (240).
 // - K and V tiles of 64 keys sit in a 4-stage ring with full/empty
-//   mbarriers, so loads run up to three tiles ahead of the products.
+//   mbarriers, so loads run up to three tiles ahead of the products (2
+//   stages at hd 256, one tile ahead: shared memory holds no more).
 // - The tensor maps are 4-D over the contiguous (B, T, H, hd) tensors
 //   (dims hd, H, T, B; box COLS x 1 x rows x 1): a tail tile is zero-filled
 //   by the hardware and never reads the next batch's rows, and GQA is the
 //   kv-head coordinate h / (Hq / Hkv), so nothing is repeated in memory.
 //   The 128-byte swizzle (64-byte at hd 32) matches the wgmma descriptors;
-//   a row of hd 128 is two 64-column boxes.
+//   a row of hd 128 is two 64-column boxes, of hd 256 four.
 // - S = Q K^T is wgmma m64n64k16 with both operands in shared memory,
 //   K-major. The online softmax runs on the accumulator fragments, where a
 //   row is spread over 4 threads (two shuffles). The mask is evaluated
@@ -49,7 +50,8 @@
 // - O += P V: P's hi and lo halves are built in registers in the layout of
 //   wgmma's A operand, which for 16-bit types is S's accumulator layout,
 //   two fp32 to one bf16x2 register. V is B from shared memory, MN-major
-//   (the transpose bit); two wgmma m64n{hd}k16 per 16 keys.
+//   (the transpose bit); two wgmma m64n{hd}k16 per 16 keys (at hd 256,
+//   four m64n128k16: each half of V's columns into its half of O).
 // - Within a warpgroup the products of two tiles overlap the softmax:
 //   S_i = Q K_i^T and O += P_{i-1} V_{i-1} are issued together, and the
 //   softmax of S_i runs while the P.V product is still on the tensor
@@ -73,7 +75,6 @@ namespace {
 
 constexpr int BQ = 128;        // query rows per CTA
 constexpr int BK = 64;         // keys per tile
-constexpr int STAGES = 4;      // K/V ring depth
 constexpr int CONSUMERS = 2;   // consumer warpgroups, 64 query rows each
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr float NEG_INF = -1e30f;
@@ -85,11 +86,20 @@ struct Tile {
   static constexpr int NCHUNK = HD / COLS;        // boxes per row of hd
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;    // one of K, V
+  // K/V ring depth: 4 stages up to hd 128; at hd 256 the 64 KB Q tile and
+  // 4 stages of 2 x 32 KB would need 320 KB of the CTA's 227 KB, so 2
+  // (192 KB)
+  static constexpr int STAGES = HD > 128 ? 2 : 4;
+  // P.V as products of at most 128 output columns (wgmma's accumulator
+  // for n256 would be one 128-register fragment; two n128 halves keep the
+  // same registers in the same layout)
+  static constexpr int PV_N = HD > 128 ? 128 : HD;
   // wgmma descriptor layout code: 1 = 128-byte swizzle, 2 = 64-byte
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
   // Q, then K and V per stage; 1 KB to align the base to the swizzle
   // atom; the barriers
   static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024 + 64;
+  static_assert(SMEM <= 227 * 1024, "the CTA's shared memory is 227 KB");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -312,12 +322,17 @@ template <int HD>
 __device__ __forceinline__ void issue_pv(float* acc, const uint32_t* ph,
                                          const uint32_t* pl, uint32_t vd) {
   using C = Tile<HD>;
+  // the V columns of one product span PV_N / COLS boxes of BK rows
+  constexpr int HALF_BYTES = C::PV_N / C::COLS * BK * C::SW;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t dv =
-        smem_desc(vd + kk * 16 * C::SW, BK * C::SW, 8 * C::SW, C::LAYOUT);
-    wgmma_rs<HD>(acc, ph + 4 * kk, dv);
-    wgmma_rs<HD>(acc, pl + 4 * kk, dv);
+#pragma unroll
+    for (int n = 0; n < HD / C::PV_N; ++n) {
+      const uint64_t dv = smem_desc(vd + n * HALF_BYTES + kk * 16 * C::SW,
+                                    BK * C::SW, 8 * C::SW, C::LAYOUT);
+      wgmma_rs<C::PV_N>(acc + n * C::PV_N / 2, ph + 4 * kk, dv);
+      wgmma_rs<C::PV_N>(acc + n * C::PV_N / 2, pl + 4 * kk, dv);
+    }
   }
 }
 
@@ -411,9 +426,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t skv = sq + C::Q_BYTES;  // stage s: K, then V
-  const uint32_t bars = skv + STAGES * 2 * C::KV_BYTES;
+  const uint32_t bars = skv + C::STAGES * 2 * C::KV_BYTES;
   // full[s] at bars + 8 s, empty[s] after them, then Q's barrier
-  const uint32_t qbar = bars + 8u * 2 * STAGES;
+  const uint32_t qbar = bars + 8u * 2 * C::STAGES;
 
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, hk = h / (Hq / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tile first
@@ -428,9 +443,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int n_tiles = k_hi > kt0 ? (int)((k_hi - kt0 + BK - 1) / BK) : 0;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(bars + 8u * s, 1);
-      mbar_init(bars + 8u * (STAGES + s), CONSUMERS * 128);
+      mbar_init(bars + 8u * (C::STAGES + s), CONSUMERS * 128);
     }
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -446,10 +461,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int c = 0; c < C::NCHUNK; ++c)
         tma_load_4d(sq + c * BQ * C::SW, &tmq, qbar, c * C::COLS, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % STAGES;
-        // the stage's previous tile (i - STAGES) has been consumed
-        if (i >= STAGES)
-          mbar_wait(bars + 8u * (STAGES + s), (i / STAGES - 1) & 1);
+        const int s = i % C::STAGES;
+        // the stage's previous tile (i - C::STAGES) has been consumed
+        if (i >= C::STAGES)
+          mbar_wait(bars + 8u * (C::STAGES + s), (i / C::STAGES - 1) & 1);
         const uint32_t kd = skv + s * 2 * C::KV_BYTES, vd = kd + C::KV_BYTES;
         const uint32_t full = bars + 8u * s;
         const int kt = (int)(kt0 + (long long)i * BK);
@@ -508,9 +523,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 1; i < n_tiles; ++i) {
         // S_i = Q K_i^T and O += P_{i-1} V_{i-1}, then S_i's softmax while
         // the P.V product runs
-        const int s = i % STAGES, sp = (i + STAGES - 1) % STAGES;
+        const int s = i % C::STAGES, sp = (i + C::STAGES - 1) % C::STAGES;
         const long long kt = kt0 + (long long)i * BK;
-        mbar_wait(bars + 8u * s, (i / STAGES) & 1);
+        mbar_wait(bars + 8u * s, (i / C::STAGES) & 1);
         __syncwarp();
 #pragma unroll
         for (int j = 0; j < NS; ++j) sc[j] = 0.f;
@@ -536,7 +551,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         pin<NO>(acc);
         pin<BK / 4>(ph);
         pin<BK / 4>(pl);
-        mbar_arrive(bars + 8u * (STAGES + sp));  // stage sp is free
+        mbar_arrive(bars + 8u * (C::STAGES + sp));  // stage sp is free
         l0 = l0 * cr0 + rs0;
         l1 = l1 * cr1 + rs1;
 #pragma unroll
@@ -549,7 +564,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         split_p(sc, ph, pl);
       }
       {  // the last P.V alone
-        const int sp = (n_tiles - 1) % STAGES;
+        const int sp = (n_tiles - 1) % C::STAGES;
         pin<NO>(acc);
         pin<BK / 4>(ph);
         pin<BK / 4>(pl);
@@ -560,7 +575,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         pin<NO>(acc);
         pin<BK / 4>(ph);
         pin<BK / 4>(pl);
-        mbar_arrive(bars + 8u * (STAGES + sp));
+        mbar_arrive(bars + 8u * (C::STAGES + sp));
       }
     }
 
@@ -657,7 +672,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: (B, Tq, Hq, hd); k, v: (B, Tk, Hkv, hd); o: (B, Tq, Hq, hd); all bf16,
-// contiguous, 16-byte aligned. hd in {32, 64, 128}; Hq a multiple of Hkv;
+// contiguous, 16-byte aligned. hd in {32, 64, 128, 256}; Hq a multiple of
+// Hkv;
 // window <= 0 means no window. Returns a cudaError_t.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* o, int B,
@@ -677,6 +693,9 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                         q_offset, s);
     case 128:
       return launch<128>(q, k, v, o, B, Tq, Tk, Hq, Hkv, causal, window,
+                         q_offset, s);
+    case 256:
+      return launch<256>(q, k, v, o, B, Tq, Tk, Hq, Hkv, causal, window,
                          q_offset, s);
     default:
       return cudaErrorInvalidValue;

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 #: dtype -> (library under csrc/, C entry point) of the kernel that takes it
 KERNELS = {torch.bfloat16: ("flash_attention_sm90",
                             "flash_attention_sm90_launch"),

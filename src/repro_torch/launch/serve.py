@@ -9,7 +9,13 @@ The weights are drawn from ``--seed`` by a generator on that device, so
 the card and the CPU draw different weights from one seed. The prompt is
 the JAX driver's (``np.random.RandomState(seed)``), and the prompt is
 prefilled by repeated decode, as there, which runs the ring cache end to
-end.
+end. Every arch of ``repro_torch.configs`` serves (``--device cpu
+--reduced`` on the CPU, full width on the card where it fits). An
+encoder-decoder arch (whisper) decodes against stub frames from
+``models.frontends.make_stub_embeds``, drawn from ``--seed`` on the
+device and set as ``state["enc_out"]`` as the JAX serve script sets
+them: the stub itself, not the encoder's output over it (only prefill
+runs the encoder).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.models.frontends import make_stub_embeds
 from repro_torch.models.transformer import init_lm
 from repro_torch.serve.decode import init_decode_state, serve_step
 
@@ -41,15 +48,24 @@ def _sync(device):
 
 @torch.no_grad()
 def generate(params, cfg: ArchConfig, prompt, gen: int,
-             cache_len: int) -> Generation:
+             cache_len: int, enc_out=None) -> Generation:
     """Greedy decode of ``gen`` tokens after the (B, P) ``prompt``, on the
     params' device: the prompt runs through ``serve_step`` one token at a
     time, then each step feeds back the argmax of the last logits (the
-    lowest index among equal maxima, as ``jnp.argmax``)."""
+    lowest index among equal maxima, as ``jnp.argmax``). An
+    encoder-decoder arch needs ``enc_out`` (B, Te, d), which becomes
+    ``state["enc_out"]``: the JAX serve script passes the stub frames."""
     device = params["embed"].device
     prompt = torch.as_tensor(np.asarray(prompt), device=device)
     B, P = prompt.shape
     state, _ = init_decode_state(cfg, B, cache_len, device=device)
+    if cfg.encdec:
+        if enc_out is None:
+            raise ValueError(f"{cfg.name} decodes against encoder frames: "
+                             f"pass enc_out (B, {cfg.encoder_seq}, "
+                             f"{cfg.d_model})")
+        state["enc_out"] = enc_out.to(device=device,
+                                      dtype=state["enc_out"].dtype)
     _sync(device)
     t0 = time.perf_counter()
     for t in range(P):
@@ -88,10 +104,15 @@ def main(argv=None):
     dev = resolve_device(args.device)
     params, _ = init_lm(torch.Generator(device=dev).manual_seed(args.seed),
                         cfg, device=dev)
+    enc_out = None
+    if cfg.encdec:
+        enc_out = make_stub_embeds(
+            torch.Generator(device=dev).manual_seed(args.seed), cfg,
+            args.batch)
     rng = np.random.RandomState(args.seed)
     prompt = rng.randint(0, cfg.vocab_size,
                          size=(args.batch, args.prompt_len)).astype(np.int32)
-    res = generate(params, cfg, prompt, args.gen, args.cache_len)
+    res = generate(params, cfg, prompt, args.gen, args.cache_len, enc_out)
     gen = res.tokens.cpu().numpy()
     print("generated tokens:\n", gen)
     print(f"{args.gen} steps x batch {args.batch} on {dev}: "

@@ -1,4 +1,5 @@
-"""Attention: GQA, RoPE, causal + sliding-window, and the decode step.
+"""Attention: GQA, RoPE, M-RoPE, causal + sliding-window, and the decode
+step.
 
 Counterpart of ``repro.models.attention``. The full-sequence form,
 :func:`attention`, runs through the hand-written flash-attention kernel
@@ -31,6 +32,30 @@ def rope_rotate(x: torch.Tensor, positions: torch.Tensor,
     freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                           device=x.device) / hd))
     ang = positions[..., None].float() * freqs              # (B,T,hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_rotate(x: torch.Tensor, positions3: torch.Tensor, sections,
+                 theta: float) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): positions3 (3, B, T) for (t, h, w).
+
+    The hd/2 frequency slots are partitioned into ``sections`` groups; slot
+    group i uses positions3[i]. Where JAX picks each slot's stream by an
+    einsum against a one-hot, this indexes it (``repeat_interleave``): the
+    same numbers, since the one-hot sum adds exact zeros."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                          device=x.device) / hd))
+    sel = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(sections, device=x.device))        # (hd/2,) in {0,1,2}
+    pos = positions3.float()[sel].permute(1, 2, 0)         # (B, T, hd/2)
+    ang = pos * freqs
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

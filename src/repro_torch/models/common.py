@@ -16,6 +16,10 @@ import torch
 Params = Dict[str, torch.Tensor]
 Axes = Dict[str, Tuple[str, ...]]
 
+#: elements past which ``ParamStore`` draws a leaf slice by slice (2^31:
+#: only the stacked expert weights of the full-width MoE models pass it)
+SLICED_DRAW = 2 ** 31
+
 
 class ParamStore:
     """Collects params + logical axes during model init.
@@ -28,7 +32,12 @@ class ParamStore:
     draws are torch's, not ``jax.random``'s: to run both packages from
     identical weights, carry the JAX package's params across with
     :func:`params_from_numpy`. ``device="meta"`` makes shapes and dtypes
-    only, with no draw.
+    only, with no draw. A drawn leaf of more than :data:`SLICED_DRAW`
+    elements (the stacked expert weights of mixtral-8x22b and llama4) is
+    drawn in fp32 one slice of its leading axes at a time, each cast into
+    the leaf as it comes, so that the fp32 draw of the whole leaf (26 GB
+    for 8 of mixtral's layers) never exists; its numbers are those slices'
+    draws, not one draw of the whole shape.
     """
 
     def __init__(self, gen: torch.Generator, dtype=torch.float32,
@@ -49,8 +58,9 @@ class ParamStore:
             # fan-in scaled normal; last contraction dim heuristic
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             s = scale if scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
-            arr = torch.randn(shape, generator=self._gen,
-                              dtype=torch.float32, device=self._device) * s
+            arr = self._draw(shape, dtype, lambda sh: torch.randn(
+                sh, generator=self._gen, dtype=torch.float32,
+                device=self._device) * s)
         elif init == "zeros":
             arr = torch.zeros(shape, dtype=torch.float32, device=self._device)
         elif init == "ones":
@@ -58,14 +68,29 @@ class ParamStore:
         elif init == "uniform":
             # U(-s, s), as jax.random.uniform(minval=-s, maxval=s)
             s = scale if scale is not None else 1.0
-            arr = (torch.rand(shape, generator=self._gen, dtype=torch.float32,
-                              device=self._device) * 2 - 1) * s
+            arr = self._draw(shape, dtype, lambda sh: (torch.rand(
+                sh, generator=self._gen, dtype=torch.float32,
+                device=self._device) * 2 - 1) * s)
         else:
             raise ValueError(init)
         arr = arr.to(dtype)
         self.params[name] = arr
         self.axes[name] = tuple(axes)
         return arr
+
+    def _draw(self, shape, dtype, draw):
+        """``draw(shape)`` (fp32), or, past :data:`SLICED_DRAW` elements,
+        ``draw`` of each slice over the fewest leading axes whose slices
+        fit, cast into a leaf of ``dtype``."""
+        if int(np.prod(shape)) <= SLICED_DRAW or self._device.type == "meta":
+            return draw(shape)
+        k = next(i for i in range(1, len(shape))
+                 if int(np.prod(shape[i:])) <= SLICED_DRAW)
+        out = torch.empty(shape, dtype=dtype, device=self._device)
+        rows = out.view((-1,) + shape[k:])
+        for i in range(rows.shape[0]):
+            rows[i] = draw(shape[k:])
+        return out
 
 
 def _from_numpy(v) -> torch.Tensor:
@@ -114,3 +139,14 @@ def group_norm_heads(x: torch.Tensor, gamma: torch.Tensor,
     var = x32.var(-1, keepdim=True, correction=0)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * gamma.float()).to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int) -> torch.Tensor:
+    """(length, dim) fp32 sin/cos table (sin at even columns, cos at odd),
+    computed in float64 with numpy and rounded once, as in JAX."""
+    pos = np.arange(length)[:, None]
+    inv = np.exp(-np.log(10000.0) * (np.arange(0, dim, 2) / dim))[None, :]
+    tab = np.zeros((length, dim), np.float32)
+    tab[:, 0::2] = np.sin(pos * inv)
+    tab[:, 1::2] = np.cos(pos * inv)
+    return torch.from_numpy(tab)

@@ -1,15 +1,22 @@
-"""Decoder-LM assembly for the block kinds the port runs.
+"""Decoder-LM assembly covering every architecture family of the JAX
+package.
 
-Counterpart of ``repro.models.transformer`` for dense GQA decoders
-(``attn``/``swa`` blocks with a SwiGLU FFN: qwen3) and RWKV6 (``rwkv6``:
-rwkv6-3b). The params are the JAX package's flat dict, names and layouts
-unchanged: a homogeneous stack keeps its ``blocks/*`` leaves with a
-leading layer axis, and runs as a Python loop over layer slices where
-JAX runs ``lax.scan``; a mixed pattern has one ``layer_XX/*`` subtree per
-layer. MoE, RG-LRU, M-RoPE and encoder-decoder models are refused by
-:class:`repro_torch.configs.base.ArchConfig` itself. Training runs
-:func:`lm_loss` under autograd: blocks checkpointed per ``cfg.remat``, the
-CE chunked over T with each chunk checkpointed.
+Counterpart of ``repro.models.transformer``: dense GQA decoders
+(``attn``/``swa`` blocks: qwen3, yi, deepseek, mistral-large), MoE FFNs
+(mixtral, llama4), RWKV6 (``rwkv6``: rwkv6-3b), the hybrid RG-LRU + local
+attention pattern (``rglru``: recurrentgemma), the encoder-decoder
+backbone (whisper: ``enc_XX``/``dec_XX`` subtrees, a non-causal encoder
+over the stub frames with sinusoidal positions, cross-attention in every
+decoder block) and the early-fusion VLM backbone (qwen2-vl: M-RoPE, stub
+patches over the first token embeddings). The params are the JAX
+package's flat dict, names and layouts unchanged: a homogeneous stack
+(one block kind, no encoder) keeps its ``blocks/*`` leaves with a leading
+layer axis, and runs as a Python loop over layer slices where JAX runs
+``lax.scan``; a mixed pattern has one ``layer_XX/*`` subtree per layer.
+Every attention call (causal, windowed, the encoder's and the cross
+attention) runs the flash kernel through :func:`attention`. Training
+runs :func:`lm_loss` under autograd: blocks checkpointed per
+``cfg.remat``, the CE chunked over T with each chunk checkpointed.
 """
 from __future__ import annotations
 
@@ -20,27 +27,34 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv6_lib
-from repro_torch.models.attention import attention, rope_rotate
-from repro_torch.models.common import ParamStore, rms_norm, subtree, swiglu
+from repro_torch.models.attention import attention, mrope_rotate, rope_rotate
+from repro_torch.models.common import (ParamStore, rms_norm,
+                                       sinusoidal_positions, subtree, swiglu)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 # ------------------------------------------------------------------ init
 
-def _init_attn(store: ParamStore, prefix: str, cfg: ArchConfig, stack: int):
+def _init_attn(store: ParamStore, prefix: str, cfg: ArchConfig, stack: int,
+               cross: bool = False):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     lead = (stack,) if stack else ()
     lx = ("layers",) if stack else ()
-    store.param(f"{prefix}/wa_q", lead + (d, nq * hd), lx + ("embed", "heads"))
-    store.param(f"{prefix}/wa_k", lead + (d, nkv * hd),
+    tag = "x" if cross else "a"
+    store.param(f"{prefix}/w{tag}_q", lead + (d, nq * hd),
+                lx + ("embed", "heads"))
+    store.param(f"{prefix}/w{tag}_k", lead + (d, nkv * hd),
                 lx + ("embed", "kv_heads"))
-    store.param(f"{prefix}/wa_v", lead + (d, nkv * hd),
+    store.param(f"{prefix}/w{tag}_v", lead + (d, nkv * hd),
                 lx + ("embed", "kv_heads"))
-    store.param(f"{prefix}/wa_o", lead + (nq * hd, d), lx + ("heads", "embed"))
-    if cfg.qk_norm:
+    store.param(f"{prefix}/w{tag}_o", lead + (nq * hd, d),
+                lx + ("heads", "embed"))
+    if cfg.qk_norm and not cross:
         store.param(f"{prefix}/q_norm", lead + (hd,), lx + ("head_dim",),
                     init="ones")
         store.param(f"{prefix}/k_norm", lead + (hd,), lx + ("head_dim",),
@@ -48,6 +62,9 @@ def _init_attn(store: ParamStore, prefix: str, cfg: ArchConfig, stack: int):
 
 
 def _init_ffn(store: ParamStore, prefix: str, cfg: ArchConfig, stack: int):
+    if cfg.moe.num_experts:
+        moe_lib.init_moe(store, prefix + "/moe", cfg, stack)
+        return
     d, ff = cfg.d_model, cfg.d_ff
     lead = (stack,) if stack else ()
     lx = ("layers",) if stack else ()
@@ -57,7 +74,7 @@ def _init_ffn(store: ParamStore, prefix: str, cfg: ArchConfig, stack: int):
 
 
 def _init_block(store: ParamStore, prefix: str, cfg: ArchConfig, kind: str,
-                stack: int = 0):
+                stack: int = 0, cross: bool = False):
     d = cfg.d_model
     lead = (stack,) if stack else ()
     lx = ("layers",) if stack else ()
@@ -66,16 +83,22 @@ def _init_block(store: ParamStore, prefix: str, cfg: ArchConfig, kind: str,
         _init_attn(store, prefix, cfg, stack)
     elif kind == "rwkv6":
         rwkv6_lib.init_rwkv6(store, prefix + "/tmix", cfg, stack)
+    elif kind == "rglru":
+        rglru_lib.init_rglru(store, prefix + "/rec", cfg, stack)
     else:
         raise ValueError(kind)
+    if cross:
+        store.param(f"{prefix}/norm_x", lead + (d,), lx + ("embed",),
+                    init="ones")
+        _init_attn(store, prefix, cfg, stack, cross=True)
     store.param(f"{prefix}/norm2", lead + (d,), lx + ("embed",), init="ones")
     _init_ffn(store, prefix, cfg, stack)
 
 
 def uses_scan(cfg: ArchConfig) -> bool:
-    """A single-kind stack keeps stacked ``blocks/*`` leaves (JAX runs them
-    under ``lax.scan``)."""
-    return len(cfg.block_pattern) == 1
+    """A single-kind stack without an encoder keeps stacked ``blocks/*``
+    leaves (JAX runs them under ``lax.scan``)."""
+    return len(cfg.block_pattern) == 1 and not cfg.encdec
 
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig, device="cuda"):
@@ -87,7 +110,13 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, device="cuda"):
     store = ParamStore(gen, _DTYPES[cfg.dtype], device=dev if meta else None)
     d = cfg.d_model
     store.param("embed", (cfg.vocab_size, d), ("vocab", "embed"), scale=0.02)
-    if uses_scan(cfg):
+    if cfg.encdec:
+        for i in range(cfg.n_encoder_layers):
+            _init_block(store, f"enc_{i:02d}", cfg, "attn")
+        store.param("enc_norm", (d,), ("embed",), init="ones")
+        for i in range(cfg.n_layers):
+            _init_block(store, f"dec_{i:02d}", cfg, "attn", cross=True)
+    elif uses_scan(cfg):
         _init_block(store, "blocks", cfg, cfg.block_pattern[0],
                     stack=cfg.n_layers)
     else:
@@ -102,9 +131,13 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, device="cuda"):
 
 def layer_params(params: Dict[str, torch.Tensor], cfg: ArchConfig
                  ) -> Iterator[Tuple[str, Dict[str, torch.Tensor]]]:
-    """``(kind, block params)`` per layer, in order: slices of the stacked
-    ``blocks/*`` leaves, or the ``layer_XX`` subtrees."""
-    if uses_scan(cfg):
+    """``(kind, block params)`` per decoder layer, in order: slices of the
+    stacked ``blocks/*`` leaves, the ``layer_XX`` subtrees, or an
+    encoder-decoder's ``dec_XX`` subtrees (see :func:`encoder_params`)."""
+    if cfg.encdec:
+        for i in range(cfg.n_layers):
+            yield "attn", subtree(params, f"dec_{i:02d}")
+    elif uses_scan(cfg):
         # unbind: one autograd node per stacked leaf, whose backward stacks
         # the layers' gradients once (an index per layer would add a
         # zero-filled full-size gradient per layer)
@@ -119,7 +152,14 @@ def layer_params(params: Dict[str, torch.Tensor], cfg: ArchConfig
 
 # ------------------------------------------------------------------ fwd
 
-def _apply_attn_train(p, x, cfg: ArchConfig, kind: str, positions,
+def encoder_params(params: Dict[str, torch.Tensor], cfg: ArchConfig
+                   ) -> Iterator[Dict[str, torch.Tensor]]:
+    """An encoder-decoder's ``enc_XX`` subtrees, in order."""
+    for i in range(cfg.n_encoder_layers):
+        yield subtree(params, f"enc_{i:02d}")
+
+
+def _apply_attn_train(p, x, cfg: ArchConfig, kind: str, positions, pos3,
                       window_override=None):
     B, T, d = x.shape
     hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -129,50 +169,140 @@ def _apply_attn_train(p, x, cfg: ArchConfig, kind: str, positions,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rope_rotate(q, positions, cfg.rope_theta)
-    k = rope_rotate(k, positions, cfg.rope_theta)
+    if cfg.mrope and pos3 is not None:
+        q = mrope_rotate(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+        k = mrope_rotate(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = rope_rotate(q, positions, cfg.rope_theta)
+        k = rope_rotate(k, positions, cfg.rope_theta)
     window = window_override if window_override is not None else (
         cfg.sliding_window if kind == "swa" else None)
     o = attention(q, k, v, causal=True, window=window)
     return o.reshape(B, T, nq * hd) @ p["wa_o"]
 
 
+def _apply_self_attn_noncausal(p, x, cfg: ArchConfig):
+    """The encoder's self-attention: no positions rotated, no mask."""
+    B, T, d = x.shape
+    hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wa_q"]).reshape(B, T, nq, hd)
+    k = (x @ p["wa_k"]).reshape(B, T, nkv, hd)
+    v = (x @ p["wa_v"]).reshape(B, T, nkv, hd)
+    o = attention(q, k, v, causal=False)
+    return o.reshape(B, T, nq * hd) @ p["wa_o"]
+
+
+def _apply_cross_attn(p, x, enc_out, cfg: ArchConfig):
+    """Decoder queries (B,T,d) over the encoder's output (B,Te,d), with no
+    mask."""
+    B, T, d = x.shape
+    Te = enc_out.shape[1]
+    hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wx_q"]).reshape(B, T, nq, hd)
+    k = (enc_out @ p["wx_k"]).reshape(B, Te, nkv, hd)
+    v = (enc_out @ p["wx_v"]).reshape(B, Te, nkv, hd)
+    o = attention(q, k, v, causal=False)
+    return o.reshape(B, T, nq * hd) @ p["wx_o"]
+
+
 def _apply_ffn(p, x, cfg: ArchConfig):
-    """Dense SwiGLU. Returns (out, aux loss 0.0), JAX's signature."""
+    """The MoE FFN (its ``moe/*`` subtree) or the dense SwiGLU. Returns
+    (out, aux loss), JAX's signature (aux 0.0 for the dense FFN)."""
+    if cfg.moe.num_experts:
+        return moe_lib.apply_moe(subtree(p, "moe"), x, cfg)
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), 0.0
 
 
-def _apply_block_train(p, x, cfg: ArchConfig, kind: str, positions):
+def _apply_block_train(p, x, cfg: ArchConfig, kind: str, positions,
+                       pos3=None, enc_out=None, causal_attn=True):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind in ("attn", "swa"):
-        h = _apply_attn_train(p, h, cfg, kind, positions)
+        if causal_attn:
+            h = _apply_attn_train(p, h, cfg, kind, positions, pos3)
+        else:
+            h = _apply_self_attn_noncausal(p, h, cfg)
     elif kind == "rwkv6":
         h, _ = rwkv6_lib.apply_rwkv6(subtree(p, "tmix"), h, cfg)
+    elif kind == "rglru":
+        h, _ = rglru_lib.apply_rglru(subtree(p, "rec"), h, cfg)
     else:
         raise ValueError(kind)
     x = x + h
+    if enc_out is not None:
+        hx = rms_norm(x, p["norm_x"], cfg.norm_eps)
+        x = x + _apply_cross_attn(p, hx, enc_out, cfg)
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     h2, aux = _apply_ffn(p, h2, cfg)
     return x + h2, aux
 
 
+def build_mrope_positions(cfg: ArchConfig, B: int, T: int, device=None):
+    """(3, B, T) int64 positions: a vision grid of ``vision_tokens``
+    patches followed by sequential text positions (qwen2-vl style)."""
+    nv = cfg.vision_tokens
+    side = max(1, int(nv ** 0.5))
+    idx = torch.arange(T, device=device)
+    is_vis = idx < nv
+    text = idx - nv + side
+    pos3 = torch.stack([torch.where(is_vis, 0, text),
+                        torch.where(is_vis, idx // side, text),
+                        torch.where(is_vis, idx % side, text)])   # (3, T)
+    return pos3[:, None, :].expand(3, B, T)
+
+
+def _block(remat: bool, *args):
+    """One block, checkpointed when ``remat``."""
+    if remat:
+        return checkpoint(_apply_block_train, *args, use_reentrant=False)
+    return _apply_block_train(*args)
+
+
+def encode(params, cfg: ArchConfig, frames: torch.Tensor):
+    """An encoder-decoder's encoder: the stub frames (B, Te, d) plus
+    sinusoidal positions, through the non-causal ``enc_XX`` blocks and
+    ``enc_norm``. Returns (enc_out, aux)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    dt = params["embed"].dtype
+    e = frames.to(dt)
+    e = e + sinusoidal_positions(e.shape[1], cfg.d_model).to(
+        device=e.device, dtype=dt)
+    aux_total = 0.0
+    for p in encoder_params(params, cfg):
+        e, aux = _block(remat, p, e, cfg, "attn", None, None, None, False)
+        aux_total += aux
+    return rms_norm(e, params["enc_norm"], cfg.norm_eps), aux_total
+
+
 def forward_hidden(params: Dict[str, torch.Tensor], cfg: ArchConfig,
-                   tokens: torch.Tensor):
+                   tokens: torch.Tensor, extra_embeds=None):
     """Backbone forward to the final hidden states. tokens (B,T) ->
-    (hidden (B,T,d), aux loss). Under autograd with ``cfg.remat`` each
-    block is checkpointed (its activations recomputed in the backward), as
-    the JAX package's ``jax.checkpoint`` of the block."""
+    (hidden (B,T,d), aux loss).
+
+    ``extra_embeds``: modality-stub embeddings. audio (enc-dec): encoder
+    input frames (B, Te, d). vlm: patch embeddings (B, n_vis, d) that
+    *overwrite* the first n_vis token embeddings (early fusion). Under
+    autograd with ``cfg.remat`` each block is checkpointed (its
+    activations recomputed in the backward), as the JAX package's
+    ``jax.checkpoint`` of the block."""
     B, T = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    pos3 = None
+    if cfg.mrope:
+        pos3 = build_mrope_positions(cfg, B, T, device=x.device)
+        if extra_embeds is not None:
+            nv = extra_embeds.shape[1]
+            x = torch.cat([extra_embeds.to(x.dtype), x[:, nv:]], dim=1)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = 0.0
+    enc_out = None
+    if cfg.encdec:
+        if extra_embeds is None:
+            raise ValueError("enc-dec needs encoder frames (extra_embeds)")
+        enc_out, aux_total = encode(params, cfg, extra_embeds)
     for kind, p in layer_params(params, cfg):
-        if remat:
-            x, aux = checkpoint(_apply_block_train, p, x, cfg, kind,
-                                positions, use_reentrant=False)
-        else:
-            x, aux = _apply_block_train(p, x, cfg, kind, positions)
+        x, aux = _block(remat, p, x, cfg, kind, positions, pos3, enc_out,
+                        True)
         aux_total += aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux_total
@@ -182,15 +312,15 @@ def _head(params, cfg: ArchConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def forward(params, cfg: ArchConfig, tokens):
+def forward(params, cfg: ArchConfig, tokens, extra_embeds=None):
     """Full-logit forward (small models / tests). -> (logits (B,T,V), aux)."""
-    x, aux = forward_hidden(params, cfg, tokens)
+    x, aux = forward_hidden(params, cfg, tokens, extra_embeds)
     return x @ _head(params, cfg), aux
 
 
-def prefill_logits(params, cfg: ArchConfig, tokens):
+def prefill_logits(params, cfg: ArchConfig, tokens, extra_embeds=None):
     """Inference prefill: hidden for all positions, head for the last one."""
-    x, _ = forward_hidden(params, cfg, tokens)
+    x, _ = forward_hidden(params, cfg, tokens, extra_embeds)
     return x[:, -1] @ _head(params, cfg)
 
 
@@ -203,13 +333,15 @@ def _chunk_ce(xc, lc, head):
     return ((lse - ll) * mask).sum(), mask.sum()
 
 
-def lm_loss(params, cfg: ArchConfig, tokens, labels, ce_chunk: int = 512):
+def lm_loss(params, cfg: ArchConfig, tokens, labels, extra_embeds=None,
+            ce_chunk: int = 512):
     """Next-token CE with a *chunked* softmax over T so the (B,T,V) logits
     never exist at once: each chunk of ``ce_chunk`` positions is
     checkpointed (its logits recomputed in the backward). labels = next
-    tokens (caller-shifted); negative labels are masked. Returns (loss,
-    {"ce", "aux"})."""
-    x, aux = forward_hidden(params, cfg, tokens)
+    tokens (caller-shifted); negative labels are masked. Returns (ce +
+    aux, {"ce", "aux"}): aux is the MoE load-balance loss summed over the
+    blocks (0 for a dense FFN)."""
+    x, aux = forward_hidden(params, cfg, tokens, extra_embeds)
     head = _head(params, cfg)
     T = x.shape[1]
     c = min(ce_chunk, T)

@@ -51,7 +51,8 @@ def effective_clients(cfg: ArchConfig, dp_total: int,
 
 def make_loss_fn(cfg: ArchConfig):
     def loss_fn(params, batch):
-        return lm_loss(params, cfg, batch["tokens"], batch["labels"])
+        return lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                       batch.get("extra"))
     return loss_fn
 
 
@@ -205,7 +206,9 @@ def make_train_step(cfg: ArchConfig, num_clients: int, lr: float,
 
 def make_prefill_step(cfg: ArchConfig):
     """``step(params, batch) -> (B, V)`` last-position logits of
-    ``batch["tokens"]`` (B, T)."""
+    ``batch["tokens"]`` (B, T), with ``batch["extra"]`` (the stub frames
+    or patches of ``models.frontends``) where the arch takes them."""
     def step(params, batch):
-        return prefill_logits(params, cfg, batch["tokens"])
+        return prefill_logits(params, cfg, batch["tokens"],
+                              batch.get("extra"))
     return step

@@ -75,28 +75,39 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
     assert params["embed"].device.type == "cpu"
 
 
-#: the JAX package's arch configs the serving slice does not run, and why
-UNPORTED = {"mixtral-8x22b": "moe", "qwen2-vl-2b": "mrope",
-            "whisper-base": "encdec", "recurrentgemma-2b": "rglru"}
+#: every arch id of the JAX package's registry
+JAX_ARCHS = ["llama4-maverick-400b-a17b", "rwkv6-3b", "mistral-large-123b",
+             "qwen3-1.7b", "whisper-base", "recurrentgemma-2b",
+             "mixtral-8x22b", "qwen2-vl-2b", "yi-34b", "deepseek-67b",
+             "paper-cnn", "paper-fcn"]
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_configs_raise(arch):
-    """The port's ArchConfig refuses, by name, the families that come
-    with later slices: each JAX config, carried across field by field."""
+@pytest.mark.parametrize("arch", JAX_ARCHS)
+def test_jax_configs_carry_across(arch):
+    """The port's ArchConfig refuses no family: each JAX config, carried
+    across field by field (all but ``unroll``, a knob of the JAX cost
+    pass), is accepted, equals the port's ``get_config(arch)``, and has
+    the same ``param_count`` and ``reduced()``."""
     from repro.configs import get_config as jget
+    from repro.configs import active_param_count as jactive
+    from repro.configs import param_count as jparam_count
+    from repro_torch.configs import active_param_count, param_count
+    from repro_torch.configs.base import LBGMConfig
     jcfg = jget(arch)
-    kw = {f.name: getattr(jcfg, f.name)
-          for f in dataclasses.fields(ArchConfig)
-          if f.name not in ("moe", "lbgm")}
-    kw["moe"] = MoEConfig(**dataclasses.asdict(jcfg.moe))
-    with pytest.raises(ValueError, match="later slices") as err:
-        ArchConfig(**kw)
-    assert {"moe": "moe.num_experts", "mrope": "mrope", "encdec": "encdec",
-            "rglru": "'rglru'"}[UNPORTED[arch]] in str(err.value)
-    with pytest.raises(ValueError, match="later slices"):
-        dataclasses.replace(get_config("qwen3-1.7b"),
-                            block_pattern=("attn", "rglru"))
+    names = {f.name for f in dataclasses.fields(ArchConfig)}
+    assert names == {f.name for f in dataclasses.fields(jcfg)} - {"unroll"}
+
+    def carry(c):
+        kw = {n: getattr(c, n) for n in names if n not in ("moe", "lbgm")}
+        kw["moe"] = MoEConfig(**dataclasses.asdict(c.moe))
+        kw["lbgm"] = LBGMConfig(**dataclasses.asdict(c.lbgm))
+        return ArchConfig(**kw)
+    tcfg = get_config(arch)
+    assert carry(jcfg) == tcfg
+    assert param_count(tcfg) == jparam_count(jcfg)
+    assert active_param_count(tcfg) == jactive(jcfg)
+    assert carry(jcfg.reduced()) == tcfg.reduced()
+    assert param_count(tcfg.reduced()) == jparam_count(jcfg.reduced())
 
 
 def test_cpu_runs_when_asked():

@@ -44,7 +44,13 @@ def test_scan_covers_the_port():
         "core/device.py", "core/jax_prng.py", "launch/train.py",
         "checkpoint/ckpt.py", "optim/sgd.py", "data/synthetic.py",
         "optim/adam.py", "optim/schedules.py", "fed/robust.py",
-        "fed/attacks.py", "fed/latency.py", "fed/hierarchy.py")} \
+        "fed/attacks.py", "fed/latency.py", "fed/hierarchy.py",
+        "models/moe.py", "models/rglru.py", "models/frontends.py",
+        "analysis/__init__.py", "analysis/pca.py", "configs/yi_34b.py",
+        "configs/deepseek_67b.py", "configs/mistral_large_123b.py",
+        "configs/mixtral_8x22b.py", "configs/llama4_maverick_400b_a17b.py",
+        "configs/recurrentgemma_2b.py", "configs/qwen2_vl_2b.py",
+        "configs/whisper_base.py")} \
         | {"chip_smoke.py"} <= names
 
 
@@ -67,7 +73,10 @@ def test_importing_the_entry_points_loads_neither_jax_nor_repro():
             "repro_torch.configs.qwen3_1_7b, repro_torch.configs.rwkv6_3b, "
             "repro_torch.fed.robust, repro_torch.fed.attacks, "
             "repro_torch.fed.latency, repro_torch.fed.hierarchy, "
-            "repro_torch.optim\n"
+            "repro_torch.optim, repro_torch.models.moe, "
+            "repro_torch.models.rglru, repro_torch.models.frontends, "
+            "repro_torch.analysis.pca\n"
+            "from repro_torch.configs import all_configs; all_configs()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad); sys.exit(1 if bad else 0)")

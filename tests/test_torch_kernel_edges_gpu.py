@@ -10,7 +10,11 @@ never the import) and run on the H100 with
   (rtol 2^-7, atol 1e-5, ``chip_smoke.py``'s tolerance): Tq not a multiple
   of the 128-query tile, Tq != Tk with ``q_offset``, windows that cross key
   tiles, hd 32 and 64, and B * Hq large enough that the heaviest-first grid
-  runs many waves;
+  runs many waves; then, bf16 and fp32 (the CUDA-core kernel of
+  ``csrc/flash_attention.cu``, rtol = atol = 2e-4), head dim 256 at
+  recurrentgemma-2b's 10 query heads over 1 kv head (T = 1, 100, 129, a
+  2,048-key window, non-causal 100 x 300) and the head maps of yi-34b
+  (56/8), deepseek-67b (64/8), mistral-large (96/8) and qwen2-vl (12/2);
 - the dequant-accumulate fold (``csrc/lbgm_dequant_accum.cu``) against its
   plain version bit for bit (``torch.equal``): indices at SEG - 1, SEG and
   block - 1, one-row leaves with block < SEG, every client on one position,
@@ -92,6 +96,45 @@ def test_flash_bf16_edges(card, case):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want, rtol=RTOL_BF16,
                                atol=ATOL_BF16)
+
+
+# (B, Tq, Tk, Hq, Hkv, hd, causal, window): head dim 256 (recurrentgemma's
+# local attention) and the zoo's head maps
+FLASH_ZOO = [
+    (2, 1, 1, 10, 1, 256, True, None),
+    (2, 100, 100, 10, 1, 256, True, None),
+    (2, 129, 129, 10, 1, 256, True, 2048),
+    (1, 2200, 2200, 10, 1, 256, True, 2048),      # the window masks
+    (2, 100, 300, 10, 1, 256, False, None),
+    (2, 257, 257, 56, 8, 128, True, None),        # yi-34b: groups of 7
+    (2, 200, 200, 64, 8, 128, True, None),        # deepseek-67b
+    (2, 129, 129, 96, 8, 128, True, None),        # mistral-large: 12
+    (2, 300, 300, 12, 2, 128, True, None),        # qwen2-vl: 6
+    (2, 257, 257, 48, 8, 128, True, 4096),        # mixtral: 6
+    (2, 257, 257, 40, 8, 128, True, None),        # llama4: 5
+]
+FLASH_TOL_FP32 = 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", FLASH_ZOO)
+def test_flash_zoo_head_dims_and_maps(card, case, dtype):
+    B, Tq, Tk, Hq, Hkv, hd, causal, window = case
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(sum(case[:6]))
+    q, k, v = (torch.from_numpy(rng.randn(B, T, H, hd).astype(np.float32))
+               .to(dt).to(card)
+               for T, H in ((Tq, Hq), (Tk, Hkv), (Tk, Hkv)))
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_gqa_ref(q.float(), k.float(), v.float(),
+                                       causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    tol = (dict(rtol=RTOL_BF16, atol=ATOL_BF16) if dt == torch.bfloat16
+           else dict(rtol=FLASH_TOL_FP32, atol=FLASH_TOL_FP32))
+    torch.testing.assert_close(got.float(), want, **tol)
 
 
 def _dequant_inputs(rng, C, nb, block, kb, qdtype, kind):
