@@ -70,8 +70,8 @@ From the root of a checkout. Phases, each printed as one JSON line:
    ``hier_100k_vs_topk`` (3 rounds of the in-memory ``topk`` bank without
    tiers equal the ``topk-host`` run's bit for bit, history and params;
    the ``topk-host`` peak at K=100,000 within 5% of the in-memory bank of
-   the K=10,000 run's); ``hier_100k_resume`` (the CLI's ``main`` for 10
-   rounds, then ``--rounds 20 --resume`` in a new engine: records and
+   the K=10,000 run's); ``hier_100k_resume`` (the CLI's ``main`` for 5
+   rounds, then ``--rounds 10 --resume`` in a new engine: records and
    final params bit for bit); ``hier_card_vs_cpu`` (K=2,000, chunk 100,
    tiers [16, 4], delta 0.45, 3 rounds against the CPU run);
 6. LM serving (``lm_*`` phases), after the flash-attention and RWKV6-scan
@@ -106,42 +106,41 @@ From the root of a checkout. Phases, each printed as one JSON line:
    client's table of every leaf of each LM, rwkv6's 3.60 billion
    elements included, against its plain version). ``lm_train_topk_qwen3``
    (``make_train_step``, fsdp, the top-k store at k_frac 0.01, K=4, b=2,
-   T=2048, 2 steps: the decision kernel on every leaf, the ``embed``
-   leaf's decision on step 2's own gradient equal to the plain version's),
-   ``lm_train_qwen3_layers`` and ``lm_train_rwkv6_layers`` (every block
-   forward and backward on step 1's hidden states through the kernels
-   and through their plain versions, teacher forced: rwkv6 in bf16 is
-   chaotic end to end), then
+   T=2048, 2 steps and a third profiled: the decision kernel on every
+   leaf, the ``embed`` leaf's decision on step 2's own gradient equal to
+   the plain version's), ``lm_train_qwen3_layers`` and
+   ``lm_train_rwkv6_layers`` (every block forward and backward on step
+   1's hidden states through the kernels and through their plain
+   versions, teacher forced: rwkv6 in bf16 is chaotic end to end), then
    ``lm_train_qwen3`` and ``lm_train_rwkv6``: ``launch.train.main`` at full
-   width (``--clients 4`` / ``2 --batch 2 --seq 2048 --steps 3 --pool 1
-   --delta 0.6 --lr 0.05``, replicated, dense LBGs): per step the loss,
-   scalar fraction and uplink floats, ms per step, tokens/s, peak memory
-   and launches per kernel (flash or the scan twice per layer per client,
-   forward and remat recompute; the projection once per client), one step
-   profiled with the backwards' device time; qwen3's 3 steps again under
-   the plain kernels (step 1's loss within rtol 2e-3, its aggregated update
-   within 2e-2 relative L2 or twice the model's own floor, the plain step
-   against itself with attention outputs moved by half a bf16 ulp,
-   whichever is larger; decisions equal where sin² lies farther than 1e-2
-   from delta). ``lm_train_card_vs_cpu``: both archs at depth 2 in
-   fp32, 2 steps of K=2, b=1, T=256 on the card and on the CPU (step 1's
-   loss within rtol 1e-4 and update within 1e-3 relative L2, decisions
-   equal where sin² lies farther than 1e-5 from delta). The training
-   launches are reported in these records, not in the kernels line.
+   width (``--clients 4`` / ``2 --batch 2 --seq 2048 --steps 4`` / ``3
+   --pool 1 --delta 0.6 --lr 0.05``, replicated, dense LBGs): per step the
+   loss, scalar fraction and uplink floats, ms per step (the steps after
+   the first), tokens/s, peak memory, the model-FLOPs share of the bf16
+   peak and launches per kernel (flash or the scan twice per layer per
+   client, forward and remat recompute; the projection once per client;
+   no other kernel), the last step profiled with the backwards' device
+   time; qwen3 again for 2 steps
+   under the plain kernels (step 1's loss within rtol 2e-3, its aggregated
+   update within 2e-2 relative L2 or twice the model's own floor, the
+   plain step against itself with attention outputs moved by half a bf16
+   ulp, whichever is larger; decisions equal where sin² lies farther than
+   1e-2 from delta). The training launches are reported in these records,
+   not in the kernels line (its training shapes count per step).
    Then LBGM federated rounds of the LMs through the FL engine
    (``fl_lm_*``), the same card-drawn seed-0 bf16 weights, full width,
    remat, markov data at seq_len 2048 with one sequence per client,
    ``iid``, tau 2, b 1, lr 0.05, delta 0.6, the chunked scheduler, 3
    rounds: ``fl_lm_qwen3_dense`` (``examples/specs/qwen3_fl_lm.json``
    through the CLI's ``main``: K=4, chunk 1, the dense store; flash 448
-   and the projection 4 launches a round; the same rounds under the plain
+   and the projection 4 launches a round; 2 rounds under the plain
    kernels with the training phases' rule for round 1's loss, update and
    decisions), ``fl_lm_qwen3_topk_int8`` (K=4, chunk 2, the top-k store
    at k_frac 0.01, the stochastic int8 wire: flash, the decision and the
    dequant fold once per leaf per chunk), ``fl_lm_qwen3_topk_host`` (the
    same on the ``topk-host`` bank with tiers [2]: its history equals the
    in-memory run's bit for bit; round 3 profiled for the streamer's
-   copies), ``fl_lm_rwkv6_topk`` (K=2, chunk 1,
+   copies), ``fl_lm_rwkv6_topk`` (K=2, chunk 1, 2 rounds,
    top-k: the scan 256 a round, the decision),
    ``fl_lm_qwen3_buffered_scalar_median`` (K=4, chunk 2, top-k 0.01,
    int8, buffered with one straggler a round late, the scalar median
@@ -172,6 +171,33 @@ From the root of a checkout. Phases, each printed as one JSON line:
    against forward at position 0, and layer by layer over the prompt
    for recurrentgemma and whisper (``enc_out`` the encoder's output),
    where the reference's decode equals its prefill. Then
+   The zoo trains the same way (``TRAIN_RUNS``, ``TOPK_RUNS``), after
+   its serving phases, one model at a time: ``lm_train_recurrentgemma``
+   (K=2, b=1, T 2048: flash at hd 256 with window 2048, 8 a forward),
+   ``lm_train_qwen2vl`` (K=4, b=1, T 2048, 256 stub patches),
+   ``lm_train_whisper`` (K=4, b=2, T 448 over 1,500 stub frames: flash
+   18 a forward), each with its ``_layers`` check and held against the
+   plain kernels' run as qwen3 is; ``lm_train_mixtral`` (1 of 56 layers,
+   fsdp, top-k 0.01, K=2, b=1, T 2048: the decision on every leaf, the
+   stacked experts' 805-million-element leaves included, the ``w_gate``
+   leaf's decision equal to the plain version's and timed; held against
+   the plain kernels' run, its MoE blocks against the nudge floor) and
+   ``fl_lm_mixtral_topk`` (the same weights through ``run_experiment``:
+   K=2, tau 2, top-k 0.01, 3 rounds, the third profiled, against 2 rounds
+   under the plain kernels); then ``lm_train_mixtral_fp32`` (the same
+   layer in fp32, fsdp, top-k 0.01, K=2, b=1, T 128, weights drawn on the
+   card: 2 steps through the kernels against 2 under the plain flash, held
+   as the card-vs-CPU phases hold theirs, since mixtral's CPU step does
+   not fit the host). ``lm_train_kernel_checks`` also holds the
+   zoo's flash calls forward and backward (``TRAIN_FLASH_CASES``: hd 256
+   with a window, 12/2 and 48/8 heads, whisper's encoder, self and cross
+   attention) and the projection over the leaf table of every arch of
+   ``TRAIN_RUNS``. ``lm_train_card_vs_cpu``: mixtral (fsdp, top-k 0.01,
+   its config's own mode), qwen3, rwkv6, recurrentgemma, qwen2-vl and
+   whisper at ``CARD_CPU_DEPTH``'s depths in fp32, 2 steps of K=2, b=1,
+   T=128 (qwen3 and rwkv6 256, qwen2-vl 272) on the card and on the CPU
+   (step 1's loss within rtol 1e-4 and update within 1e-3 relative L2,
+   decisions equal where sin² lies farther than 1e-5 from delta). Then
    ``lm_card_vs_cpu``: every served LM but llama4 at full width in fp32,
    T=256 (qwen3, rwkv6, qwen2-vl 2 layers, mixtral 1, recurrentgemma 3,
    whisper 2 + 2), the card's weights copied to the host, the card's
@@ -190,7 +216,10 @@ From the root of a checkout. Phases, each printed as one JSON line:
    attention and the RWKV6 scan last), its launches on the main path, its
    median time over 25 launches (CUDA events, L2 flushed before each); the
    projection and the decision at every call shape of the main path
-   (``shapes``: each leaf table, each top-k leaf; flash's hd-256 call),
+   (``shapes``: each leaf table, each top-k leaf; flash's hd-256 prefill
+   call; per training step, flash at recurrentgemma's and whisper's cross
+   training calls, the projection over each training arch's leaf table
+   and the decision at mixtral's expert leaf),
    each with its launches
    there, the decision with its live bound and its padded layout's,
    the device kernels one call runs (``device_kernels_per_call``, counted
@@ -206,9 +235,11 @@ line of its output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -217,15 +248,17 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_FLOPS = 67e12              # H100 SXM fp32, outside the tensor cores
-BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
 ROUNDS = 3
 TIMED_LAUNCHES = 25
 
 
 #: the script's start (``main``), for each record's ``t_s``
 T_START = None
+#: the card's name and power limit as nvidia-smi prints them (``main``)
+SMI_LINE = None
+#: the kernels line's records of training call shapes measured in the
+#: training phases: (kernel, record); their launches are per training step
+TRAIN_SHAPE_RECORDS = []
 
 
 def emit(record):
@@ -237,6 +270,14 @@ def emit(record):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def sync():
+    """Wait for the card where this process uses one (a CPU-only worker
+    never touches CUDA)."""
+    import torch
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def median(xs):
@@ -280,9 +321,14 @@ def time_ms(fn, n=TIMED_LAUNCHES, flush=True):
     return median(times)
 
 
-def bound_ms(bytes_moved, flops, peak_flops=FP32_FLOPS):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+def bound_ms(bytes_moved, flops, bf16=False):
+    """The least time of the work on one H100 SXM: the larger of the
+    bytes over HBM's rate and the operations over the fp32 CUDA-core peak
+    (``bf16``: the bf16 tensor-core peak); the card's peaks are
+    ``repro_torch.analysis.roofline``'s."""
+    from repro_torch.analysis import roofline as rl
+    t_bytes = bytes_moved / rl.HBM_BW * 1e3
+    t_ops = flops / (rl.PEAK_FLOPS if bf16 else rl.FP32_PEAK_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1784,6 +1830,8 @@ BF16_MODEL_TOL = 5e-2
 #: sums in other orders
 CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-3, 1e-4
 LM_KERNEL = {"qwen3-1.7b": "flash_attention", "rwkv6-3b": "rwkv6_scan"}
+#: the LM kernels (the plain runs launch neither)
+LM_KERNELS = ("flash_attention", "rwkv6_scan")
 #: prompt steps over which rwkv6's decode state and logits are held against
 #: prefill: at the model's initial decay of e^-1 per step the reference's
 #: chunked form reaches its exp(-cum) clamp from step 60 of a 64-step
@@ -1929,16 +1977,17 @@ MOE_NUDGE = 2.0 ** -9
 MOE_FLOOR_FACTOR = 2.0
 
 
-def lm_model(arch):
-    """The full-width model (depth cut per ``LM_PHASES``), bf16 weights
-    drawn on the card from seed 0."""
+def lm_model(arch, depth=None):
+    """The full-width model (depth cut per ``LM_PHASES``, or to ``depth``),
+    bf16 weights drawn on the card from seed 0."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_lm
     cfg = get_config(arch)
-    if LM_PHASES[arch][1]:
-        cfg = dataclasses.replace(cfg, n_layers=LM_PHASES[arch][1])
+    depth = depth or LM_PHASES[arch][1]
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     params, _ = init_lm(torch.Generator(device="cuda").manual_seed(0), cfg,
                         device="cuda")
     return cfg, params
@@ -2541,7 +2590,7 @@ def flash_entry(gen, errs, B=4, T=4096):
     # for p.v per head dim
     flops = 4 * hd * (T * (T + 1) // 2) * B * Hq
     bnd, by = bound_ms(2 * B * T * hd * (2 * Hq + 2 * Hkv), flops,
-                       BF16_FLOPS)
+                       bf16=True)
     g = Hq // Hkv
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (x.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
@@ -2571,7 +2620,9 @@ def flash_entry(gen, errs, B=4, T=4096):
                                   "flash_attention.cu",
                         "ms": time_ms(lambda: fa.flash_attention(
                             q.float(), k.float(), v.float()), n=5)},
-        "shapes": [flash_hd256_record(gen, B, T)]}
+        "shapes": [dict(flash_shape_record(gen, *shp[:8]),
+                        **({"launches_per": shp[8]} if shp[8] else {}))
+                   for shp in FLASH_SHAPES]}
 
 
 def band_pairs(T, window):
@@ -2580,44 +2631,62 @@ def band_pairs(T, window):
     return W * (W + 1) // 2 + (T - W) * W
 
 
-def flash_hd256_record(gen, B=4, T=4096, Hq=10, Hkv=1, hd=256, window=2048):
-    """The flash kernel at recurrentgemma-2b's prefill call (its local
-    attention: Hq 10 over 1 kv head, hd 256, causal, window 2048, bf16):
-    ms, bound, the plain version's ms and SDPA's (a boolean band mask,
-    the kv head repeated before timing). ``launches`` is filled in from
-    the main path's per-shape counts."""
+def flash_shape_record(gen, B, Tq, Tk, Hq, Hkv, hd, causal=True,
+                       window=None):
+    """The flash kernel at one call shape of the main path (bf16): ms,
+    bound (the pairs the mask keeps), the plain version's ms and SDPA's
+    (kv heads repeated before timing; a boolean band mask where a window
+    cuts the causal band). ``launches`` is filled in from the main path's
+    per-shape counts."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    q = torch.randn((B, T, Hq, hd), generator=gen).bfloat16().cuda()
-    k, v = (torch.randn((B, T, Hkv, hd), generator=gen).bfloat16().cuda()
+    q = torch.randn((B, Tq, Hq, hd), generator=gen).bfloat16().cuda()
+    k, v = (torch.randn((B, Tk, Hkv, hd), generator=gen).bfloat16().cuda()
             for _ in range(2))
-    flops = 4 * hd * band_pairs(T, window) * B * Hq
-    bnd, by = bound_ms(2 * B * T * hd * (2 * Hq + 2 * Hkv), flops,
-                       BF16_FLOPS)
+    pairs = band_pairs(Tk, window or Tk) if causal else Tq * Tk
+    flops = 4 * hd * pairs * B * Hq
+    bnd, by = bound_ms(2 * B * hd * (2 * Tq * Hq + 2 * Tk * Hkv), flops,
+                       bf16=True)
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (x.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
               .contiguous() for x in (k, v))
-    pos = torch.arange(T, device="cuda")
-    band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
-                                             < window)
-    call = lambda: fa.flash_attention(q, k, v, window=window)
+    sdpa = dict(is_causal=causal)
+    lib = "scaled_dot_product_attention"
+    if causal and window is not None and window < Tk:
+        pos = torch.arange(Tk, device="cuda")
+        sdpa = dict(attn_mask=(pos[:, None] >= pos[None, :])
+                    & (pos[:, None] - pos[None, :] < window))
+        lib += f" with a boolean causal band mask (window {window})"
+    else:
+        lib += " (is_causal)" if causal else " (no mask)"
+    call = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
     ms = time_ms(call)
-    return {"shape": [B, T, T, Hq, Hkv, hd], "causal": True,
+    return {"shape": [B, Tq, Tk, Hq, Hkv, hd], "causal": causal,
             "window": window, "dtype": "bfloat16", "launches": None,
             "ms": ms, "tflops_counted": flops / ms / 1e9,
             "device_kernels_per_call": kernels_per_call(call),
             "plain_ms": time_ms(lambda: ref.flash_attention_gqa_ref(
-                q, k, v, window=window), n=5),
+                q, k, v, causal=causal, window=window), n=5),
             "bound_ms": bnd, "bound_by": by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=band)),
-            "library_call": "scaled_dot_product_attention with a boolean "
-                            "causal band mask (window 2048); kv head "
-                            "repeated 10x before timing",
+                qt, kt, vt, **sdpa)),
+            "library_call": f"{lib}; kv heads repeated {Hq // Hkv}x before "
+                            f"timing",
             "fp32_kernel_ms": time_ms(lambda: fa.flash_attention(
-                q.float(), k.float(), v.float(), window=window), n=5)}
+                q.float(), k.float(), v.float(), causal=causal,
+                window=window), n=5)}
+
+
+#: the kernels line's flash shapes: recurrentgemma-2b's prefill call (its
+#: local attention: Hq 10 over 1 kv head, hd 256, window 2048), then the
+#: training calls of recurrentgemma (b=1, T 2048) and of whisper's cross
+#: attention (b=2, Tq 448 over 1,500 frames, not causal), whose launches
+#: are per training step
+FLASH_SHAPES = ((4, 4096, 4096, 10, 1, 256, True, 2048, None),
+                (1, 2048, 2048, 10, 1, 256, True, 2048, "training step"),
+                (2, WHISPER_T, 1500, 8, 8, 64, False, None, "training step"))
 
 
 def flash_single_bf16_p(B=4, T=4096):
@@ -2735,12 +2804,38 @@ def scan_entry(gen, errs, B=4, T=4096):
 
 # ------------------------------------------------------------ LM training
 
-#: the training phases' flags for ``launch.train.main`` (replicated, the
-#: dense "full" store); --clients per arch (dense LBG banks of K clients)
-TRAIN_ARGV = ["--batch", "2", "--seq", "2048", "--steps", "3", "--pool", "1",
-              "--delta", "0.6", "--lr", "0.05", "--log-every", "1"]
-TRAIN_CLIENTS = {"qwen3-1.7b": 4, "rwkv6-3b": 2}
+#: the training runs of ``launch.train.main`` at full width (replicated, the
+#: dense "full" store, bf16, remat): arch -> (--clients, --batch, --seq,
+#: --steps). K is cut from the configs' 16: K dense LBG banks must fit
+#: beside the model (recurrentgemma's 3.55 billion bf16 params: K=2);
+#: whisper runs at its 448-token decoder context; rwkv6's host-bound
+#: steps (~9 s) run 2
+TRAIN_RUNS = {"qwen3-1.7b": (4, 2, 2048, 3), "rwkv6-3b": (2, 2, 2048, 2),
+              "recurrentgemma-2b": (2, 1, 2048, 3),
+              "qwen2-vl-2b": (4, 1, 2048, 3),
+              "whisper-base": (4, 2, WHISPER_T, 3)}
+#: the flags every training run shares
+TRAIN_FLAGS = ["--pool", "1", "--delta", "0.6", "--lr", "0.05",
+               "--log-every", "1"]
 TRAIN_DELTA = 0.6
+#: training runs held end to end against the plain kernels' run (rwkv6's
+#: 32 random-init bf16 layers are chaotic: it is held layer by layer only)
+TRAIN_VS_PLAIN = ("qwen3-1.7b", "recurrentgemma-2b", "qwen2-vl-2b",
+                  "whisper-base")
+#: the top-k training phases: ``make_train_step`` in fsdp with the top-k
+#: store at k_frac 0.01, from the card's seed-0 weights: arch -> (phase,
+#: depth or None, K, b, T, steps, the leaf whose decision on step 2's
+#: gradient is held exactly against the plain version and timed, held end
+#: to end against the plain kernels' run). mixtral is cut in depth only,
+#: to 1 of 56 layers (2.9 billion params; its expert leaves 805 million
+#: elements each): at 2 layers a top-k step holds 10.6 GB of bf16 params,
+#: the 21 GB fp32 accumulator, a client's 10.6 GB gradient, its 21 GB
+#: dense fp32 reconstruction and a 6.4 GB scatter buffer, and ran out of
+#: the card's memory (NVIDIA H100 80GB HBM3, 700 W), as did its FL round
+TOPK_RUNS = {"qwen3-1.7b": ("lm_train_topk_qwen3", None, 4, 2, 2048, 2,
+                            "embed", False),
+             "mixtral-8x22b": ("lm_train_mixtral", 1, 2, 1, 2048, 2,
+                               "blocks/moe/w_gate", True)}
 #: the Function's forward + backward against the plain forward + autograd:
 #: bf16 (the plain side in fp32 on the bf16 inputs) each gradient within
 #: 2e-2 of its max |.|; fp32 within 1e-3 of its max |.|
@@ -2762,10 +2857,19 @@ TRAIN_MARGIN = 1e-2
 TRAIN_CPU_LOSS_RTOL = 1e-4
 TRAIN_CPU_UPDATE_RTOL = 1e-3
 TRAIN_CPU_MARGIN = 1e-5
-#: the projection and the decision per client, the LM kernels per layer
-#: per client (forward, and again in the block's remat recompute)
-TRAIN_KERNELS = ("lbgm_projection", "lbgm_sparse_decision", "flash_attention",
-                 "rwkv6_scan")
+#: the zoo's flash calls in training, held forward and backward against
+#: the plain version under autograd (bf16): (B, Tq, Tk, Hq, Hkv, hd,
+#: causal, window) of recurrentgemma's local attention, qwen2-vl's,
+#: whisper's encoder, decoder self and cross attention, mixtral's
+TRAIN_FLASH_CASES = ((1, 2048, 2048, 10, 1, 256, True, 2048),
+                     (1, 2048, 2048, 12, 2, 128, True, None),
+                     (2, 1500, 1500, 8, 8, 64, False, None),
+                     (2, WHISPER_T, WHISPER_T, 8, 8, 64, True, None),
+                     (2, WHISPER_T, 1500, 8, 8, 64, False, None),
+                     (1, 2048, 2048, 48, 8, 128, True, 4096))
+#: per training step, launches per kernel and call shape (the kernels
+#: line's training shapes read them)
+TRAIN_SHAPES = {}
 
 
 def grads_vs_plain(kernel_fn, plain_fn, ins, ups, plain_ins=None,
@@ -2787,10 +2891,13 @@ def grads_vs_plain(kernel_fn, plain_fn, ins, ups, plain_ins=None,
 
 def lbgm_table_check(arch):
     """The projection over one client's table of every leaf of the
-    full-width model (rwkv6-3b: 3.60 billion bf16 elements, past 2^31),
+    full-width model, as each training step of ``arch`` calls it (one
+    client, the leaves (1, n_i) in sorted key order; rwkv6-3b: 3.60
+    billion bf16 elements, recurrentgemma-2b 3.55 billion, past 2^31),
     the params as g and a random l, against its plain version (each
     leaf's sums added in sorted key order) within 1e-5 of the sum of
-    |terms|; and its time against the bound."""
+    |terms|; its time beside the plain version's and the bound. The
+    record also goes into the kernels line's training shapes."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
@@ -2820,15 +2927,24 @@ def lbgm_table_check(arch):
     ok = all(bool(((a - w).abs() <= 1e-5 * s).all())
              for a, w, s in zip(got, want, scale))
     bnd, by = bound_ms(2 * n * 2 + 3 * 4, 6 * n)
-    rec = {"arch": arch, "elements": n, "leaves": len(names),
+    gs = [g1[k].reshape(1, -1) for k in names]
+    ls = [l1[k].reshape(1, -1) for k in names]
+    rec = {"arch": arch, "shape": [[1, int(x.shape[1])] for x in gs],
+           "elements": n, "leaves": len(names),
            "dtype": "bfloat16", "max_abs_err": err,
            "ms": time_ms(lambda: ops.lbgm_projection(g1, l1), n=5),
-           "bound_ms": bnd, "bound_by": by,
+           "plain_ms": time_ms(lambda: sum_leaves(ref.lbgm_projection_ref,
+                                                  gs, ls), n=3),
+           "bound_ms": bnd, "bound_by": by, "library_ms": None,
+           "library_call": "none: no one PyTorch call takes a table of "
+                           "leaves, and the concatenated table passes "
+                           "2^31 elements for two of these archs",
            "tolerance": "1e-5 of the sum of |terms|"}
+    TRAIN_SHAPE_RECORDS.append(("lbgm_projection", rec))
     if not ok:
         fail(f"lm_train_kernel_checks: the projection over {arch}'s table "
              f"of {n} elements is off its plain version by {err:.3g}")
-    del g, l, g1, l1
+    del g, l, g1, l1, gs, ls
     torch.cuda.empty_cache()
     return rec
 
@@ -2839,7 +2955,8 @@ def lm_train_kernel_checks():
     at the training shapes (qwen3: B=2, T=2048, Hq 16, Hkv 8, hd 128,
     bf16; rwkv6: B=2, T=2048, H 40, hd 64, fp32) and flash in fp32; the
     backward passes' times beside their bounds (and SDPA's backward as a
-    yardstick); the projection over both LMs' leaf tables."""
+    yardstick); the projection over the leaf table of every arch of
+    ``TRAIN_RUNS``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2869,6 +2986,29 @@ def lm_train_kernel_checks():
         if max(errs.values()) > tol:
             fail(f"lm_train_kernel_checks {name}: gradients off the plain "
                  f"autograd by {errs} of their max (tolerance {tol})")
+    # the zoo's training calls: hd 256 with a window, the new head maps,
+    # whisper's non-causal encoder and cross attention (Tq 448, Tk 1500)
+    rec["flash_zoo_bf16"] = []
+    for b, tq, tk, hq, hkv, d, causal, window in TRAIN_FLASH_CASES:
+        q = torch.randn((b, tq, hq, d), generator=gen).bfloat16().cuda()
+        k, v = (torch.randn((b, tk, hkv, d), generator=gen).bfloat16().cuda()
+                for _ in range(2))
+        do = torch.randn((b, tq, hq, d), generator=gen).bfloat16().cuda()
+        mask = dict(causal=causal, window=window)
+        (o, gk), (po, gp) = grads_vs_plain(
+            lambda *a: fa.flash_attention(*a, **mask),
+            lambda *a: ref.flash_attention_gqa_ref(*a, **mask), [q, k, v],
+            [do], [x.float() for x in (q, k, v)], [do.float()])
+        errs = {n: norm_err(a, w) for n, a, w in zip(("dq", "dk", "dv"),
+                                                     gk, gp)}
+        rec["flash_zoo_bf16"].append({
+            "shape": [b, tq, tk, hq, hkv, d], **mask, "grad_err": errs,
+            "out_err": norm_err(o[0], po[0])})
+        if max(errs.values()) > TRAIN_GRAD_TOL_BF16:
+            fail(f"lm_train_kernel_checks flash {[b, tq, tk, hq, hkv, d]} "
+                 f"{mask}: gradients off the plain autograd by {errs} of "
+                 f"their max (tolerance {TRAIN_GRAD_TOL_BF16})")
+        del q, k, v, do, o, gk, po, gp
     # the backward at qwen3's training call: time, bound, the plain
     # autograd's time and SDPA's backward (kv heads repeated) as yardsticks
     q = torch.randn((B, T, Hq, hd), generator=gen).bfloat16().cuda()
@@ -2879,7 +3019,7 @@ def lm_train_kernel_checks():
     # per kept (q, k) pair: s = q.k again, dp = do.v, dq += ds.k,
     # dk += ds.q, dv += p.do: 5 products of 2 hd flops (2.5x the forward)
     bnd, by = bound_ms(2 * (2 * B * T * Hq * hd + 2 * B * T * Hkv * hd) * 2,
-                       10 * hd * pairs, BF16_FLOPS)
+                       10 * hd * pairs, bf16=True)
     xs = [x.float().requires_grad_() for x in (q, k, v)]
     po = ref.flash_attention_gqa_ref(*xs)
     g = Hq // Hkv
@@ -2934,7 +3074,7 @@ def lm_train_kernel_checks():
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
         "note": "plain PyTorch: the chunked plain version recomputed under "
                 "autograd and differentiated"}
-    rec["projection_lm_tables"] = [lbgm_table_check(a) for a in LM_KERNEL]
+    rec["projection_lm_tables"] = [lbgm_table_check(a) for a in TRAIN_RUNS]
     emit(rec)
     return rec
 
@@ -2981,20 +3121,21 @@ def train_probe(profiled=None, keep_update=False, compare_update=None,
                 capture=None):
     """Wrap the trainer (``train.trainer.make_train_step``, looked up at
     call time by ``launch.train.main``) for one run: per step, host ms
-    around the synchronised step, launches per kernel (the counters set to
-    0 at each step's start), and every client's sin² and decision (the
-    stats of ``lbgm_client_step`` / ``lbgm_topk_client_step``). Step 1's
-    aggregated update (the gradient handed to ``sgd_update``) is kept on
-    the host (``keep_update``) or held against a kept one
-    (``compare_update``: relative L2). ``profiled``: that step (from 0) is
-    profiled (and its backwards timed) instead of timed alone.
-    ``capture(step, client, grad, lbg)`` sees each client's inputs."""
-    import torch
+    around the synchronised step, launches per kernel and per call shape
+    (the counters set to 0 at each step's start), and every client's sin²
+    and decision (the stats of ``lbgm_client_step`` /
+    ``lbgm_topk_client_step``). Step 1's aggregated update (the gradient
+    handed to ``sgd_update``) is kept on the host (``keep_update``) or held
+    against a kept one (``compare_update``: relative L2). ``profiled``:
+    that step (from 0) is profiled (and its backwards timed) instead of
+    timed alone. ``capture(step, client, grad, lbg)`` sees each client's
+    inputs."""
     from repro_torch.core import lbgm as lbgm_lib
     from repro_torch.kernels import _build
     from repro_torch.train import trainer as tr
-    rec = {"ms": [], "launches": [], "sin2": [], "sent": [], "update": None,
-           "update_rel_l2": None, "profile": None}
+    rec = {"ms": [], "launches": [], "shapes": [], "sin2": [], "sent": [],
+           "update": None, "update_rel_l2": None, "profile": None,
+           "profiled": profiled}
     real_make, real_sgd = tr.make_train_step, tr.sgd_update
     names = ("lbgm_client_step", "lbgm_topk_client_step")
     real_steps = {n: getattr(lbgm_lib, n) for n in names}
@@ -3017,12 +3158,7 @@ def train_probe(profiled=None, keep_update=False, compare_update=None,
             if keep_update:
                 rec["update"] = {k: v.cpu() for k, v in grads.items()}
             if compare_update is not None:
-                num = den = 0.0
-                for k, v in grads.items():
-                    w = compare_update[k].to(v.device)
-                    num += float(((v - w) ** 2).sum(dtype=torch.float64))
-                    den += float((w ** 2).sum(dtype=torch.float64))
-                rec["update_rel_l2"] = (num / max(den, 1e-300)) ** 0.5
+                rec["update_rel_l2"] = update_rel_l2(grads, compare_update)
         return real_sgd(params, grads, *a, **kw)
 
     def make(*a, **kw):
@@ -3032,14 +3168,14 @@ def train_probe(profiled=None, keep_update=False, compare_update=None,
             rec["sin2"].append([])
             rec["sent"].append([])
             i = len(rec["sin2"]) - 1
-            torch.cuda.synchronize()
+            sync()
             _build.reset_launch_counts()
             out = []
             if i == profiled:
                 with backward_timer() as bw:
                     prof = profile_device(lambda: out.append(step(state,
                                                                   batch)))
-                torch.cuda.synchronize()
+                sync()
                 # the backwards' spans on the device, from their first
                 # kernel's start to their last's end: idle gaps between
                 # their kernels count, so the share is of the step's wall
@@ -3051,10 +3187,12 @@ def train_probe(profiled=None, keep_update=False, compare_update=None,
             else:
                 t0 = time.perf_counter()
                 out.append(step(state, batch))
-                torch.cuda.synchronize()
+                sync()
                 rec["ms"].append((time.perf_counter() - t0) * 1e3)
             rec["launches"].append({k: v for k, v in _build.LAUNCHES.items()
                                     if v})
+            rec["shapes"].append({k: dict(v) for k, v in
+                                  _build.LAUNCH_SHAPES.items() if v})
             return out[0]
         return timed
 
@@ -3069,13 +3207,40 @@ def train_probe(profiled=None, keep_update=False, compare_update=None,
             setattr(lbgm_lib, n, f)
 
 
+def train_launches(cfg, K):
+    """Launches of one training step of K clients: flash or the scan per
+    attention or rwkv6 call of ``lm_launches``, twice under remat (the
+    forward, and the block's recompute in the backward), per client; the
+    projection once per client (dense store) or the decision once per leaf
+    per client (top-k store)."""
+    import torch
+    from repro_torch.models.transformer import init_lm
+    want = {k: (2 if cfg.remat else 1) * n * K
+            for k, n in lm_launches(cfg).items()}
+    if cfg.lbgm.variant == "topk":
+        leaves = init_lm(torch.Generator(), cfg, device="meta")[0]
+        want["lbgm_sparse_decision"] = len(leaves) * K
+    else:
+        want["lbgm_projection"] = K
+    return want
+
+
 def expect_launches(what, rec, want):
-    """Every step launched each kernel of ``want`` exactly so often."""
+    """Every step launched each kernel of ``want`` exactly so often, and
+    no other kernel."""
     for i, got in enumerate(rec["launches"]):
         for k, n in want.items():
             if got.get(k, 0) != n:
                 fail(f"{what}: step {i + 1} launched {got.get(k, 0)} {k}, "
                      f"want {n}")
+        only_launches(f"{what}: step {i + 1}", got, want)
+
+
+def keep_train_shapes(rec):
+    """Fold a run's last step's launches per call shape into
+    ``TRAIN_SHAPES``."""
+    for k, shapes in rec["shapes"][-1].items():
+        TRAIN_SHAPES.setdefault(k, {}).update(shapes)
 
 
 def decisions_agree(what, a, b, delta, margin):
@@ -3097,340 +3262,561 @@ def decisions_agree(what, a, b, delta, margin):
     return least
 
 
+def model_flops_share(cfg, K, b, T, ms):
+    """The model-FLOPs share of one training step on the card's bf16 peak
+    (``analysis.roofline.model_flops`` over the step's seconds): a record,
+    not a claim."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs.base import (ShapeConfig, active_param_count)
+    shape = ShapeConfig("step", T, K * b, "train")
+    flops = roofline.model_flops(cfg, shape, active_param_count(cfg))
+    return {"model_flops": flops, "share_of_bf16_peak":
+            flops / (ms / 1e3 * roofline.PEAK_FLOPS),
+            "peak_flops": roofline.PEAK_FLOPS, "card": SMI_LINE}
+
+
 def train_record(phase, arch, cfg, K, b, T, rec, history, peak_gb):
-    """The end-to-end fields every training phase reports."""
+    """The end-to-end fields every training phase reports; the step times
+    are those after the first, the profiled step left out."""
     steps = [{"step": i + 1, "ms": ms, "launches": launches,
               **{k: h[k] for k in ("loss", "frac_scalar", "uplink_floats",
                                    "vanilla_uplink_floats") if k in h}}
              for i, (ms, launches, h) in enumerate(zip(
                  rec["ms"], rec["launches"], history))]
-    timed = rec["ms"][1:] or rec["ms"]
+    kept = [ms for i, ms in enumerate(rec["ms"]) if i != rec["profiled"]]
+    timed = kept[1:] or kept
     ms = sum(timed) / len(timed)
     return {"phase": phase, "arch": arch, "dtype": cfg.dtype,
             "layers": cfg.n_layers, "dp_mode": cfg.dp_mode,
             "lbgm_variant": cfg.lbgm.variant, "clients": K, "batch": b,
             "seq_len": T, "remat": cfg.remat, "steps": steps,
             "ms_per_step": ms,
-            "ms_per_step_of": (f"the mean of steps 2-{len(rec['ms'])}"
-                               if len(rec["ms"]) > 2 else
-                               f"step {len(rec['ms'])}"),
+            "ms_per_step_of": (f"the mean of steps 2-{len(kept)}"
+                               if len(kept) > 2 else f"step {len(kept)}"),
+            "profiled_step": (None if rec["profiled"] is None
+                              else rec["profiled"] + 1),
+            "ms_per_step_median": median(timed),
             "tokens_per_s": K * b * T / ms * 1e3, "peak_mem_gb": peak_gb,
-            "launches_per_step": rec["launches"][-1]}
+            "launches_per_step": rec["launches"][-1],
+            "model_flops": model_flops_share(cfg, K, b, T, median(timed))}
 
 
-def lm_train_main(arch, out_dir, plain=False, **probe):
-    """``launch.train.main`` at full width with TRAIN_ARGV: (history, probe
+def train_argv(arch, K, b, T, steps):
+    return TRAIN_FLAGS + ["--arch", arch, "--clients", str(K), "--batch",
+                          str(b), "--seq", str(T), "--steps", str(steps)]
+
+
+def lm_train_main(arch, out_dir, steps, plain=False, **probe):
+    """``launch.train.main`` at full width with ``TRAIN_RUNS[arch]``'s
+    clients, batch and length, for ``steps`` steps: (history, probe
     record, peak GB)."""
     import torch
     from repro_torch.launch import train as launch_train
-    argv = TRAIN_ARGV + ["--arch", arch, "--clients",
-                         str(TRAIN_CLIENTS[arch]), "--out", out_dir]
+    K, b, T, _ = TRAIN_RUNS[arch]
+    argv = train_argv(arch, K, b, T, steps) + ["--out", out_dir]
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with train_probe(**probe) as rec:
         with (plain_lm_kernels() if plain else contextlib.nullcontext()):
             history = launch_train.main(argv)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    torch.cuda.empty_cache()
     return history, rec, peak
 
 
-def lm_profile_step(arch, K):
-    """One more run of the same flags through the library (no checkpoint
-    written): step 2 profiled, the backwards' device spans timed."""
+def train_run(cfg, K, args, steps, params=None, plain=False, nudge=None,
+              **probe):
+    """``make_train_step(cfg)`` on the card for ``steps`` steps, as
+    ``launch.train.main`` runs it (its batch stream and stub embeddings
+    for ``args``), from ``params`` or the weights of ``--seed``, under
+    :func:`train_probe` (and the plain kernels, and outputs moved by
+    ``nudge`` relative, where asked): (history, probe record, peak GB).
+    The allocator's cache is kept between runs of one model: a cold
+    cache costs the first step seconds of allocations."""
     import torch
     from repro_torch.launch import train as launch_train
     from repro_torch.train import trainer as tr
-    args = launch_train.parse_args(TRAIN_ARGV + ["--arch", arch,
-                                                 "--clients", str(K)])
-    cfg = launch_train.train_config(args)
-    state, _ = tr.init_train_state(
-        torch.Generator(device="cuda").manual_seed(args.seed), cfg, K)
-    batches = launch_train.client_batches(args, cfg.vocab_size, "cuda")
-    with train_probe(profiled=1) as rec:
-        step = tr.make_train_step(cfg, K, args.lr, delta=args.delta)
-        for _ in range(2):
-            state, _ = step(state, next(batches))
-    del state
-    torch.cuda.empty_cache()
-    return rec["profile"]
-
-
-def lm_train(arch, out_dir):
-    """``lm_train_qwen3`` / ``lm_train_rwkv6``: ``launch.train.main`` at
-    full width (3 steps, replicated "full"), its launches per step, ms per
-    step, tokens/s and peak memory; one step profiled; qwen3 also the same
-    3 steps from the same params under the plain kernels."""
-    import torch
-    from repro_torch.configs import get_config
-    K = TRAIN_CLIENTS[arch]
-    cfg = get_config(arch)
-    kernel = LM_KERNEL[arch]
-    history, rec, peak = lm_train_main(arch, out_dir, keep_update=True)
-    expect_launches(f"lm_train {arch}", rec,
-                    {kernel: 2 * cfg.n_layers * K, "lbgm_projection": K})
-    out = train_record(f"lm_train_{arch.split('-')[0]}", arch, cfg, K, 2,
-                       2048, rec, history, peak)
-    out["profile"] = lm_profile_step(arch, K)
-    if not all(torch.isfinite(torch.tensor([h["loss"] for h in history]))):
-        fail(f"lm_train {arch}: non-finite loss {history}")
-    if arch == "qwen3-1.7b":
-        phist, prec, _ = lm_train_main(arch, out_dir, plain=True,
-                                       compare_update=rec["update"],
-                                       keep_update=True)
-        rec["update"] = None
-        expect_launches(f"lm_train {arch} (plain kernels)", prec,
-                        {kernel: 0, "lbgm_projection": K})
-        floor = update_floor(arch, prec["update"])
-        prec["update"] = None
-        tol = max(TRAIN_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
-        loss_err = abs(history[0]["loss"] - phist[0]["loss"]) / abs(
-            phist[0]["loss"])
-        margin = decisions_agree(f"lm_train {arch} vs plain", rec, prec,
-                                 TRAIN_DELTA, TRAIN_MARGIN)
-        out["vs_plain"] = {
-            "step1_loss_rel_err": loss_err,
-            "step1_update_rel_l2": prec["update_rel_l2"],
-            "step1_update_floor_rel_l2": floor,
-            "smallest_sin2_margin": margin,
-            "plain_losses": [h["loss"] for h in phist],
-            "plain_frac_scalar": [h["frac_scalar"] for h in phist],
-            "tolerance": f"loss rtol {TRAIN_LOSS_RTOL}; update relative L2 "
-                         f"{tol:.4g} (the larger of {TRAIN_UPDATE_RTOL} and "
-                         f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor: the "
-                         f"plain run against itself with attention outputs "
-                         f"moved by {TRAIN_NUDGE} relative); decisions "
-                         f"equal where sin² lies > {TRAIN_MARGIN} from "
-                         f"delta in both runs"}
-        if loss_err > TRAIN_LOSS_RTOL or prec["update_rel_l2"] > tol:
-            fail(f"lm_train {arch}: step 1 off the plain kernels' run: loss "
-                 f"{loss_err:.3g}, update {prec['update_rel_l2']:.3g} "
-                 f"(floor {floor:.3g}, tolerance {tol:.3g})")
-    out["sin2"] = rec["sin2"]
-    rec["update"] = None
-    emit(out)
-    return out
-
-
-def train_teacher_forced(params, cfg, tokens):
-    """rwkv6's kernel path against the plain kernels', forward and
-    backward, layer by layer on the real run's hidden states: each block
-    takes the same input and upstream gradient through both, and the next
-    layer takes the kernel path's output. Returns the largest errors of a
-    block's update and of its input and parameter gradients, each over
-    the plain side's max."""
-    import torch
-    from repro_torch.models.transformer import _apply_block_train, layer_params
-    B, T = tokens.shape
-    x = params["embed"][tokens]
-    pos = torch.arange(T, device=x.device)[None].expand(B, T)
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    upd = grad = 0.0
-    for kind, p in layer_params(params, cfg):
-        dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
-
-        def run():
-            leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
-            xi = x.detach().requires_grad_()
-            y, _ = _apply_block_train(leaves, xi, cfg, kind, pos)
-            gs = torch.autograd.grad(y, [xi, *leaves.values()], dy,
-                                     allow_unused=True)
-            return y.detach(), gs
-        yk, gk = run()
-        with plain_lm_kernels():
-            yp, gp = run()
-        upd = max(upd, norm_err(yk.float() - x.float(),
-                                yp.float() - x.float()))
-        for a, w in zip(gk, gp):
-            if w is not None and float(w.abs().max()) > 0:
-                grad = max(grad, norm_err(a, w))
-        x = yk
-    return upd, grad
-
-
-def lm_train_layers(arch, params, cfg):
-    """``lm_train_<arch>_layers``: every block forward and backward on
-    step 1's hidden states (client 0's first batch of the run) through the
-    kernels and through their plain versions, teacher forced. This is
-    the check that stands for rwkv6's kernel-vs-plain run (its 32
-    random-init bf16 layers are chaotic), and beside qwen3's end-to-end
-    one it holds each layer."""
-    import torch
-    from repro_torch.launch import train as launch_train
-    args = launch_train.parse_args(TRAIN_ARGV + ["--clients",
-                                                 str(TRAIN_CLIENTS[arch])])
-    batch = next(launch_train.client_batches(args, cfg.vocab_size, "cuda"))
-    upd, grad = train_teacher_forced(params, cfg, batch["tokens"][0])
-    rec = {"phase": f"lm_train_{arch.split('-')[0]}_layers", "arch": arch,
-           "layers": cfg.n_layers, "layer_update_err_vs_plain": upd,
-           "grad_err_vs_plain": grad,
-           "tolerance": f"max|a-b|/max|b| <= {BF16_MODEL_TOL}, every layer "
-                        f"on the same input and upstream gradient"}
     torch.cuda.synchronize()
-    if max(upd, grad) > BF16_MODEL_TOL:
-        fail(f"lm_train {arch}: a block off the plain kernels by update "
-             f"{upd:.3g}, gradients {grad:.3g} (tolerance {BF16_MODEL_TOL})")
-    emit(rec)
-    return rec
-
-
-def update_floor(arch, plain_update):
-    """The model's own spread of step 1's aggregated update: the plain
-    kernels' step again with every attention output moved by TRAIN_NUDGE
-    relative (Gaussian), against ``plain_update``."""
-    import torch
-    from repro_torch.launch import train as launch_train
-    from repro_torch.train import trainer as tr
-    K = TRAIN_CLIENTS[arch]
-    args = launch_train.parse_args(TRAIN_ARGV + ["--arch", arch,
-                                                 "--clients", str(K)])
-    cfg = launch_train.train_config(args)
-    state, _ = tr.init_train_state(
-        torch.Generator(device="cuda").manual_seed(args.seed), cfg, K)
-    batch = next(launch_train.client_batches(args, cfg.vocab_size, "cuda"))
-    with plain_lm_kernels(), nudged_lm_kernels(TRAIN_NUDGE):
-        with train_probe(compare_update=plain_update) as rec:
-            step = tr.make_train_step(cfg, K, args.lr, delta=args.delta)
-            step(state, batch)
-    del state
-    torch.cuda.empty_cache()
-    return rec["update_rel_l2"]
-
-
-def lm_train_topk_qwen3(params, K=4, b=2, T=2048, steps=2, k_frac=0.01):
-    """``make_train_step`` with ``dp_mode="fsdp"`` and the top-k store at
-    full width: the decision kernel on every leaf of every client; the
-    ``embed`` leaf's decision on step 2's own gradient (client 0) held
-    exactly against the plain version."""
-    import dataclasses
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core.lbgm import _block_layout
-    from repro_torch.kernels import _build, ops, ref
-    from repro_torch.launch import train as launch_train
-    from repro_torch.train import trainer as tr
-    base = get_config("qwen3-1.7b")
-    cfg = dataclasses.replace(base, dp_mode="fsdp", lbgm=dataclasses.replace(
-        base.lbgm, variant="topk", k_frac=k_frac))
-    args = launch_train.parse_args(TRAIN_ARGV + ["--clients", str(K)])
-    batches = launch_train.client_batches(args, cfg.vocab_size, "cuda")
-    seen = {}
-
-    def capture(step, client, grad, lbg):
-        if step == 1 and client == 0:
-            seen["g"] = grad["embed"].reshape(1, -1).clone()
-            seen["idx"] = lbg["embed"]["idx"].clone()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state, _ = tr.init_train_state(None, cfg, K, params=params)
+    gen = None if params else torch.Generator(device="cuda").manual_seed(
+        args.seed)
+    state, _ = tr.init_train_state(gen, cfg, K, params=params)
+    batches = launch_train.client_batches(
+        args, cfg.vocab_size, "cuda",
+        launch_train.stub_embeds(args, cfg, "cuda"))
     history = []
-    with train_probe(capture=capture) as rec:
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(plain_lm_kernels())
+        if nudge:
+            stack.enter_context(nudged_lm_kernels(nudge))
+        rec = stack.enter_context(train_probe(**probe))
         step = tr.make_train_step(cfg, K, args.lr, delta=args.delta)
         for _ in range(steps):
             state, m = step(state, next(batches))
             history.append({k: float(v) for k, v in m.items()})
+    del state
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    n_leaves = len(params)
-    expect_launches("lm_train_topk_qwen3", rec,
-                    {"lbgm_sparse_decision": n_leaves * K,
-                     "flash_attention": 2 * cfg.n_layers * K})
-    del state
-    torch.cuda.empty_cache()
-    g, idx = seen["g"], seen["idx"]
-    nb, block, kb = _block_layout(g.shape[1], k_frac)
-    got = ops.lbgm_sparse_decision(g, idx, two_pass=False, block=block)
-    want = ref.lbgm_sparse_decision_ref(g, idx, block=block)
-    torch.cuda.synchronize()
-    exact = torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]) \
-        and torch.equal(got[1], want[1])
-    gg_err = float((got[0] - want[0]).abs().max() / want[0].abs().max())
-    live = -(-g.shape[1] // block)
-    bnd, by = bound_ms(g.shape[1] * 2 + live * kb * 4 + 3 * nb * kb * 4 + 4,
-                       0)
-    out = train_record("lm_train_topk_qwen3", "qwen3-1.7b", cfg, K, b, T, rec,
-                       history, peak)
-    out["embed_decision"] = {
-        "shape": [1, g.shape[1]], "nb": nb, "live_rows": live,
-        "block": block, "kb": kb, "dtype": str(g.dtype).split(".")[-1],
-        "exact_vs_plain": exact, "gg_rel_err": gg_err,
-        "ms": time_ms(lambda: ops.lbgm_sparse_decision(
-            g, idx, two_pass=False, block=block), n=10),
-        "bound_ms": bnd, "bound_by": by,
-        "plain_ms": time_ms(lambda: ref.lbgm_sparse_decision_ref(
-            g, idx, block=block), n=3)}
+    return history, rec, peak
+
+
+def vs_plain(phase, history, rec, plain_run, floor_run,
+             loss_rtol=TRAIN_LOSS_RTOL, update_rtol=TRAIN_UPDATE_RTOL,
+             nudge=TRAIN_NUDGE, margin_of=TRAIN_MARGIN):
+    """Step 1 of a kernel run against the plain kernels' run from the same
+    weights: its loss within ``loss_rtol`` and its aggregated update
+    within the larger of ``update_rtol`` and twice the model's own floor
+    (``floor_run``: step 1 under the plain kernels with every attention
+    output moved by ``nudge`` relative); decisions equal where sin² lies
+    farther than ``margin_of`` from delta in both runs. The defaults are
+    the bf16 runs'. ``plain_run()`` returns (history, probe record) with
+    the update held against ``rec["update"]`` and kept;
+    ``floor_run(plain_update)`` the floor."""
+    phist, prec = plain_run()
+    rec["update"] = None
+    floor = floor_run(prec["update"])
+    prec["update"] = None
+    tol = max(update_rtol, TRAIN_UPDATE_FLOOR_FACTOR * floor)
+    loss_err = abs(history[0]["loss"] - phist[0]["loss"]) / abs(
+        phist[0]["loss"])
+    margin = decisions_agree(f"{phase} vs plain", rec, prec, TRAIN_DELTA,
+                             margin_of)
+    out = {"step1_loss_rel_err": loss_err,
+           "step1_update_rel_l2": prec["update_rel_l2"],
+           "step1_update_floor_rel_l2": floor,
+           "smallest_sin2_margin": margin,
+           "plain_losses": [h["loss"] for h in phist],
+           "plain_frac_scalar": [h["frac_scalar"] for h in phist],
+           "plain_ms_per_step": prec["ms"],
+           "tolerance": f"loss rtol {loss_rtol}; update relative L2 "
+                        f"{tol:.4g} (the larger of {update_rtol} and "
+                        f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor: the "
+                        f"plain run against itself with attention outputs "
+                        f"moved by {nudge} relative); decisions "
+                        f"equal where sin² lies > {margin_of} from "
+                        f"delta in both runs"}
+    if loss_err > loss_rtol or prec["update_rel_l2"] > tol:
+        fail(f"{phase}: step 1 off the plain kernels' run: loss "
+             f"{loss_err:.3g}, update {prec['update_rel_l2']:.3g} (floor "
+             f"{floor:.3g}, tolerance {tol:.3g})")
+    return out
+
+
+def lm_train(arch, out_dir):
+    """``lm_train_<arch>``: ``launch.train.main`` at full width
+    (``TRAIN_RUNS``: replicated "full", bf16, remat; the stub embeddings
+    of qwen2-vl and whisper), its launches per step (``train_launches``
+    and no other kernel), ms per step, tokens/s, peak memory and the
+    model-FLOPs share; one more step profiled; the archs of
+    ``TRAIN_VS_PLAIN`` also against 2 steps from the same weights under
+    the plain kernels (``vs_plain``)."""
+    import math
+    import torch
+    from repro_torch.launch import train as launch_train
+    K, b, T, steps = TRAIN_RUNS[arch]
+    args = launch_train.parse_args(train_argv(arch, K, b, T, steps))
+    cfg = launch_train.train_config(args)
+    held = arch in TRAIN_VS_PLAIN
+    history, rec, peak = lm_train_main(arch, out_dir, steps + 1,
+                                       profiled=steps, keep_update=held)
+    phase = f"lm_train_{LM_PHASES[arch][0]}"
+    expect_launches(phase, rec, train_launches(cfg, K))
+    keep_train_shapes(rec)
+    out = train_record(phase, arch, cfg, K, b, T, rec, history, peak)
+    out["profile"] = rec["profile"]
+    if not all(math.isfinite(h["loss"]) for h in history):
+        fail(f"{phase}: non-finite loss {history}")
+    if held:
+        def plain_run():
+            h, r, _ = lm_train_main(arch, out_dir, 2, plain=True,
+                                    compare_update=rec["update"],
+                                    keep_update=True)
+            expect_launches(f"{phase} (plain kernels)", r, {
+                k: (0 if k in LM_KERNELS else n)
+                for k, n in train_launches(cfg, K).items()})
+            return h, r
+        out["vs_plain"] = vs_plain(
+            phase, history, rec, plain_run,
+            lambda upd: train_run(cfg, K, args, 1, plain=True,
+                                  nudge=TRAIN_NUDGE, compare_update=upd)[1][
+                "update_rel_l2"])
     out["sin2"] = rec["sin2"]
-    if not exact or gg_err > 1e-5:
-        fail(f"lm_train_topk_qwen3: the embed leaf's decision differs from "
-             f"the plain version (exact {exact}, ||g||^2 {gg_err:.3g})")
+    rec["update"] = None
+    torch.cuda.empty_cache()
     emit(out)
     return out
 
 
-def lm_train_card_vs_cpu(K=2, b=1, T=256, steps=2):
-    """Both archs at full width, depth 2, fp32: ``make_train_step``
-    (replicated "full") on the card and on the CPU from the same params
-    and batches. Step 1's loss and aggregated update, and every
-    decision where sin² lies farther than 1e-5 from delta (step 2 is the
-    first whose LBGs are not zero)."""
+def train_block_check(p, x, cfg, kind, pos, pos3, enc_out, causal, dy):
+    """One block forward and backward (upstream gradient ``dy``) through
+    the kernels and through the plain kernels on the same input. Dense
+    blocks: max|a-b|/max|b| of the update and of every gradient, within
+    BF16_MODEL_TOL. MoE blocks (a router can flip on a float-level input
+    difference): the update and the gradients in relative L2, each within
+    BF16_MODEL_TOL or MOE_FLOOR_FACTOR times the floor of the plain block
+    with every attention output moved by MOE_NUDGE relative. Returns (the
+    kernel path's output, record)."""
+    import torch
+    from repro_torch.models.transformer import _apply_block_train
+
+    def run():
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xi = x.detach().requires_grad_()
+        ins = [xi, *leaves.values()]
+        eo = None
+        if enc_out is not None:
+            eo = enc_out.detach().requires_grad_()
+            ins.append(eo)
+        with moe_routes() as routes:
+            y, _ = _apply_block_train(leaves, xi, cfg, kind, pos, pos3, eo,
+                                      causal)
+        gs = torch.autograd.grad(y, ins, dy, allow_unused=True)
+        return y.detach(), [g for g in gs], routes
+    yk, gk, rk = run()
+    with plain_lm_kernels():
+        yp, gp, rp = run()
+    pairs = [(a, w) for a, w in zip(gk, gp)
+             if w is not None and float(w.abs().max()) > 0]
+    rec = {"kind": kind if causal else "encoder"}
+    if rk:
+        with plain_lm_kernels(), nudged_lm_kernels(MOE_NUDGE):
+            yn, gn, rn = run()
+        upd, floor = rel_l2(yk - x, yp - x), rel_l2(yn - x, yp - x)
+        grad = max(rel_l2(a, w) for a, w in pairs)
+        gfloor = max(rel_l2(n, w) for n, w in zip(gn, gp)
+                     if w is not None and float(w.abs().max()) > 0)
+        (ek, kk), (ep, kp) = rk[0], rp[0]
+        rec.update(update_rel_l2=upd, floor_rel_l2=floor,
+                   grad_rel_l2=grad, grad_floor_rel_l2=gfloor,
+                   routes_differ=int((ek != ep).sum()),
+                   drops_differ=int((kk != kp).sum()),
+                   ok=(upd <= max(BF16_MODEL_TOL, MOE_FLOOR_FACTOR * floor)
+                       and grad <= max(BF16_MODEL_TOL,
+                                       MOE_FLOOR_FACTOR * gfloor)))
+    else:
+        upd = norm_err(yk.float() - x.float(), yp.float() - x.float())
+        grad = max(norm_err(a, w) for a, w in pairs)
+        rec.update(update_err=upd, grad_err=grad,
+                   ok=max(upd, grad) <= BF16_MODEL_TOL)
+    return yk, rec
+
+
+def train_teacher_forced(params, cfg, tokens, extra=None):
+    """The kernel path against the plain kernels', forward and backward,
+    block by block on the real run's hidden states (``train_block_check``;
+    the encoder's blocks too, on the stub frames): each block takes the
+    same input and upstream gradient through both, and the next block
+    takes the kernel path's output. Returns the blocks' records."""
+    import torch
+    from repro_torch.models.common import rms_norm, sinusoidal_positions
+    from repro_torch.models.transformer import (build_mrope_positions,
+                                                encoder_params, layer_params)
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    pos = torch.arange(T, device=x.device)[None].expand(B, T)
+    pos3 = None
+    if cfg.mrope:
+        pos3 = build_mrope_positions(cfg, B, T, device=x.device)
+        if extra is not None:
+            x = torch.cat([extra.to(x.dtype), x[:, extra.shape[1]:]], 1)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def upstream(like):
+        return torch.randn(like.shape, generator=gen, device="cuda").to(
+            like.dtype)
+    blocks, enc_out = [], None
+    if cfg.encdec:
+        e = extra.to(x.dtype) + sinusoidal_positions(
+            extra.shape[1], cfg.d_model).to(x.device, x.dtype)
+        for p in encoder_params(params, cfg):
+            e, rec = train_block_check(p, e, cfg, "attn", None, None, None,
+                                       False, upstream(e))
+            blocks.append(rec)
+        enc_out = rms_norm(e, params["enc_norm"], cfg.norm_eps)
+    for kind, p in layer_params(params, cfg):
+        x, rec = train_block_check(p, x, cfg, kind, pos, pos3, enc_out, True,
+                                   upstream(x))
+        blocks.append(rec)
+    return blocks
+
+
+def lm_train_layers(arch, params, cfg, args):
+    """``lm_train_<arch>_layers``: every block forward and backward on
+    step 1's hidden states (client 0's first batch of the run ``args``
+    gives, with its stub) through the kernels and through their plain
+    versions, teacher forced. This is the check that stands for rwkv6's
+    kernel-vs-plain run (its 32 random-init bf16 layers are chaotic), and
+    beside the end-to-end ones it holds each layer."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    batch = next(launch_train.client_batches(
+        args, cfg.vocab_size, "cuda",
+        launch_train.stub_embeds(args, cfg, "cuda")))
+    extra = batch.get("extra")
+    blocks = train_teacher_forced(params, cfg, batch["tokens"][0],
+                                  None if extra is None else extra[0])
+    dense = [r for r in blocks if "update_err" in r]
+    rec = {"phase": f"lm_train_{LM_PHASES[arch][0]}_layers", "arch": arch,
+           "layers": cfg.n_layers, "blocks": len(blocks),
+           "layer_update_err_vs_plain": max(
+               (r["update_err"] for r in dense), default=None),
+           "grad_err_vs_plain": max((r["grad_err"] for r in dense),
+                                    default=None),
+           "moe_blocks": [r for r in blocks if "update_rel_l2" in r],
+           "tolerance": f"max|a-b|/max|b| <= {BF16_MODEL_TOL}, every dense "
+                        f"block on the same input and upstream gradient; "
+                        f"MoE blocks relative L2 <= {BF16_MODEL_TOL} or "
+                        f"{MOE_FLOOR_FACTOR} x the floor of a {MOE_NUDGE} "
+                        f"nudge"}
+    torch.cuda.synchronize()
+    bad = [r for r in blocks if not r["ok"]]
+    emit(rec)
+    if bad:
+        fail(f"lm_train {arch}: blocks off the plain kernels: {bad}")
+    return rec
+
+
+def plain_decision_sliced(g, idx, block, rows=8192):
+    """The plain decision over a flat leaf (1, size), ``rows`` block rows
+    at a time (a 1.61-billion-element leaf whole would hold ~50 GB of
+    int64 sort keys): gg summed over the slices in fp32."""
+    import torch
+    from repro_torch.kernels import ref
+    nb = idx.shape[1]
+    outs = []
+    for r0 in range(0, nb, rows):
+        r1 = min(nb, r0 + rows)
+        part = g[:, r0 * block:r1 * block]
+        outs.append(ref.lbgm_sparse_decision_ref(part, idx[:, r0:r1],
+                                                 block=block))
+    return (sum(o[0] for o in outs),
+            *(torch.cat([o[i] for o in outs], 1) for i in (1, 2, 3)))
+
+
+def leaf_decision_record(g, idx, k_frac):
+    """The decision on one leaf's real gradient (a flat (1, size) bf16
+    leaf as the trainer passes it) against its plain version: index sets
+    and values exact, ||g||² within 1e-5; its time, bound, plain time and
+    ``torch.topk``'s."""
+    import torch
+    from repro_torch.core.lbgm import _block_layout
+    from repro_torch.kernels import ops, ref
+    nb, block, kb = _block_layout(g.shape[1], k_frac)
+    got = ops.lbgm_sparse_decision(g, idx, two_pass=False, block=block)
+    want = plain_decision_sliced(g, idx, block)
+    torch.cuda.synchronize()
+    exact = torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]) \
+        and torch.equal(got[1], want[1])
+    gg_err = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+    del got, want
+    live = -(-g.shape[1] // block)
+    bnd, by = bound_ms(g.shape[1] * g.element_size() + live * kb * 4
+                       + 3 * nb * kb * 4 + 4, 2 * g.shape[1])
+    padded = ref.flat_to_blocks(g, nb, block)
+    return {"shape": [1, g.shape[1], nb, block, kb], "live_rows": live,
+            "dtype": str(g.dtype).split(".")[-1],
+            "exact_vs_plain": exact, "gg_rel_err": gg_err,
+            "ms": time_ms(lambda: ops.lbgm_sparse_decision(
+                g, idx, two_pass=False, block=block), n=10),
+            "bound_ms": bnd, "bound_by": by,
+            "plain_ms": time_ms(lambda: plain_decision_sliced(g, idx, block),
+                                n=3),
+            "library_ms": time_ms(lambda: torch.topk(padded.abs(), kb,
+                                                     dim=-1), n=3),
+            "library_call": "torch.topk of |g| per row of the layout (the "
+                            "selection only)"}
+
+
+def lm_train_topk(arch, params, cfg):
+    """``lm_train_topk_qwen3`` / ``lm_train_mixtral`` (``TOPK_RUNS``):
+    ``make_train_step`` in fsdp with the top-k store at k_frac 0.01 at
+    full width (mixtral cut in depth only) from the card's seed-0
+    weights: the decision kernel on every leaf of every client (the
+    stacked expert leaves included) and flash per ``train_launches``, and
+    no other kernel; the decision on one leaf's step-2 gradient (client
+    0) held exactly against the plain version and timed; mixtral also
+    held end to end against the plain kernels' run (``vs_plain``)."""
     import dataclasses
     import torch
+    from repro_torch.launch import train as launch_train
+    phase, _, K, b, T, steps, leaf, held = TOPK_RUNS[arch]
+    k_frac = 0.01
+    cfg = dataclasses.replace(cfg, dp_mode="fsdp", lbgm=dataclasses.replace(
+        cfg.lbgm, variant="topk", k_frac=k_frac))
+    args = launch_train.parse_args(train_argv(arch, K, b, T, steps))
+    seen = {}
+
+    def capture(step, client, grad, lbg):
+        if step == 1 and client == 0:
+            seen["g"] = grad[leaf].reshape(1, -1).clone()
+            seen["idx"] = lbg[leaf]["idx"].clone()
+    history, rec, peak = train_run(cfg, K, args, steps + 1, params=params,
+                                   capture=capture, keep_update=held,
+                                   profiled=steps)
+    want = train_launches(cfg, K)
+    expect_launches(phase, rec, want)
+    keep_train_shapes(rec)
+    out = train_record(phase, arch, cfg, K, b, T, rec, history, peak)
+    out["profile"] = rec["profile"]
+    out["sin2"] = rec["sin2"]
+    if held:
+        def plain_run():
+            h, r, _ = train_run(cfg, K, args, steps, params=params,
+                                plain=True, compare_update=rec["update"],
+                                keep_update=True)
+            expect_launches(f"{phase} (plain kernels)", r, {
+                k: (0 if k in LM_KERNELS else n) for k, n in want.items()})
+            return h, r
+        out["vs_plain"] = vs_plain(
+            phase, history, rec, plain_run,
+            lambda upd: train_run(cfg, K, args, 1, params=params, plain=True,
+                                  nudge=TRAIN_NUDGE, compare_update=upd)[1][
+                "update_rel_l2"])
+    rec["update"] = None
+    dec = leaf_decision_record(seen.pop("g"), seen.pop("idx"), k_frac)
+    out[f"{leaf.split('/')[-1]}_decision"] = dec
+    if arch != "qwen3-1.7b":
+        TRAIN_SHAPE_RECORDS.append(("lbgm_sparse_decision", dec))
+    torch.cuda.empty_cache()
+    emit(out)
+    if not dec["exact_vs_plain"] or dec["gg_rel_err"] > 1e-5:
+        fail(f"{phase}: the {leaf} leaf's decision differs from the plain "
+             f"version (exact {dec['exact_vs_plain']}, ||g||^2 "
+             f"{dec['gg_rel_err']:.3g})")
+    return out
+
+
+def lm_train_fp32_vs_plain(arch, K=2, b=1, T=128, steps=2):
+    """``lm_train_mixtral_fp32``: ``arch`` at full width, cut in depth
+    (``CARD_CPU_DEPTH``), fp32, in its config's own mode (mixtral: fsdp,
+    the top-k store at k_frac 0.01), the weights drawn on the card from
+    seed 0: ``make_train_step`` through the kernels (the fp32 flash kernel,
+    the decision on every leaf, the stacked experts included) against the
+    same steps under the plain flash, held as the card-vs-CPU phases hold
+    theirs (step 1's loss within TRAIN_CPU_LOSS_RTOL, its update within
+    the larger of TRAIN_CPU_UPDATE_RTOL and twice the floor of a
+    FL_CPU_NUDGE nudge, decisions equal where sin² lies farther than
+    TRAIN_CPU_MARGIN from delta). The tight end-to-end check of a MoE
+    training step, for an arch whose CPU step does not fit the host."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
-    from repro_torch.models.transformer import init_lm
+    phase = f"lm_train_{LM_PHASES[arch][0]}_fp32"
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              **CARD_CPU_DEPTH[arch])
+    args = launch_train.parse_args(train_argv(arch, K, b, T, steps))
+    t0 = time.perf_counter()
+    history, rec, peak = train_run(cfg, K, args, steps, keep_update=True)
+    want = train_launches(cfg, K)
+    expect_launches(phase, rec, want)
+
+    def plain_run():
+        h, r, _ = train_run(cfg, K, args, steps, plain=True,
+                            compare_update=rec["update"], keep_update=True)
+        expect_launches(f"{phase} (plain kernels)", r, {
+            k: (0 if k in LM_KERNELS else n) for k, n in want.items()})
+        return h, r
+    out = {"phase": phase, "arch": arch, "dtype": "float32",
+           "layers": cfg.n_layers, "dp_mode": cfg.dp_mode,
+           "lbg_variant": cfg.lbgm.variant, "k_frac": cfg.lbgm.k_frac,
+           "clients": K, "batch": b, "seq_len": T, "steps": steps,
+           "losses": [h["loss"] for h in history],
+           "frac_scalar": [h["frac_scalar"] for h in history],
+           "launches_per_step": rec["launches"][-1], "peak_gb": peak,
+           "sin2": rec["sin2"],
+           "reduced": [f"depth: {cfg.n_layers} of "
+                       f"{get_config(arch).n_layers} layers",
+                       f"T {T}, K {K}, b {b}"]}
+    out["vs_plain"] = vs_plain(
+        phase, history, rec, plain_run,
+        lambda upd: train_run(cfg, K, args, 1, plain=True,
+                              nudge=FL_CPU_NUDGE, compare_update=upd)[1][
+            "update_rel_l2"],
+        loss_rtol=TRAIN_CPU_LOSS_RTOL, update_rtol=TRAIN_CPU_UPDATE_RTOL,
+        nudge=FL_CPU_NUDGE, margin_of=TRAIN_CPU_MARGIN)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+#: lm_train_card_vs_cpu: arch -> T, at the depths of ``CARD_CPU_DEPTH``,
+#: in the configs' own mode (replicated, dense "full"), heaviest first
+#: (the CPU worker takes them in this order). The zoo runs at T 128,
+#: qwen2-vl at 272 (its 256 stub patches and 16 text positions). mixtral
+#: is held on the card alone (``lm_train_mixtral_fp32``): its one fp32
+#: layer is 11.6 GB of params, and its CPU step ran the host past its 96
+#: GiB in the replicated dense mode and in its own fsdp top-k mode
+TRAIN_CARD_CPU_T = {"recurrentgemma-2b": 128, "qwen2-vl-2b": 272,
+                    "qwen3-1.7b": 256, "rwkv6-3b": 256, "whisper-base": 128}
+
+
+def lm_train_card_vs_cpu(worker, inputs, K=2, b=1, steps=2):
+    """The training archs at full width, cut in depth (``CARD_CPU_DEPTH``),
+    fp32, in the configs' own mode: ``make_train_step`` on the card
+    and on the CPU (``worker``'s ``train_cpu_side``) from the same params
+    (drawn on the host) and batches (with the stub, drawn on the host);
+    ``inputs[arch]`` is a future of ``train_cpu_inputs``, drawn beside the
+    card. Step 1's loss and aggregated update, and every decision where
+    sin² lies farther than 1e-5 from delta (step 2 is the first whose LBGs
+    are not zero); the launches of ``train_launches`` and no other kernel;
+    the host memory each process reached."""
+    import torch
     from repro_torch.train import trainer as tr
     out = {}
-    for arch, kernel in LM_KERNEL.items():
-        cfg = dataclasses.replace(get_config(arch), n_layers=2,
-                                  dtype="float32")
-        cpu, _ = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
-        args = launch_train.parse_args(
-            ["--clients", str(K), "--batch", str(b), "--seq", str(T),
-             "--pool", "1"])
-        batch = next(launch_train.client_batches(args, cfg.vocab_size,
-                                                 "cpu"))
-        runs = {}
-        for name, dev in (("card", "cuda"), ("cpu", "cpu")):
-            state, _ = tr.init_train_state(None, cfg, K, device=dev,
-                                           params=cpu)
-            on_dev = {k: v.to(dev) for k, v in batch.items()}
-            update = runs["card"][1]["update"] if name == "cpu" else None
-            with train_probe(keep_update=name == "card",
-                             compare_update=update) as rec:
-                step = tr.make_train_step(cfg, K, 0.05, delta=TRAIN_DELTA)
-                losses = []
-                for _ in range(steps):
-                    state, m = step(state, on_dev)
-                    losses.append(float(m["loss"]))
-            runs[name] = (losses, rec)
-            del state
-        (lc, rc), (lp, rp) = runs["card"], runs["cpu"]
+    for arch, T in TRAIN_CARD_CPU_T.items():
+        t0 = time.perf_counter()
+        cfg, params, batch = inputs.pop(arch).result()
+        state, _ = tr.init_train_state(None, cfg, K, device="cuda",
+                                       params=params)
+        del params
+        on_dev = {k: v.cuda() for k, v in batch.items()}
+        with train_probe(keep_update=True) as rc:
+            step = tr.make_train_step(cfg, K, 0.05, delta=TRAIN_DELTA)
+            lc = []
+            for _ in range(steps):
+                state, m = step(state, on_dev)
+                lc.append(float(m["loss"]))
+        del state, on_dev
+        torch.cuda.empty_cache()
+        card_s = time.perf_counter() - t0
+        rp = worker.result(f"train-{arch}")
+        lp = rp["losses"]
+        upd = update_rel_l2(rp.pop("update"), rc["update"])
+        rc["update"] = None
         expect_launches(f"lm_train_card_vs_cpu {arch}", rc,
-                        {kernel: 2 * cfg.n_layers * K, "lbgm_projection": K})
+                        train_launches(cfg, K))
         loss_err = abs(lc[0] - lp[0]) / abs(lp[0])
         margin = decisions_agree(f"lm_train_card_vs_cpu {arch}", rc, rp,
                                  TRAIN_DELTA, TRAIN_CPU_MARGIN)
-        out[arch] = {"losses": lc, "cpu_losses": lp,
+        out[arch] = {"layers": cfg.n_layers, "seq_len": T,
+                     "losses": lc, "cpu_losses": lp,
                      "step1_loss_rel_err": loss_err,
-                     "step1_update_rel_l2": rp["update_rel_l2"],
+                     "step1_update_rel_l2": upd,
                      "sin2": rc["sin2"], "cpu_sin2": rp["sin2"],
                      "smallest_sin2_margin": margin,
-                     "launches_per_step": rc["launches"][-1]}
-        if loss_err > TRAIN_CPU_LOSS_RTOL or \
-                rp["update_rel_l2"] > TRAIN_CPU_UPDATE_RTOL:
+                     "launches_per_step": rc["launches"][-1],
+                     "card_s": card_s, "cpu_s": rp["seconds"],
+                     "cpu_read_at_s": rp["read_at_s"],
+                     "waited_for_cpu_s": rp["waited_s"],
+                     "worker_peak_rss_gib": rp["peak_rss_gib"]}
+        if loss_err > TRAIN_CPU_LOSS_RTOL or upd > TRAIN_CPU_UPDATE_RTOL:
             fail(f"lm_train_card_vs_cpu {arch}: step 1 loss off by "
-                 f"{loss_err:.3g}, update by {rp['update_rel_l2']:.3g}")
-        del cpu, runs
-        torch.cuda.empty_cache()
-    emit({"phase": "lm_train_card_vs_cpu", "layers": 2, "dtype": "float32",
-          "clients": K, "batch": b, "seq_len": T, "steps": steps,
+                 f"{loss_err:.3g}, update by {upd:.3g}")
+    emit({"phase": "lm_train_card_vs_cpu", "dtype": "float32",
+          "clients": K, "batch": b, "steps": steps,
+          "cpu_side": f"a worker process beside the card's phases "
+                      f"({CPU_WORKER_THREADS} threads)",
           "tolerance": f"step 1 loss rtol {TRAIN_CPU_LOSS_RTOL}, update "
                        f"relative L2 {TRAIN_CPU_UPDATE_RTOL}, decisions "
                        f"equal where sin² lies > {TRAIN_CPU_MARGIN} from "
                        f"delta in both runs",
+          "reduced": ["depth: qwen3, rwkv6 and qwen2-vl 2 layers, "
+                      "recurrentgemma 3, whisper 2 + 2",
+                      "T 128 (recurrentgemma, whisper), 272 (qwen2-vl); "
+                      "mixtral held on the card alone "
+                      "(lm_train_mixtral_fp32: host memory)"],
+          "host": host_memory(),
           "archs": out})
     return out
 
@@ -3446,7 +3832,8 @@ def lm_train_card_vs_cpu(K=2, b=1, T=256, steps=2):
 #: round's gradient lay near orthogonal to the last, sin² > 0.99999, and
 #: no round recycled: NVIDIA H100 80GB HBM3, 700 W)
 FL_LM_SPEC = ROOT / "examples" / "specs" / "qwen3_fl_lm.json"
-FL_LM_VOCAB = {"qwen3-1.7b": 151936, "rwkv6-3b": 65536}
+FL_LM_VOCAB = {"qwen3-1.7b": 151936, "rwkv6-3b": 65536,
+               "mixtral-8x22b": 32768}
 #: card against CPU in fp32 at depth 2: round 1's loss (rtol) and
 #: aggregated update (relative L2: FL_CPU_UPDATE_RTOL or, where larger,
 #: twice the model's own floor, the card's round against itself with the
@@ -3488,7 +3875,6 @@ def fl_probe(keep_update=False, compare_update=None, profile_round=None):
     (``compare_update``: relative L2). Round ``profile_round`` runs under
     ``torch.profiler`` (kernel and copy ms, idle share); a ``topk-host``
     engine's host bank and streamed chunk bytes are recorded."""
-    import torch
     from repro_torch.fed import engine as fe
     from repro_torch.kernels import _build
     rec = {"ms": [], "sgd_ms": [], "launches": [], "sin2": [], "sent": [],
@@ -3503,10 +3889,10 @@ def fl_probe(keep_update=False, compare_update=None, profile_round=None):
         update = real_make(self)
 
         def timed(*a):
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             out = update(*a)
-            torch.cuda.synchronize()
+            sync()
             rec["sgd_ms"][-1] += (time.perf_counter() - t0) * 1e3
             return out
         return timed
@@ -3523,17 +3909,12 @@ def fl_probe(keep_update=False, compare_update=None, profile_round=None):
             if keep_update:
                 rec["update"] = {k: v.cpu() for k, v in agg.items()}
             if compare_update is not None:
-                num = den = 0.0
-                for k, v in agg.items():
-                    w = compare_update[k].to(v.device)
-                    num += float(((v - w) ** 2).sum(dtype=torch.float64))
-                    den += float((w ** 2).sum(dtype=torch.float64))
-                rec["update_rel_l2"] = (num / max(den, 1e-300)) ** 0.5
+                rec["update_rel_l2"] = update_rel_l2(agg, compare_update)
         return out
 
     def run_round(self, src):
         rec["sgd_ms"].append(0.0)
-        torch.cuda.synchronize()
+        sync()
         _build.reset_launch_counts()
         r = len(rec["ms"]) + 1
         m, wall, prof = timed_round(lambda: real_round(self, src),
@@ -3610,20 +3991,21 @@ def fl_lm_run(spec, plain=False, via_cli=None, params=None, **probe):
 
 def fl_lm_expected(spec):
     """Launches per round of each kernel the spec's path runs: flash or
-    the scan twice per layer per local step per client (the forward and
-    the block's remat recompute); the projection once per chunk (dense
-    store); the decision once per leaf per chunk (top-k store); the
-    dequant fold once per leaf per chunk (top-k store, lossy codec, the
-    streaming "mean" fold: the collect rules decode in plain PyTorch)."""
-    from repro_torch.configs import get_config
+    the scan twice per call of ``lm_launches`` per local step per client
+    (the forward and the block's remat recompute); the projection once per
+    chunk (dense store); the decision once per leaf per chunk (top-k
+    store); the dequant fold once per leaf per chunk (top-k store, lossy
+    codec, the streaming "mean" fold: the collect rules decode in plain
+    PyTorch)."""
     from repro_torch.fed.engine import pick_chunk
     from repro_torch.fed.experiment import MODELS
     fl = spec.fl
-    kw = dict(spec.model.kw)
-    leaves = len(MODELS.get("lm")(seed=0, device="meta", **kw)[0])
-    layers = kw.get("n_layers") or get_config(kw["arch"]).n_layers
+    leaves = len(MODELS.get("lm")(seed=0, device="meta",
+                                  **spec.model.kw)[0])
+    cfg = get_cfg(spec)
     chunks = -(-fl.num_clients // pick_chunk(fl.num_clients, fl.chunk_size))
-    want = {LM_KERNEL[kw["arch"]]: 2 * layers * fl.tau * fl.num_clients}
+    want = {k: 2 * n * fl.tau * fl.num_clients
+            for k, n in lm_launches(cfg).items()}
     if fl.lbg_variant in ("topk", "topk-host"):
         want["lbgm_sparse_decision"] = leaves * chunks
         if fl.codec in ("int8", "fp8") and fl.aggregator == "mean":
@@ -3662,7 +4044,8 @@ def fl_lm_record(phase, spec, history, final, rec, peak, want, **extra):
             "delta": fl.delta_threshold, "store": fl.lbg_variant,
             "lbg_kw": fl.lbg_kw, "codec": fl.codec,
             "rounds": len(history), "ms_per_round": ms,
-            "ms_per_round_of": "the mean of rounds 2-3",
+            "ms_per_round_of": (f"the mean of rounds 2-{len(rec['ms'])}"
+                                if len(rec["ms"]) > 2 else "round 2"),
             "round_ms": rec["ms"], "local_sgd_ms": rec["sgd_ms"],
             "tokens_per_round": tokens,
             "tokens_per_s": tokens / ms * 1e3, "peak_mem_gb": peak,
@@ -3676,13 +4059,14 @@ def fl_lm_record(phase, spec, history, final, rec, peak, want, **extra):
             **extra}
 
 
-def fl_lm_update_floor(spec, plain_update):
+def fl_lm_update_floor(spec, plain_update, params=None):
     """The model's own spread of round 1's aggregated update: round 1
     under the plain kernels with every attention output moved by
     TRAIN_NUDGE relative (Gaussian), against ``plain_update``."""
     one = spec.with_overrides({"rounds": 1, "eval.final": False})
     with plain_lm_kernels(), nudged_lm_kernels(TRAIN_NUDGE):
-        _, _, rec, _ = fl_lm_run(one, compare_update=plain_update)
+        _, _, rec, _ = fl_lm_run(one, compare_update=plain_update,
+                                 params=params)
     return rec["update_rel_l2"]
 
 
@@ -3707,14 +4091,62 @@ def fl_lm_profile(spec, warm=2):
     return prof
 
 
+def fl_vs_plain(phase, spec, history, rec, want, rounds, params=None):
+    """The kernel run's round 1 against ``rounds`` rounds of ``spec`` under
+    the plain kernels from the same weights: the plain run launches no LM
+    kernel and the rest of ``want``; round 1's loss within TRAIN_LOSS_RTOL,
+    its update within the larger of TRAIN_UPDATE_RTOL and twice the
+    model's own floor (``fl_lm_update_floor``), decisions equal where sin²
+    lies farther than TRAIN_MARGIN from delta. Returns (the record's
+    ``vs_plain``, whether loss and update hold, the plain history)."""
+    phist, _, prec, _ = fl_lm_run(spec.with_overrides({"rounds": rounds}),
+                                  plain=True, params=params,
+                                  compare_update=rec["update"],
+                                  keep_update=True)
+    rec["update"] = None
+    for r, got in enumerate(prec["launches"]):
+        for k, n in want.items():
+            n = 0 if k in LM_KERNELS else n
+            if got.get(k, 0) != n:
+                fail(f"{phase} (plain kernels): round {r + 1} launched "
+                     f"{got.get(k, 0)} {k}, want {n}")
+    floor = fl_lm_update_floor(spec, prec["update"], params=params)
+    prec["update"] = None
+    tol = max(TRAIN_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
+    loss_err = abs(history[0]["loss"] - phist[0]["loss"]) / abs(
+        phist[0]["loss"])
+    margin = decisions_agree(f"{phase} vs plain", rec, prec,
+                             spec.fl.delta_threshold, TRAIN_MARGIN)
+    out = {
+        "rounds": rounds,
+        "round1_loss_rel_err": loss_err,
+        "round1_update_rel_l2": prec["update_rel_l2"],
+        "round1_update_floor_rel_l2": floor,
+        "smallest_sin2_margin": margin,
+        "plain_losses": [h["loss"] for h in phist],
+        "plain_frac_scalar": [h["frac_scalar"] for h in phist],
+        "plain_uplink_floats": [h["uplink_floats"] for h in phist],
+        "plain_ms_per_round": prec["ms"],
+        "tolerance": f"loss rtol {TRAIN_LOSS_RTOL}; update relative L2 "
+                     f"{tol:.4g} (the larger of {TRAIN_UPDATE_RTOL} and "
+                     f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor: the plain "
+                     f"round against itself with attention outputs moved "
+                     f"by {TRAIN_NUDGE} relative); decisions equal where "
+                     f"sin² lies > {TRAIN_MARGIN} from delta in both runs"}
+    ok = loss_err <= TRAIN_LOSS_RTOL and prec["update_rel_l2"] <= tol
+    if not ok:
+        out["failure"] = (f"{phase}: round 1 off the plain kernels' run: "
+                          f"loss {loss_err:.3g}, update "
+                          f"{prec['update_rel_l2']:.3g} (floor {floor:.3g}, "
+                          f"tolerance {tol:.3g})")
+    return out, ok, phist
+
+
 def fl_lm_qwen3_dense():
     """``fl_lm_qwen3_dense``: the spec file as it is through the CLI's
     ``main`` on the card (K=4, chunk 1, dense store): flash 448 and the
-    projection 4 launches a round; the same 3 rounds under the plain
-    kernels (round 1's loss within TRAIN_LOSS_RTOL, its update within the
-    larger of TRAIN_UPDATE_RTOL and twice the model's own floor, decisions
-    equal where sin² lies farther than TRAIN_MARGIN from delta); then
-    round 3 of a further run profiled."""
+    projection 4 launches a round; 2 rounds under the plain kernels
+    (``fl_vs_plain``); then round 2 of a further run profiled."""
     spec = fl_lm_spec()
     want = fl_lm_expected(spec)
     history, final, rec, peak = fl_lm_run(spec, via_cli=FL_LM_SPEC,
@@ -3722,50 +4154,19 @@ def fl_lm_qwen3_dense():
     out = fl_lm_record("fl_lm_qwen3_dense", spec, history, final, rec, peak,
                        want, entry="python -m repro_torch.fed.run --spec "
                        f"{os.path.relpath(FL_LM_SPEC, ROOT)} (its main)")
-    phist, _, prec, _ = fl_lm_run(spec, plain=True,
-                                  compare_update=rec["update"],
-                                  keep_update=True)
-    rec["update"] = None
-    plain_want = {k: (0 if k == "flash_attention" else n)
-                  for k, n in want.items()}
-    for r, got in enumerate(prec["launches"]):
-        for k, n in plain_want.items():
-            if got.get(k, 0) != n:
-                fail(f"fl_lm_qwen3_dense (plain kernels): round {r + 1} "
-                     f"launched {got.get(k, 0)} {k}, want {n}")
-    floor = fl_lm_update_floor(spec, prec["update"])
-    prec["update"] = None
-    tol = max(TRAIN_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
-    loss_err = abs(history[0]["loss"] - phist[0]["loss"]) / abs(
-        phist[0]["loss"])
-    margin = decisions_agree("fl_lm_qwen3_dense vs plain", rec, prec,
-                             spec.fl.delta_threshold, TRAIN_MARGIN)
-    out["profile"] = fl_lm_profile(spec)
-    out["vs_plain"] = {
-        "round1_loss_rel_err": loss_err,
-        "round1_update_rel_l2": prec["update_rel_l2"],
-        "round1_update_floor_rel_l2": floor,
-        "smallest_sin2_margin": margin,
-        "plain_losses": [h["loss"] for h in phist],
-        "plain_frac_scalar": [h["frac_scalar"] for h in phist],
-        "plain_ms_per_round": sum(prec["ms"][1:]) / 2,
-        "tolerance": f"loss rtol {TRAIN_LOSS_RTOL}; update relative L2 "
-                     f"{tol:.4g} (the larger of {TRAIN_UPDATE_RTOL} and "
-                     f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor: the plain "
-                     f"round against itself with attention outputs moved "
-                     f"by {TRAIN_NUDGE} relative); decisions equal where "
-                     f"sin² lies > {TRAIN_MARGIN} from delta in both runs"}
+    out["vs_plain"], ok, _ = fl_vs_plain("fl_lm_qwen3_dense", spec, history,
+                                         rec, want, 2)
+    out["profile"] = fl_lm_profile(spec, warm=1)
     emit(out)
-    if loss_err > TRAIN_LOSS_RTOL or prec["update_rel_l2"] > tol:
-        fail(f"fl_lm_qwen3_dense: round 1 off the plain kernels' run: loss "
-             f"{loss_err:.3g}, update {prec['update_rel_l2']:.3g} (floor "
-             f"{floor:.3g}, tolerance {tol:.3g})")
+    if not ok:
+        fail(out["vs_plain"]["failure"])
     return out
 
 
 def fl_lm_topk(phase, arch, **overrides):
     """``fl_lm_qwen3_topk_int8`` / ``fl_lm_rwkv6_topk``: the top-k store at
-    k_frac 0.01 through ``run_experiment`` on the card, 3 rounds. Returns
+    k_frac 0.01 through ``run_experiment`` on the card (3 rounds, rwkv6's
+    host-bound rounds 2). Returns
     the run's history."""
     spec = fl_lm_spec(arch, **{"fl.lbg_variant": "topk",
                                "fl.lbg_kw": {"k_frac": 0.01}, **overrides})
@@ -3775,6 +4176,58 @@ def fl_lm_topk(phase, arch, **overrides):
                        entry="repro_torch.fed.experiment.run_experiment")
     emit(out)
     return history
+
+
+def fl_lm_mixtral_topk(params, depth, rounds=3):
+    """``fl_lm_mixtral_topk``: mixtral-8x22b cut in depth only, with the
+    weights of ``lm_train_mixtral`` (``params``, on the card), through
+    ``run_experiment``: the ``"lm"`` component's client loop, K=2, chunk 1,
+    tau 2, b 1, T 2048, the top-k store at k_frac 0.01, ``rounds`` rounds,
+    the last profiled: flash and the decision (every leaf, the stacked
+    experts included) per ``fl_lm_expected`` and no other kernel; 2
+    rounds under the plain kernels, held as ``fl_lm_qwen3_dense`` holds
+    its run (round 1's
+    loss within TRAIN_LOSS_RTOL, its update within the larger of
+    TRAIN_UPDATE_RTOL and twice the model's own floor, decisions equal
+    where sin² lies farther than TRAIN_MARGIN from delta)."""
+    phase = "fl_lm_mixtral_topk"
+    spec = fl_lm_spec("mixtral-8x22b", **{
+        "model.kw.n_layers": depth, "fl.num_clients": 2, "data.kw.n": 2,
+        "fl.lbg_variant": "topk", "fl.lbg_kw": {"k_frac": 0.01},
+        "rounds": rounds})
+    want = fl_lm_expected(spec)
+    history, final, rec, peak = fl_lm_run(spec, params=params,
+                                          keep_update=True,
+                                          profile_round=rounds)
+    for r, got in enumerate(rec["launches"]):
+        only_launches(f"{phase}: round {r + 1}", got, want)
+    timed = rec["ms"][1:rounds - 1]
+    out = fl_lm_record(phase, spec, history, final, rec, peak, want,
+                       entry="repro_torch.fed.experiment.run_experiment",
+                       ms_per_round=median(timed),
+                       ms_per_round_of=f"rounds 2-{rounds - 1} (round "
+                                       f"{rounds} profiled)",
+                       profile=rec["profile"],
+                       reduced=[f"depth: {depth} of 56 layers"],
+                       model_flops=model_flops_share(
+                           get_cfg(spec), spec.fl.num_clients * spec.fl.tau,
+                           spec.fl.batch_size, spec.data.kw["seq_len"],
+                           median(timed)))
+    out["vs_plain"], ok, _ = fl_vs_plain(phase, spec, history, rec, want, 2,
+                                         params=params)
+    emit(out)
+    if not ok:
+        fail(out["vs_plain"]["failure"])
+    return out
+
+
+def get_cfg(spec):
+    """The arch config of an ``"lm"`` spec (its depth cut applied)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(spec.model.kw["arch"])
+    n = spec.model.kw.get("n_layers")
+    return dataclasses.replace(cfg, n_layers=n) if n else cfg
 
 
 def fl_lm_qwen3_buffered_scalar_median(plain_rounds=2):
@@ -3810,85 +4263,48 @@ def fl_lm_qwen3_buffered_scalar_median(plain_rounds=2):
                                spec.fl.attack_kw],
                        n_delivered=rec["n_delivered"],
                        n_evicted=rec["n_evicted"])
-    short = spec.with_overrides({"rounds": plain_rounds})
-    phist, _, prec, _ = fl_lm_run(short, plain=True,
-                                  compare_update=rec["update"],
-                                  keep_update=True)
-    rec["update"] = None
-    for r, got in enumerate(prec["launches"]):
-        for k, n in want.items():
-            n = 0 if k == "flash_attention" else n
-            if got.get(k, 0) != n:
-                fail(f"{phase} (plain kernels): round {r + 1} launched "
-                     f"{got.get(k, 0)} {k}, want {n}")
-    floor = fl_lm_update_floor(spec, prec["update"])
-    prec["update"] = None
-    tol = max(TRAIN_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
-    loss_err = abs(history[0]["loss"] - phist[0]["loss"]) / abs(
-        phist[0]["loss"])
-    margin = decisions_agree(f"{phase} vs plain", rec, prec,
-                             spec.fl.delta_threshold, TRAIN_MARGIN)
+    out["vs_plain"], ok, phist = fl_vs_plain(phase, spec, history, rec,
+                                             want, plain_rounds)
     for r, (a, b) in enumerate(zip(history, phist)):
-        if a["uplink_floats"] != b["uplink_floats"] and margin > \
-                TRAIN_MARGIN:
+        if a["uplink_floats"] != b["uplink_floats"] and \
+                out["vs_plain"]["smallest_sin2_margin"] > TRAIN_MARGIN:
             fail(f"{phase}: round {r + 1} uplink {a['uplink_floats']} vs "
                  f"{b['uplink_floats']} under the plain kernels")
-    out["vs_plain"] = {
-        "rounds": plain_rounds,
-        "round1_loss_rel_err": loss_err,
-        "round1_update_rel_l2": prec["update_rel_l2"],
-        "round1_update_floor_rel_l2": floor,
-        "smallest_sin2_margin": margin,
-        "plain_losses": [h["loss"] for h in phist],
-        "plain_frac_scalar": [h["frac_scalar"] for h in phist],
-        "plain_uplink_floats": [h["uplink_floats"] for h in phist],
-        "tolerance": f"loss rtol {TRAIN_LOSS_RTOL}; update relative L2 "
-                     f"{tol:.4g} (the larger of {TRAIN_UPDATE_RTOL} and "
-                     f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor); decisions "
-                     f"equal where sin² lies > {TRAIN_MARGIN} from delta"}
     emit(out)
-    if loss_err > TRAIN_LOSS_RTOL or prec["update_rel_l2"] > tol:
-        fail(f"{phase}: round 1 off the plain kernels' run: loss "
-             f"{loss_err:.3g}, update {prec['update_rel_l2']:.3g} (floor "
-             f"{floor:.3g}, tolerance {tol:.3g})")
+    if not ok:
+        fail(out["vs_plain"]["failure"])
     if not rec["n_delivered"]:
         fail(f"{phase}: no payload delivered in {spec.rounds} rounds")
     return out
 
 
-def fl_lm_card_vs_cpu(K=2, T=256, rounds=2):
+def fl_lm_card_vs_cpu(worker, inputs, K=2, T=256, rounds=2):
     """Both archs at full width, depth 2, fp32: 2 rounds of K=2, b=1,
     T=256 (dense store, FL_CPU_SEQS sequences per client) on the card
-    and on the CPU from the same params (drawn on the CPU):
-    ``uplink_floats``, ``frac_scalar``, ``wire_bytes`` and ``savings``
-    identical and losses within FL_CPU_LOSS_RTOL in every round; round 1's
-    aggregated update within the larger of FL_CPU_UPDATE_RTOL and twice
-    the model's own floor (``nudged_lm_kernels``), as the training phases
-    hold step 1."""
+    and on the CPU (``worker``'s ``fl_cpu_side``) from the same params
+    (drawn on the host): ``uplink_floats``, ``frac_scalar``,
+    ``wire_bytes`` and ``savings`` identical and losses within
+    FL_CPU_LOSS_RTOL in every round; round 1's aggregated update within
+    the larger of FL_CPU_UPDATE_RTOL and twice the model's own floor
+    (``nudged_lm_kernels``), as the training phases hold step 1.
+    ``inputs[arch]`` is a future of ``fl_cvc_inputs``."""
     import numpy as np
-    from repro_torch.fed.experiment import MODELS, run_experiment
     out = {}
     for arch in LM_KERNEL:
-        spec = fl_lm_spec(arch, **{
-            "model.kw.n_layers": 2, "model.kw.dtype": "float32",
-            "fl.num_clients": K, "data.kw.seq_len": T,
-            "data.kw.n": FL_CPU_SEQS * K, "rounds": rounds,
-            "eval.final": False})
-        p, _, _ = MODELS.get("lm")(seed=0, device="cpu", **spec.model.kw)
-        params = {k: v.numpy() for k, v in p.items()}
-        del p
+        spec, params = inputs.pop(arch).result()
         want = fl_lm_expected(spec)
         history, _, rec, _ = fl_lm_run(spec, params=params, keep_update=True)
         with nudged_lm_kernels(FL_CPU_NUDGE):
             _, _, frec, _ = fl_lm_run(spec.with_overrides({"rounds": 1}),
                                       params=params,
                                       compare_update=rec["update"])
+        del params
         floor = frec["update_rel_l2"]
         tol = max(FL_CPU_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
-        with fl_probe(compare_update=rec["update"]) as crec:
-            cpu = run_experiment(spec, device="cpu", params=params)
+        cpu = worker.result(f"fl-{arch}")
+        upd = update_rel_l2(cpu.pop("update"), rec["update"])
         rec["update"] = None
-        for r, (a, b) in enumerate(zip(history, cpu.history)):
+        for r, (a, b) in enumerate(zip(history, cpu["history"])):
             for k in ("uplink_floats", "frac_scalar", "wire_bytes",
                       "savings"):
                 if a[k] != b[k]:
@@ -3899,11 +4315,10 @@ def fl_lm_card_vs_cpu(K=2, T=256, rounds=2):
                 fail(f"fl_lm_card_vs_cpu {arch} round {r + 1}: loss "
                      f"{a['loss']} vs {b['loss']}")
         loss_err = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
-                    for a, b in zip(history, cpu.history)]
-        if crec["update_rel_l2"] > tol:
+                    for a, b in zip(history, cpu["history"])]
+        if upd > tol:
             fail(f"fl_lm_card_vs_cpu {arch}: round 1's update off by "
-                 f"{crec['update_rel_l2']:.3g} (floor {floor:.3g}, "
-                 f"tolerance {tol:.3g})")
+                 f"{upd:.3g} (floor {floor:.3g}, tolerance {tol:.3g})")
         for r, got in enumerate(rec["launches"]):
             for k, n in want.items():
                 if got.get(k, 0) != n:
@@ -3912,25 +4327,29 @@ def fl_lm_card_vs_cpu(K=2, T=256, rounds=2):
         delta = spec.fl.delta_threshold
         out[arch] = {
             "losses": [h["loss"] for h in history],
-            "cpu_losses": [h["loss"] for h in cpu.history],
+            "cpu_losses": [h["loss"] for h in cpu["history"]],
             "loss_rel_err": loss_err,
-            "round1_update_rel_l2": crec["update_rel_l2"],
+            "round1_update_rel_l2": upd,
             "round1_update_floor_rel_l2": floor,
             "round1_update_tolerance": tol,
             "frac_scalar": [h["frac_scalar"] for h in history],
             "uplink_floats": [h["uplink_floats"] for h in history],
             "wire_bytes": [h["wire_bytes"] for h in history],
-            "sin2": rec["sin2"], "cpu_sin2": [s.tolist() for s in cpu.sin2],
+            "sin2": rec["sin2"], "cpu_sin2": cpu["sin2"],
             "smallest_sin2_margin": min(
                 float(np.min(np.abs(np.asarray(s) - delta)))
                 for s in rec["sin2"]),
             "launches_per_round": rec["launches"],
             "ms_per_round": rec["ms"],
-            "cpu_ms_per_round": cpu.us_per_round / 1e3}
-        del cpu, params
+            "cpu_ms_per_round": cpu["ms_per_round"],
+            "cpu_s": cpu["seconds"], "cpu_read_at_s": cpu["read_at_s"],
+            "waited_for_cpu_s": cpu["waited_s"]}
+        del cpu
     emit({"phase": "fl_lm_card_vs_cpu", "layers": 2, "dtype": "float32",
           "K": K, "batch": 1, "seq_len": T, "rounds": rounds,
           "sequences_per_client": FL_CPU_SEQS,
+          "cpu_side": f"a worker process beside the card's phases "
+                      f"({CPU_WORKER_THREADS} threads)",
           "tolerance": "uplink_floats, frac_scalar, wire_bytes, savings "
                        f"identical and loss rtol {FL_CPU_LOSS_RTOL} in "
                        f"every round; round 1's update relative L2 the "
@@ -3947,8 +4366,9 @@ def fl_lm_card_vs_cpu(K=2, T=256, rounds=2):
 HIER_SPEC = ROOT / "examples" / "specs" / "hier_100k.json"
 #: the leaves of hier_100k's FCN (d_model 32), in sorted key order
 HIER_LEAF_SIZES = (32, 25088, 10, 320)
-#: the shipped spec's rounds, and the resume phase's checkpoint round
-HIER_ROUNDS, HIER_SAVE = 20, 10
+#: the shipped spec's rounds; the resume phase's checkpoint round and the
+#: round it resumes to (the spec checkpoints every 5 rounds)
+HIER_ROUNDS, HIER_SAVE, HIER_RESUMED = 20, 5, 10
 #: the rounds of the comparison runs (the shipped run is never cut)
 HIER_CMP_ROUNDS = 3
 #: the K = 100,000 topk-host peak may exceed the K = 10,000 peak by this
@@ -3992,14 +4412,14 @@ def timed_round(call, profiled=False):
     if not profiled:
         t0 = time.perf_counter()
         out = call()
-        torch.cuda.synchronize()
+        sync()
         return out, (time.perf_counter() - t0) * 1e3, None
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = call()
-        torch.cuda.synchronize()
+        sync()
         wall = (time.perf_counter() - t0) * 1e3
     kern, copy, n, top = device_split(prof)
     return out, wall, {
@@ -4137,7 +4557,7 @@ def hier_100k_topk_host(totals, tmp):
     t0 = time.perf_counter()
     res, rec, peak, launches, by_shape = hier_run(
         "hier_100k_topk_host", spec, totals,
-        keep_params_at=(HIER_CMP_ROUNDS, HIER_ROUNDS), profile_at=4)
+        keep_params_at=(HIER_CMP_ROUNDS, HIER_RESUMED), profile_at=4)
     seconds = time.perf_counter() - t0
     hist = res.history
     if len(hist) != HIER_ROUNDS or not all(
@@ -4230,9 +4650,9 @@ def hier_100k_vs_topk(totals, tmp, host):
 def hier_100k_resume(totals, tmp, host):
     """``hier_100k_resume``: ``python -m repro_torch.fed.run --spec
     examples/specs/hier_100k.json`` (its ``main``, in this process) for
-    10 rounds, which checkpoints at 5 and 10; then the same with
-    ``--rounds 20 --resume`` in a new engine: every record and the final
-    params equal the uninterrupted run's bit for bit."""
+    5 rounds, which checkpoints at 5; then the same with ``--rounds 10
+    --resume`` in a new engine: every record and the params at round 10
+    equal the uninterrupted run's bit for bit."""
     import torch
     from repro_torch.fed import run as fed_run
     from repro_torch.kernels import _build
@@ -4240,10 +4660,10 @@ def hier_100k_resume(totals, tmp, host):
     argv = ["--spec", str(HIER_SPEC), "--set", f"fl.ckpt_path={ckpt}"]
     outs = []
     t0 = time.perf_counter()
-    for rounds, extra in ((HIER_SAVE, []), (HIER_ROUNDS, ["--resume"])):
+    for rounds, extra in ((HIER_SAVE, []), (HIER_RESUMED, ["--resume"])):
         out = os.path.join(tmp, f"resume-{rounds}.json")
         _build.reset_launch_counts()
-        with round_probe(keep_params_at=(HIER_ROUNDS,)) as rec:
+        with round_probe(keep_params_at=(HIER_RESUMED,)) as rec:
             if fed_run.main(argv + ["--rounds", str(rounds), "--out", out]
                             + extra) != 0:
                 fail("hier_100k_resume: the CLI exited non-zero")
@@ -4253,22 +4673,22 @@ def hier_100k_resume(totals, tmp, host):
             outs.append((json.load(f)["records"], rec))
     seconds = time.perf_counter() - t0
     (first, _), (resumed, rec) = outs
-    if rec["rounds"] != list(range(HIER_SAVE + 1, HIER_ROUNDS + 1)):
+    if rec["rounds"] != list(range(HIER_SAVE + 1, HIER_RESUMED + 1)):
         fail(f"hier_100k_resume: the resumed run ran rounds {rec['rounds']}")
     for r, (a, b) in enumerate(zip(resumed, host["history"])):
         for k in HIST_KEYS:
             if a[k] != b[k]:
                 fail(f"hier_100k_resume round {r + 1}: {k} {a[k]} vs "
                      f"{b[k]} uninterrupted")
-    if len(resumed) != HIER_ROUNDS or first != resumed[:HIER_SAVE]:
-        fail("hier_100k_resume: the resumed records are not the first run's"
-             " 10 and 10 more")
-    pa, pb = rec["params"][HIER_ROUNDS], host["params"][HIER_ROUNDS]
+    if len(resumed) != HIER_RESUMED or first != resumed[:HIER_SAVE]:
+        fail(f"hier_100k_resume: the resumed records are not the first "
+             f"run's {HIER_SAVE} and {HIER_RESUMED - HIER_SAVE} more")
+    pa, pb = rec["params"][HIER_RESUMED], host["params"][HIER_RESUMED]
     diff = [k for k in pa if not torch.equal(pa[k], pb[k])]
     if diff:
         fail(f"hier_100k_resume: final params {diff} differ")
     out = {"phase": "hier_100k_resume", "saved_at": HIER_SAVE,
-           "resumed_to": HIER_ROUNDS, "bit_for_bit": True,
+           "resumed_to": HIER_RESUMED, "bit_for_bit": True,
            "seconds": seconds, "resumed_ms_per_round": steady_ms(rec),
            "entry": "python -m repro_torch.fed.run --spec "
                     f"{HIER_SPEC.relative_to(ROOT)} --resume (its main)"}
@@ -4368,11 +4788,217 @@ def fl_lm_qwen3_topk_host(totals, inmem):
     return out
 
 
+# ------------------------------------------------ CPU sides of card vs CPU
+
+#: intra-op threads of the worker that runs the card-vs-CPU phases' CPU
+#: sides beside the card's phases (of the host's 8 cores)
+CPU_WORKER_THREADS = 3
+
+
+def train_cpu_side(arch, T, K=2, b=1, steps=2):
+    """The CPU side of ``lm_train_card_vs_cpu`` for ``arch``: the weights
+    of ``train_cpu_params`` and ``launch.train``'s batch (with its stub),
+    ``make_train_step`` for ``steps`` steps. Returns the losses, every
+    client's sin² and decision, and step 1's aggregated update."""
+    from repro_torch.train import trainer as tr
+    cfg, params, batch = train_cpu_inputs(arch, T, K, b)
+    state, _ = tr.init_train_state(None, cfg, K, device="cpu",
+                                   params=params)
+    with train_probe(keep_update=True) as rec:
+        step = tr.make_train_step(cfg, K, 0.05, delta=TRAIN_DELTA)
+        losses = []
+        for _ in range(steps):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+    return {"losses": losses, "sin2": rec["sin2"], "sent": rec["sent"],
+            "update": rec["update"]}
+
+
+def train_cpu_inputs(arch, T, K, b):
+    """(config, params, batch) of a card-vs-CPU training job: the arch at
+    full width, ``CARD_CPU_DEPTH``'s depth, fp32; weights drawn on the
+    host from seed 0; ``launch.train``'s first batch of K clients, b
+    sequences of T tokens, with its stub embeddings."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import init_lm
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              **CARD_CPU_DEPTH[arch])
+    params, _ = init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    args = launch_train.parse_args(
+        ["--arch", arch, "--clients", str(K), "--batch", str(b),
+         "--seq", str(T), "--pool", "1"])
+    batch = next(launch_train.client_batches(
+        args, cfg.vocab_size, "cpu",
+        launch_train.stub_embeds(args, cfg, "cpu")))
+    return cfg, params, batch
+
+
+def fl_cpu_side(arch, K, T, rounds):
+    """The CPU side of ``fl_lm_card_vs_cpu`` for ``arch``: the spec of
+    ``fl_cvc_spec`` through ``run_experiment`` on the CPU from the
+    ``"lm"`` component's host draw of seed 0. Returns the history, every
+    round's sin², ms a round and round 1's aggregated update."""
+    from repro_torch.fed.experiment import run_experiment
+    spec, params = fl_cvc_inputs(arch, K, T, rounds)
+    with fl_probe(keep_update=True) as rec:
+        cpu = run_experiment(spec, device="cpu", params=params)
+    return {"history": cpu.history, "sin2": [s.tolist() for s in cpu.sin2],
+            "ms_per_round": cpu.us_per_round / 1e3, "update": rec["update"]}
+
+
+def fl_cvc_inputs(arch, K, T, rounds):
+    """(spec, params) of a card-vs-CPU FL job: ``arch`` at depth 2 in fp32,
+    K clients, FL_CPU_SEQS sequences of T tokens each, ``rounds`` rounds,
+    dense store; the ``"lm"`` component's weights drawn on the host from
+    seed 0, as numpy arrays."""
+    from repro_torch.fed.experiment import MODELS
+    spec = fl_lm_spec(arch, **{
+        "model.kw.n_layers": 2, "model.kw.dtype": "float32",
+        "fl.num_clients": K, "data.kw.seq_len": T,
+        "data.kw.n": FL_CPU_SEQS * K, "rounds": rounds,
+        "eval.final": False})
+    p, _, _ = MODELS.get("lm")(seed=0, device="cpu", **spec.model.kw)
+    return spec, {k: v.numpy() for k, v in p.items()}
+
+
+CPU_SIDES = {"train": train_cpu_side, "fl": fl_cpu_side}
+
+
+def cpu_worker(root, jobs, out_dir):
+    """The worker process: each job's CPU side in order, its result saved
+    to ``out_dir/<name>.pt`` (written whole, then renamed); an exception
+    is saved as the job's result. It never touches the card."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    for kind, name, kw in jobs:
+        t0 = time.perf_counter()
+        try:
+            res = CPU_SIDES[kind](**kw)
+        except BaseException:
+            res = {"error": traceback.format_exc()}
+        res["seconds"] = time.perf_counter() - t0
+        res["peak_rss_gib"] = peak_rss_gib()
+        part = os.path.join(out_dir, name + ".part")
+        torch.save(res, part)
+        del res
+        os.replace(part, os.path.join(out_dir, name + ".pt"))
+
+
+class CpuWorker:
+    """The card-vs-CPU phases' CPU sides, run in a spawned process beside
+    the card's phases (``CPU_WORKER_THREADS`` threads): the jobs start
+    when it is made, and ``result(name)`` waits for one, reads it and
+    deletes its file. ``close()`` ends the process."""
+
+    def __init__(self, jobs, out_dir):
+        import multiprocessing
+        self.out_dir = out_dir
+        self.t0 = time.perf_counter()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_worker, args=(str(ROOT), jobs, out_dir), daemon=True)
+        self.proc.start()
+
+    def result(self, name, timeout=900):
+        import torch
+        path = os.path.join(self.out_dir, name + ".pt")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if not self.proc.is_alive():
+                fail(f"the CPU worker ended (exit {self.proc.exitcode}) "
+                     f"before {name}")
+            if time.perf_counter() - t0 > timeout:
+                fail(f"the CPU worker gave no {name} in {timeout} s")
+            time.sleep(0.5)
+        res = torch.load(path, mmap=True)
+        os.remove(path)
+        if "error" in res:
+            fail(f"the CPU side of {name} raised:\n{res['error']}")
+        res["waited_s"] = time.perf_counter() - t0
+        res["read_at_s"] = time.perf_counter() - self.t0
+        return res
+
+    def close(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join(timeout=30)
+
+
+def peak_rss_gib():
+    """This process's peak resident memory so far, GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def host_memory():
+    """The host's memory (GiB, from /proc/meminfo) and the script's own
+    peak resident memory so far."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            if k in ("MemTotal", "MemAvailable"):
+                info[k] = int(v.split()[0]) / 2 ** 20
+    return {"total_gib": info.get("MemTotal"),
+            "available_gib": info.get("MemAvailable"),
+            "main_peak_rss_gib": peak_rss_gib()}
+
+
+def update_rel_l2(got, want):
+    """||got - want|| / ||want|| over every leaf, in fp64, on ``got``'s
+    device."""
+    import torch
+    num = den = 0.0
+    for k, v in got.items():
+        w = want[k].to(v.device)
+        num += float(((v - w) ** 2).sum(dtype=torch.float64))
+        den += float((w ** 2).sum(dtype=torch.float64))
+    return (num / max(den, 1e-300)) ** 0.5
+
+
 # ------------------------------------------------------------------- main
+
+def lm_phases(totals):
+    """LM serving, then training: full-width qwen3-1.7b and rwkv6-3b, then
+    the rest of the zoo (MoE cut in depth), one model at a time; the
+    training phases that start from the serving weights (seed 0, as
+    launch.train draws them) run before they go, mixtral's top-k training
+    and FL round on a model of their own (``TOPK_RUNS``' depth). The
+    training launches stay in their own records, out of the totals."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    with tempfile.TemporaryDirectory() as out_dir:
+        for arch in (*LM_KERNEL, *ZOO):
+            cfg, params = lm_model(arch)
+            lm_prefill(arch, cfg, params, totals)
+            lm_serve(arch, cfg, params, totals)
+            if arch in TRAIN_RUNS:
+                lm_train_layers(arch, params, cfg, launch_train.parse_args(
+                    train_argv(arch, *TRAIN_RUNS[arch])))
+            if arch == "qwen3-1.7b":
+                lm_train_topk(arch, params, cfg)
+            del params
+            torch.cuda.empty_cache()
+            if arch in TRAIN_RUNS:
+                lm_train(arch, out_dir)
+            if arch in TOPK_RUNS and arch != "qwen3-1.7b":
+                _, depth, K, b, T, steps, _, _ = TOPK_RUNS[arch]
+                cfg, params = lm_model(arch, depth)
+                lm_train_layers(arch, params, cfg, launch_train.parse_args(
+                    train_argv(arch, K, b, T, steps)))
+                lm_train_topk(arch, params, cfg)
+                fl_lm_mixtral_topk(params, depth)
+                del params
+                torch.cuda.empty_cache()
+                lm_train_fp32_vs_plain(arch)
+
 
 def main():
     import torch
-    global T_START
+    global T_START, SMI_LINE
     t_start = T_START = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a "
@@ -4390,7 +5016,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    smi_line = SMI_LINE = smi[0] if smi else "nvidia-smi: no output"
     emit({"phase": "card", "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0),
@@ -4466,55 +5092,54 @@ def main():
         emit({"phase": "hier_total",
               "seconds": time.perf_counter() - t_hier})
 
-    # LM serving, then training: full-width qwen3-1.7b and rwkv6-3b, one
-    # model at a time; the training phases that start from the serving
-    # weights (seed 0, as launch.train draws them) run before they go. The
-    # training launches stay in their own records, out of the totals
-    with tempfile.TemporaryDirectory() as out_dir:
-        for arch in LM_KERNEL:
-            cfg, params = lm_model(arch)
-            lm_prefill(arch, cfg, params, totals)
-            lm_serve(arch, cfg, params, totals)
-            lm_train_layers(arch, params, cfg)
-            if arch == "qwen3-1.7b":
-                lm_train_topk_qwen3(params)
-            del params
-            torch.cuda.empty_cache()
-            lm_train(arch, out_dir)
-    lm_train_card_vs_cpu()
-
-    # the rest of the zoo, serving at full width (MoE cut in depth), one
-    # model at a time; then every served LM against the CPU in fp32, and
-    # the paper's gradient-space PCA
-    for arch in ZOO:
-        cfg, params = lm_model(arch)
-        lm_prefill(arch, cfg, params, totals)
-        lm_serve(arch, cfg, params, totals)
-        del params
-        torch.cuda.empty_cache()
-    lm_card_vs_cpu()
-    pca_cnn()
-
-    # LBGM federated rounds of the LMs through the engine, full width
-    fl_lm_qwen3_dense()
-    inmem = fl_lm_topk("fl_lm_qwen3_topk_int8", "qwen3-1.7b",
-                       **{"fl.chunk_size": 2, "fl.codec": "int8"})
-    fl_lm_qwen3_topk_host(totals, inmem)
-    del inmem
-    fl_lm_topk("fl_lm_rwkv6_topk", "rwkv6-3b",
-               **{"fl.num_clients": 2, "data.kw.n": 2})
-    fl_lm_qwen3_buffered_scalar_median()
-    fl_lm_card_vs_cpu()
+    # the card-vs-CPU phases' CPU sides, in a worker process beside the
+    # LM phases (the heaviest first); their card sides run last
+    cpu_dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+    worker = CpuWorker(
+        [("train", f"train-{a}", {"arch": a, "T": T})
+         for a, T in TRAIN_CARD_CPU_T.items()]
+        + [("fl", f"fl-{a}", {"arch": a, "K": 2, "T": 256, "rounds": 2})
+           for a in LM_KERNEL], cpu_dir)
+    try:
+        lm_phases(totals)
+        lm_card_vs_cpu()
+        pca_cnn()
+        # LBGM federated rounds of the LMs through the engine, full width;
+        # the card-vs-CPU card sides' host draws on a thread beside them
+        draws = concurrent.futures.ThreadPoolExecutor(1)
+        train_in = {a: draws.submit(train_cpu_inputs, a, T, 2, 1)
+                    for a, T in TRAIN_CARD_CPU_T.items()}
+        fl_in = {a: draws.submit(fl_cvc_inputs, a, 2, 256, 2)
+                 for a in LM_KERNEL}
+        fl_lm_qwen3_dense()
+        inmem = fl_lm_topk("fl_lm_qwen3_topk_int8", "qwen3-1.7b",
+                           **{"fl.chunk_size": 2, "fl.codec": "int8"})
+        fl_lm_qwen3_topk_host(totals, inmem)
+        del inmem
+        fl_lm_topk("fl_lm_rwkv6_topk", "rwkv6-3b",
+                   **{"fl.num_clients": 2, "data.kw.n": 2, "rounds": 2})
+        fl_lm_qwen3_buffered_scalar_median()
+        # every training LM and both FL-LMs against the CPU in fp32
+        lm_train_card_vs_cpu(worker, train_in)
+        fl_lm_card_vs_cpu(worker, fl_in)
+        draws.shutdown()
+    finally:
+        worker.close()
+        shutil.rmtree(cpu_dir, ignore_errors=True)
 
     flash_single_bf16_p()
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    for name, rec in TRAIN_SHAPE_RECORDS:
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["shapes"].append(dict(rec, launches_per="training step"))
     for k in kernels:
         k["launches"] = totals[k["name"]]
         for rec in k.get("shapes", []):
             shp = rec["shape"]
             key = tuple(tuple(x) for x in shp) if isinstance(shp[0], list) \
                 else tuple(shp)
-            rec["launches"] = SHAPE_TOTALS.get(k["name"], {}).get(key, 0)
+            counts = TRAIN_SHAPES if rec.get("launches_per") else SHAPE_TOTALS
+            rec["launches"] = counts.get(k["name"], {}).get(key, 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

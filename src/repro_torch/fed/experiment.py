@@ -241,7 +241,8 @@ def build_experiment(spec: ExperimentSpec, params=None, device="cuda"):
 
     ``params``: optional flat dict of numpy arrays replacing the model
     component's own init (the JAX package's params carry across
-    verbatim). Returns ``(engine, eval_fn)``; ``eval_fn(params)`` gives
+    verbatim), or of tensors (moved to ``device``; a card's weights stay
+    on the card). Returns ``(engine, eval_fn)``; ``eval_fn(params)`` gives
     ``{"test_loss", "test_acc"}`` on the held-out split.
     """
     from repro_torch.fed.engine import FLEngine, resolve_device
@@ -261,7 +262,10 @@ def build_experiment(spec: ExperimentSpec, params=None, device="cuda"):
             raise ValueError(
                 f"build_experiment: params keys {sorted(params)} do not "
                 f"match the model's {sorted(init_params)}")
-        init_params = params_from_numpy(params, dev)
+        if all(isinstance(v, torch.Tensor) for v in params.values()):
+            init_params = {k: v.to(dev) for k, v in params.items()}
+        else:
+            init_params = params_from_numpy(params, dev)
     train, held_out = DATASETS.get(spec.data.name)(**spec.data.kw)
     n_held = len(next(iter(held_out.values()))) if held_out else 0
     if n_held == 0 and (spec.eval.final or spec.eval.every):

@@ -153,10 +153,15 @@ def tickets(name: str, device, n: int):
     return buf
 
 
+#: devices whose tensors take a kernel's plain version: the CPU, and meta
+#: (shapes only: the dry run counts the plain version's operations)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
 def check_card(*tensors) -> None:
     """Raise unless every tensor lies on one CUDA device of compute
     capability 9.0 (Hopper) — the only card the kernels are built for.
-    There is no fallback to the plain version for a non-CPU tensor."""
+    There is no fallback to the plain version for a CUDA tensor."""
     import torch
     devs = {t.device for t in tensors}
     if len(devs) != 1:
@@ -164,8 +169,8 @@ def check_card(*tensors) -> None:
     dev = devs.pop()
     if dev.type != "cuda":
         raise RuntimeError(
-            f"the port's kernels take CPU tensors (plain version) or CUDA "
-            f"tensors (hand-written kernel); got device {dev}")
+            f"the port's kernels take CPU or meta tensors (plain version) "
+            f"or CUDA tensors (hand-written kernel); got device {dev}")
     if not torch.cuda.is_available():
         raise RuntimeError("a CUDA tensor was given but CUDA is not "
                            "available on this machine")

@@ -8,7 +8,8 @@ kernel of ``csrc/flash_attention_sm90.cu`` (wgmma, TMA), fp32 the
 CUDA-core kernel of ``csrc/flash_attention.cu``. Both map each query head
 onto its kv head instead of repeating k and v. There is no fallback from
 one to the other. On CPU tensors it returns the plain version
-(:func:`repro_torch.kernels.ref.flash_attention_gqa_ref`).
+(:func:`repro_torch.kernels.ref.flash_attention_gqa_ref`), and so on meta
+tensors, whose operations the dry run counts.
 
 :func:`flash_attention` wraps the forward in a ``torch.autograd.Function``
 whose backward (:func:`flash_attention_backward`) is plain PyTorch: the
@@ -75,7 +76,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                          f"kv heads")
     if window is not None and window < 1:
         raise ValueError(f"window={window} must be >= 1 or None")
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    if all(t.device.type in _build.PLAIN_DEVICES for t in (q, k, v)):
         return ref.flash_attention_gqa_ref(q, k, v, causal=causal,
                                            window=window, q_offset=q_offset)
     _build.check_card(q, k, v)

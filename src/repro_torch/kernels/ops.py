@@ -7,7 +7,9 @@ call the batched kernels directly.
 
 Dispatch: a CPU tensor goes to the kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel or raises (see
-``kernels._build.check_card``).
+``kernels._build.check_card``). The LM kernels (flash attention, the
+RWKV6 scan) also take meta tensors to their plain versions, for the dry
+run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 

@@ -6,8 +6,9 @@ from a zero state and drops the final one; serving needs both, since each
 decode step carries the state to the next. On CUDA tensors
 :func:`rwkv6_scan` launches the hand-written kernels in
 ``csrc/rwkv6_scan.cu`` (a chunked prefill kernel, and a T = 1 decode
-kernel with no chunk machinery); on CPU tensors it returns the plain
-version (:func:`repro_torch.kernels.ref.rwkv6_chunked_ref`). Either way
+kernel with no chunk machinery); on CPU (and meta) tensors it returns
+the plain version (:func:`repro_torch.kernels.ref.rwkv6_chunked_ref`).
+Either way
 the final state may be written into a caller's buffer (``state_out``),
 ``state0`` itself included: decode updates its cache in place.
 
@@ -71,8 +72,9 @@ def rwkv6_scan_forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
                              device=r.device)
     ins = (r, k, v, logw, u, state0)
-    if all(t.device.type == "cpu" for t in ins) and (
-            state_out is None or state_out.device.type == "cpu"):
+    if all(t.device.type in _build.PLAIN_DEVICES for t in ins) and (
+            state_out is None
+            or state_out.device.type in _build.PLAIN_DEVICES):
         out, state = ref.rwkv6_chunked_ref(r, k, v, logw, u, state0, c)
         if state_out is None:
             return out, state

@@ -12,7 +12,12 @@ params of a checkpoint written by either package). Without ``--init`` the
 weights are drawn from ``--seed`` by a generator on the device, so the card
 and the CPU draw different weights from one seed. The data stream
 (``markov_lm``, the clients' batch draws) is the JAX driver's, draw for
-draw. Like the JAX driver it forces ``dp_mode="replicated"``.
+draw. An arch that takes stub embeddings (whisper's encoder frames,
+qwen2-vl's patches) gets one stub of ``--batch`` rows, drawn once by
+``models.frontends.make_stub_embeds`` on the run's device (a generator of
+``--seed`` + 1) and given to every client of every step, as the JAX
+driver does (torch's draws, not JAX's). Like the JAX driver it forces
+``dp_mode="replicated"``.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import markov_lm
+from repro_torch.models.frontends import make_stub_embeds
 from repro_torch.train import trainer as tr
 
 
@@ -82,10 +88,12 @@ def train_config(args):
     return dataclasses.replace(cfg, dp_mode="replicated")
 
 
-def client_batches(args, vocab: int, device):
+def client_batches(args, vocab: int, device, extra=None):
     """The JAX driver's batch stream: a markov-chain LM stream split iid
     across clients, each step every client draws ``--batch`` sequences of
-    its pool. Yields {"tokens", "labels"}, each (K, b, T) on ``device``."""
+    its pool. Yields {"tokens", "labels"}, each (K, b, T) on ``device``,
+    and ``"extra"``: the stub ``extra`` (b, S, d) broadcast over the K
+    clients, where one is given."""
     K = args.clients
     toks, labels = markov_lm(K * args.batch * args.pool, args.seq, vocab,
                              seed=args.seed)
@@ -94,9 +102,20 @@ def client_batches(args, vocab: int, device):
     rng = np.random.RandomState(args.seed)
     while True:
         idx = rng.randint(0, toks.shape[1], size=(K, args.batch))
-        yield {n: torch.from_numpy(np.take_along_axis(
-                   a, idx[..., None], axis=1)).to(device)
-               for n, a in (("tokens", toks), ("labels", labels))}
+        batch = {n: torch.from_numpy(np.take_along_axis(
+                     a, idx[..., None], axis=1)).to(device)
+                 for n, a in (("tokens", toks), ("labels", labels))}
+        if extra is not None:
+            batch["extra"] = extra[None].expand((K,) + tuple(extra.shape))
+        yield batch
+
+
+def stub_embeds(args, cfg, device):
+    """The run's stub embeddings (None for a text arch): ``--batch`` rows
+    drawn once on ``device`` by a generator of ``--seed`` + 1, so that
+    they are not the first draws of the weights' generator."""
+    return make_stub_embeds(torch.Generator(device=device).manual_seed(
+        args.seed + 1), cfg, args.batch)
 
 
 def main(argv=None):
@@ -111,13 +130,14 @@ def main(argv=None):
     state, _ = tr.init_train_state(
         torch.Generator(device=dev).manual_seed(args.seed), cfg, K,
         use_lbgm=not args.no_lbgm, device=dev, params=init)
+    batches = client_batches(args, cfg.vocab_size, dev,
+                             stub_embeds(args, cfg, dev))
     n_params = sum(v.numel() for v in state["params"].values())
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M clients={K} "
           f"lbgm={'off' if args.no_lbgm else cfg.lbgm.variant}")
 
     step_fn = tr.make_train_step(cfg, K, args.lr, use_lbgm=not args.no_lbgm,
                                  delta=args.delta)
-    batches = client_batches(args, cfg.vocab_size, dev)
 
     os.makedirs(args.out, exist_ok=True)
     history = []

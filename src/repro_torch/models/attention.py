@@ -53,7 +53,8 @@ def mrope_rotate(x: torch.Tensor, positions3: torch.Tensor, sections,
                                           device=x.device) / hd))
     sel = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))        # (hd/2,) in {0,1,2}
+        torch.as_tensor(sections, device=x.device),
+        output_size=hd // 2)                               # (hd/2,) in {0,1,2}
     pos = positions3.float()[sel].permute(1, 2, 0)         # (B, T, hd/2)
     ang = pos * freqs
     cos = torch.cos(ang)[:, :, None, :]

@@ -74,9 +74,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int,
 
     ``use_window``: force the sliding-window cache for "attn" blocks
     (the sub-quadratic long-context path). Defaults on for long contexts
-    per cfg.long_context.
+    per cfg.long_context. ``device="meta"`` gives the shapes and dtypes
+    only, with no storage.
     """
-    dev = resolve_device(device)
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
     if use_window is None:
         use_window = cfg.long_context == "swa" and seq_len > 65536
     state: Dict[str, Any] = {"pos": 0}

@@ -65,8 +65,11 @@ def init_train_state(gen: Optional[torch.Generator], cfg: ArchConfig,
     JAX package's, carried across bit for bit
     (``models.common.params_from_numpy``); the axes are then None. The
     dense LBG bank is fp32 when tau > 1 (the accumulated gradient is fp32;
-    the JAX bank turns fp32 at its first write)."""
-    dev = resolve_device(device)
+    the JAX bank turns fp32 at its first write). ``device="meta"`` gives
+    the shapes and dtypes only, with no draw and no storage."""
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
     if params is None:
         params, axes = init_lm(gen, cfg, device=dev)
     elif all(isinstance(v, torch.Tensor) for v in params.values()):

@@ -140,15 +140,26 @@ def test_kernel_wrappers_refuse_cuda_without_cuda(no_cuda):
             torch.ones(2, 1, 1, device="meta"))
 
 
-def test_lm_kernel_wrappers_refuse_cuda_without_cuda(no_cuda):
-    """The LM kernels, like the LBGM ones, never fall back for a
-    non-CPU tensor."""
+def test_lm_kernel_wrappers_refuse_cuda_without_cuda(no_cuda, monkeypatch):
+    """The LM kernels, like the LBGM ones, never fall back for a tensor
+    off the plain devices: it raises. Their plain devices are the CPU and
+    meta (the dry run counts the plain versions' operations on meta
+    tensors), so meta tensors get the plain versions' shapes; with meta
+    taken off the plain devices, a meta tensor stands for any other
+    device and raises."""
     q = torch.zeros(1, 4, 2, 32, device="meta")
+    u = torch.zeros(2, 32, device="meta")
+    s0 = torch.zeros(1, 2, 32, 32, device="meta")
+    o = flash_attention(q, q, q)
+    assert o.device.type == "meta" and o.shape == q.shape
+    out, st = rwkv6_scan(q, q, q, q, u, s0)
+    assert out.device.type == st.device.type == "meta"
+    assert out.shape == q.shape and st.shape == s0.shape
+    monkeypatch.setattr(_build, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(RuntimeError, match="CUDA"):
         flash_attention(q, q, q)
     with pytest.raises(RuntimeError, match="CUDA"):
-        rwkv6_scan(q, q, q, q, torch.zeros(2, 32, device="meta"),
-                   torch.zeros(1, 2, 32, 32, device="meta"))
+        rwkv6_scan(q, q, q, q, u, s0)
 
 
 def test_engine_sets_no_tf32_on_the_card(monkeypatch):

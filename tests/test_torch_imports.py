@@ -50,7 +50,8 @@ def test_scan_covers_the_port():
         "configs/deepseek_67b.py", "configs/mistral_large_123b.py",
         "configs/mixtral_8x22b.py", "configs/llama4_maverick_400b_a17b.py",
         "configs/recurrentgemma_2b.py", "configs/qwen2_vl_2b.py",
-        "configs/whisper_base.py")} \
+        "configs/whisper_base.py", "launch/specs.py", "launch/dryrun.py",
+        "analysis/roofline.py")} \
         | {"chip_smoke.py"} <= names
 
 
@@ -75,7 +76,8 @@ def test_importing_the_entry_points_loads_neither_jax_nor_repro():
             "repro_torch.fed.latency, repro_torch.fed.hierarchy, "
             "repro_torch.optim, repro_torch.models.moe, "
             "repro_torch.models.rglru, repro_torch.models.frontends, "
-            "repro_torch.analysis.pca\n"
+            "repro_torch.analysis.pca, repro_torch.analysis.roofline, "
+            "repro_torch.launch.specs, repro_torch.launch.dryrun\n"
             "from repro_torch.configs import all_configs; all_configs()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"

@@ -33,6 +33,7 @@ from repro.configs import get_config as jget  # noqa: E402
 from repro.core import lbgm as jlbgm  # noqa: E402
 from repro.data.synthetic import markov_lm as jmarkov  # noqa: E402
 from repro.launch import train as jlaunch  # noqa: E402
+from repro.models import frontends as jfront  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro.optim import sgd_update as jsgd_update  # noqa: E402
 from repro.train import trainer as jtr  # noqa: E402
@@ -195,17 +196,29 @@ def test_sgd_matches_jax(momentum, wd):
     assert torch.equal(out["w"], torch.full((3,), 0.97).bfloat16())
 
 
-def test_main_matches_the_jax_driver(tmp_path, monkeypatch):
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2-vl-2b",
+                                  "whisper-base"])
+def test_main_matches_the_jax_driver(arch, tmp_path, monkeypatch):
     """The same flags through both drivers, the port started from the JAX
-    driver's initial params (``--init``): the same history, both branches
-    of Algorithm 1 taken, and each package reads the other's
-    ``final.npz``."""
-    argv = ["--reduced", "--steps", "4", "--seq", "32", "--pool", "1",
-            "--delta", "0.6", "--log-every", "1"]
-    cfg = dataclasses.replace(jget("qwen3-1.7b").reduced(),
-                              dp_mode="replicated")
+    driver's initial params (``--init``) and, for the archs that take stub
+    embeddings (qwen2-vl's patches, whisper's encoder frames), from the JAX
+    driver's stub (``make_stub_embeds`` of ``PRNGKey(seed)``, handed to the
+    port's ``make_stub_embeds``): the same history, both branches of
+    Algorithm 1 taken, and each package reads the other's ``final.npz``."""
+    argv = ["--arch", arch, "--reduced", "--steps", "4", "--seq", "32",
+            "--pool", "1", "--delta", "0.6", "--log-every", "1"]
+    cfg = dataclasses.replace(jget(arch).reduced(), dp_mode="replicated")
     jp, _ = jt.init_lm(jax.random.PRNGKey(0), cfg)
     jsave(str(tmp_path / "init.npz"), {"params": jp})
+    jstub = jfront.make_stub_embeds(jax.random.PRNGKey(0), cfg, 8)
+    stubs = []
+
+    def stub(gen, tcfg, batch):
+        assert batch == 8 and tcfg.name == arch
+        stubs.append(None if jstub is None else
+                     torch.from_numpy(np.array(jstub)).to(gen.device))
+        return stubs[-1]
+    monkeypatch.setattr(tlaunch, "make_stub_embeds", stub, raising=False)
     sin2 = _record_sin2(monkeypatch)
     jh = jlaunch.main(argv + ["--out", str(tmp_path / "jax")])
     th = tlaunch.main(argv + ["--out", str(tmp_path / "torch"), "--device",
@@ -224,9 +237,11 @@ def test_main_matches_the_jax_driver(tmp_path, monkeypatch):
     assert min(abs(s - 0.6) for s in sin2) > MARGIN
     with open(tmp_path / "torch" / "history.json") as f:
         assert json.load(f) == th
+    if jstub is not None:
+        assert len(stubs) == 1 and stubs[0] is not None
     tfinal, tmeta = jload(str(tmp_path / "torch" / "final.npz"))
     jfinal, jmeta = load_checkpoint(str(tmp_path / "jax" / "final.npz"))
-    assert tmeta == jmeta == {"arch": "qwen3-1.7b", "steps": 4}
+    assert tmeta == jmeta == {"arch": arch, "steps": 4}
     for k, v in jfinal["params"].items():
         np.testing.assert_allclose(np.asarray(tfinal["params"][k]),
                                    v.numpy(), err_msg=k, **PARAM_TOL)
@@ -302,10 +317,15 @@ def test_bf16_checkpoints_round_trip_bit_for_bit(tmp_path):
 
 #: the LMs' largest leaves at full width: qwen3-1.7b's ``embed`` (151936 x
 #: 2048) and stacked ``blocks/w_gate`` (28 x 2048 x 6144), rwkv6-3b's
-#: ``blocks/w_gate`` (32 x 2560 x 8960)
+#: ``blocks/w_gate`` (32 x 2560 x 8960); mixtral-8x22b's stacked expert
+#: leaf ``blocks/moe/w_gate`` (layers x 8 x 6144 x 16384) at the card's
+#: 2 layers (1.61 billion elements) and at 3 (past 2^31: the LBG's indices
+#: are block-local, so int32 holds them)
 LM_LEAVES = {"qwen3_embed": (151936, 2048),
              "qwen3_w_gate": (28, 2048, 6144),
-             "rwkv6_w_gate": (32, 2560, 8960)}
+             "rwkv6_w_gate": (32, 2560, 8960),
+             "mixtral_experts_2l": (2, 8, 6144, 16384),
+             "mixtral_experts_3l": (3, 8, 6144, 16384)}
 
 
 @pytest.mark.parametrize("leaf", LM_LEAVES)
@@ -322,7 +342,9 @@ def test_topk_layout_at_lm_leaf_sizes_matches_jax(leaf):
     live = -(-size // block)
     assert (leaf, live, nb, kb) in {("qwen3_embed", 4748, 4752, 654),
                                     ("qwen3_w_gate", 5376, 5376, 655),
-                                    ("rwkv6_w_gate", 11200, 11200, 655)}
+                                    ("rwkv6_w_gate", 11200, 11200, 655),
+                                    ("mixtral_experts_2l", 24576, 24576, 655),
+                                    ("mixtral_experts_3l", 36864, 36864, 655)}
     got = tlbgm.init_topk_lbg({"x": torch.empty(shape, device="meta")},
                               0.01)
     want = jlbgm.init_topk_lbg({"x": jax.ShapeDtypeStruct(shape,
