@@ -71,9 +71,25 @@ From the root of a checkout. Phases, each printed as one JSON line:
    tiers equal the ``topk-host`` run's bit for bit, history and params;
    the ``topk-host`` peak at K=100,000 within 5% of the in-memory bank of
    the K=10,000 run's); ``hier_100k_resume`` (the CLI's ``main`` for 5
-   rounds, then ``--rounds 10 --resume`` in a new engine: records and
+   rounds, then ``--rounds 7 --resume`` in a new engine: records and
    final params bit for bit); ``hier_card_vs_cpu`` (K=2,000, chunk 100,
-   tiers [16, 4], delta 0.45, 3 rounds against the CPU run);
+   tiers [16, 4], delta 0.45, 3 rounds against the CPU run). Then the
+   ``(clients, model)`` mesh: ``fl_sharded_mesh_card_2x2`` and ``_1x2``,
+   the paper cohort (chunk 10) on the ``"sharded"`` scheduler with the
+   ``"topk-sharded"`` store (k_frac 0.1, delta 0.2, 3 rounds), 4 and 2
+   ranks spawned at once on the one card with ``torchrun``'s environment
+   (the engine's mesh starts the group: gloo carrying CUDA tensors); each
+   world also runs the CPU rank tests' FCN at d_model 704 (recycle
+   rounds; model rank 1's decision at its live fc1/w rows) and then the
+   CLI, ``repro_torch.fed.run.main`` on every rank (rank 0 alone prints
+   and writes ``--out``; the world ends): every rank's history and
+   params equal; against the chunked run on the card from the same
+   weights the exact fields equal, loss rtol 1e-5, params rtol 1e-4 /
+   atol 1e-6, each client's sin² rtol 1e-5 / atol 1e-6; each rank's
+   bank bytes 1/(c·m) of the bank for fc1/w (model-sharded), 1/c for the
+   rest; ms a round (probed, and the CLI's without the probe), the
+   all_reduce calls, bytes and ms a round, the decision's launch shapes
+   at the rank slices;
 6. LM serving (``lm_*`` phases), after the flash-attention and RWKV6-scan
    kernels were held against their plain versions (``lm_kernel_checks``,
    with phase 3; flash in bf16 on the tensor-core kernel, in fp32 on the
@@ -137,14 +153,18 @@ From the root of a checkout. Phases, each printed as one JSON line:
    kernels with the training phases' rule for round 1's loss, update and
    decisions), ``fl_lm_qwen3_topk_int8`` (K=4, chunk 2, the top-k store
    at k_frac 0.01, the stochastic int8 wire: flash, the decision and the
-   dequant fold once per leaf per chunk), ``fl_lm_qwen3_topk_host`` (the
-   same on the ``topk-host`` bank with tiers [2]: its history equals the
-   in-memory run's bit for bit; round 3 profiled for the streamer's
-   copies), ``fl_lm_rwkv6_topk`` (K=2, chunk 1, 2 rounds,
+   dequant fold once per leaf per chunk; 2 rounds), ``fl_lm_qwen3_topk_host``
+   (the same on the ``topk-host`` bank with tiers [2]: its history
+   equals the in-memory run's bit for bit; round 2 profiled for the
+   streamer's copies), ``fl_sharded_qwen3_topk`` (the same spec on the
+   ``"sharded"`` scheduler and ``"topk-sharded"`` store, the (1, 1) mesh
+   of the world of one the engine starts: history, final params and
+   banks equal the chunked run's bit for bit),
+   ``fl_lm_rwkv6_topk`` (K=2, chunk 1, 2 rounds,
    top-k: the scan 256 a round, the decision),
    ``fl_lm_qwen3_buffered_scalar_median`` (K=4, chunk 2, top-k 0.01,
    int8, buffered with one straggler a round late, the scalar median
-   against a sign-flipping client, 4 rounds: flash 448 and the decision
+   against a sign-flipping client, 3 rounds: flash 448 and the decision
    28 a round; held against 2 rounds under the plain kernels by the dense
    phase's rule), and ``fl_lm_card_vs_cpu``
    (both archs at depth 2 in fp32, K=2, T=256, 2 rounds, dense store:
@@ -219,7 +239,9 @@ From the root of a checkout. Phases, each printed as one JSON line:
    (``shapes``: each leaf table, each top-k leaf; flash's hd-256 prefill
    call; per training step, flash at recurrentgemma's and whisper's cross
    training calls, the projection over each training arch's leaf table
-   and the decision at mixtral's expert leaf),
+   and the decision at mixtral's expert leaf; the decision at the model
+   ranks' rows of fc1/w and of qwen3's ``embed`` leaf at m = 2 and 4,
+   each rank's call held against the plain version),
    each with its launches
    there, the decision with its live bound and its padded layout's,
    the device kernels one call runs (``device_kernels_per_call``, counted
@@ -1664,6 +1686,78 @@ def decision_records(gen, B, size, k_frac=0.1, kb=None):
     return recs
 
 
+#: the decision at a model rank's rows on a (clients, model) mesh: (leaf,
+#: clients a rank decides for, the leaf's size, k_frac) — fc1/w at
+#: fl_sharded_mesh_card's (2, 2) (a chunk of 10 over 2 client ranks) and
+#: qwen3-1.7b's embed leaf at a chunk of 2 (fl_lm_qwen3_topk_int8's)
+RANK_SLICE_LEAVES = (("fc1/w", 5, 784 * 128, 0.1),
+                     ("qwen3-1.7b embed", 2, 151936 * 2048, 0.01))
+
+
+def rank_slice_records():
+    """The decision at each model rank's rows of ``RANK_SLICE_LEAVES`` at
+    m = 2 and 4: the flat slice (B, elements of the rank's rows) with
+    ``block=``, as ``core.lbgm_sharded`` passes it (a rank whose rows are
+    all pad launches nothing). Every rank's call is held against the plain
+    version (indices and values exact, ||g||^2 within 1e-5); the largest
+    rank's call is timed with its bound, plain time and torch.topk's."""
+    import torch
+    from repro_torch.core.lbgm import _block_layout
+    from repro_torch.core.lbgm_sharded import model_shard_rows
+    from repro_torch.kernels import lbgm_sparse as ks
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = []
+    for leaf, B, size, k_frac in RANK_SLICE_LEAVES:
+        nb, block, kb = _block_layout(size, k_frac)
+        for m in (2, 4):
+            nb_l = model_shard_rows(nb, m)
+            sizes = sorted({min(size, (r + 1) * nb_l * block)
+                            - min(size, r * nb_l * block)
+                            for r in range(m)} - {0}, reverse=True)
+            for i, n in enumerate(sizes):
+                g = torch.randn((B, n), generator=gen, device="cuda")
+                idx = torch.randint(0, block, (B, nb_l, kb), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                got = ks.lbgm_sparse_decision_batched(g, idx, block=block)
+                want = plain_decision_sliced(g, idx, block)
+                torch.cuda.synchronize()
+                what = f"rank-slice decision {leaf} m={m} {[B, n, nb_l]}"
+                if not (torch.equal(got[2], want[2])
+                        and torch.equal(got[3], want[3])
+                        and torch.equal(got[1], want[1])):
+                    fail(f"{what}: differs from the plain version")
+                if not torch.allclose(got[0], want[0], rtol=1e-5, atol=0.0):
+                    fail(f"{what}: ||g||^2 off the plain version")
+                del got, want
+                rec = {"shape": [B, n, nb_l, block, kb], "leaf": leaf,
+                       "model_ranks": m, "dtype": "float32",
+                       "exact_vs_plain": True}
+                if i == 0:
+                    live = -(-n // block)
+                    bnd, by = bound_ms(B * n * 4 + B * live * kb * 4
+                                       + B * nb_l * kb * 12 + B * 4,
+                                       2 * B * n)
+                    padded = ref.flat_to_blocks(g, nb_l, block)
+                    rec.update(
+                        ms=time_ms(lambda: ks.lbgm_sparse_decision_batched(
+                            g, idx, block=block), n=10),
+                        bound_ms=bnd, bound_by=by,
+                        plain_ms=time_ms(lambda: plain_decision_sliced(
+                            g, idx, block), n=3),
+                        library_ms=time_ms(lambda: torch.topk(
+                            padded.abs(), kb, dim=-1), n=3),
+                        library_call="torch.topk of |g| per row of the "
+                                     "rank's layout (the selection only)")
+                    del padded
+                else:
+                    rec["timed"] = "no: the largest rank's call is"
+                out.append(rec)
+                del g, idx
+                torch.cuda.empty_cache()
+    return out
+
+
 #: value order's placements, timed (B, size, block, kb): fc1/w's layout
 #: over kb (clusters of 8), the CNN's four leaves past one CTA at k_frac 0.1
 #: (clusters of 2-5), fc2/w and rows of one CTA and of two
@@ -1751,10 +1845,13 @@ def kernel_line(errs):
     # value order past the shared-memory sort, not on the main path (no
     # spec reaches kb > 16384): fc1/w's layout at kb 32768, both orders
     past = decision_records(gen, 10, 100352, kb=32768)
+    slices = rank_slice_records()
     for two_pass, name, line in ((False, "lbgm_sparse_decision", 69),
                                  (True, "lbgm_sparse_decision_two_pass",
                                   224)):
         recs = [r[two_pass] for r in per_shape]
+        if not two_pass:
+            recs += slices
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lbgm_sparse_decision.cu",
@@ -3864,7 +3961,8 @@ def fl_lm_spec(arch="qwen3-1.7b", **overrides):
 
 
 @contextlib.contextmanager
-def fl_probe(keep_update=False, compare_update=None, profile_round=None):
+def fl_probe(keep_update=False, compare_update=None, profile_round=None,
+             keep_engine=False):
     """Wrap the FL engine (``fed.engine.FLEngine``, looked up at run time
     by ``run_experiment``) for one run: per round, host ms around the
     synchronised round, the ms of its local SGD (``client_update``
@@ -3874,7 +3972,9 @@ def fl_probe(keep_update=False, compare_update=None, profile_round=None):
     by) is kept on the host (``keep_update``) or held against a kept one
     (``compare_update``: relative L2). Round ``profile_round`` runs under
     ``torch.profiler`` (kernel and copy ms, idle share); a ``topk-host``
-    engine's host bank and streamed chunk bytes are recorded."""
+    engine's host bank and streamed chunk bytes are recorded. With
+    ``keep_engine`` the engine is kept under ``rec["engine"]`` (the caller
+    copies what it needs and drops it)."""
     from repro_torch.fed import engine as fe
     from repro_torch.kernels import _build
     rec = {"ms": [], "sgd_ms": [], "launches": [], "sin2": [], "sent": [],
@@ -3936,6 +4036,8 @@ def fl_probe(keep_update=False, compare_update=None, profile_round=None):
         rec["sent"].append([bool(x <= delta and x < 1.0) for x in s])
         rec["n_delivered"] = getattr(self, "n_delivered", None)
         rec["n_evicted"] = self.ledger.n_evicted
+        if keep_engine:
+            rec["engine"] = self
         return m
 
     fe.FLEngine.run_round, fe._ChunkLoop.run = run_round, run
@@ -3968,6 +4070,8 @@ def fl_lm_run(spec, plain=False, via_cli=None, params=None, **probe):
                 res = run_experiment(spec, device="cuda", params=params)
                 history, final = res.history, res.final_eval
                 del res
+                if "engine" in rec:
+                    rec["state"] = engine_state(rec.pop("engine"))
             else:
                 with tempfile.TemporaryDirectory() as d:
                     out = os.path.join(d, "result.json")
@@ -4006,7 +4110,7 @@ def fl_lm_expected(spec):
     chunks = -(-fl.num_clients // pick_chunk(fl.num_clients, fl.chunk_size))
     want = {k: 2 * n * fl.tau * fl.num_clients
             for k, n in lm_launches(cfg).items()}
-    if fl.lbg_variant in ("topk", "topk-host"):
+    if fl.lbg_variant in ("topk", "topk-host", "topk-sharded"):
         want["lbgm_sparse_decision"] = leaves * chunks
         if fl.codec in ("int8", "fp8") and fl.aggregator == "mean":
             want["lbgm_dequant_accum"] = leaves * chunks
@@ -4163,19 +4267,82 @@ def fl_lm_qwen3_dense():
     return out
 
 
-def fl_lm_topk(phase, arch, **overrides):
+def engine_state(eng):
+    """An engine's params and banks on the host: the banks as ``{path:
+    (Kp, ...) rows in client order}`` (a sharded engine's gathered to the
+    global layout first)."""
+    from repro_torch.fed import engine as fe
+    sync()
+    params = {k: v.cpu() for k, v in eng.params.items()}
+    banks = {}
+    for which, bank in (("lbg", eng.lbg), ("residual", eng.residual)):
+        if isinstance(eng.sched, fe.ShardedScheduler):
+            bank = fe._tmap(lambda x: x.reshape((-1,) + tuple(x.shape[2:])),
+                            eng.sched.global_banks(bank))
+        for name, leaf in bank.items():
+            for k, x in (leaf.items() if isinstance(leaf, dict)
+                         else [(None, leaf)]):
+                banks[f"{which}/{name}/{k}"] = x.cpu()
+    return {"params": params, "banks": banks}
+
+
+def fl_lm_topk(phase, arch, keep_state=False, **overrides):
     """``fl_lm_qwen3_topk_int8`` / ``fl_lm_rwkv6_topk``: the top-k store at
-    k_frac 0.01 through ``run_experiment`` on the card (3 rounds, rwkv6's
-    host-bound rounds 2). Returns
-    the run's history."""
+    k_frac 0.01 through ``run_experiment`` on the card (2 rounds). Returns
+    the run's history, and with ``keep_state`` also its final params and
+    banks on the host (:func:`engine_state`)."""
     spec = fl_lm_spec(arch, **{"fl.lbg_variant": "topk",
                                "fl.lbg_kw": {"k_frac": 0.01}, **overrides})
     want = fl_lm_expected(spec)
-    history, final, rec, peak = fl_lm_run(spec)
+    history, final, rec, peak = fl_lm_run(spec, keep_engine=keep_state)
     out = fl_lm_record(phase, spec, history, final, rec, peak, want,
                        entry="repro_torch.fed.experiment.run_experiment")
     emit(out)
-    return history
+    return (history, rec["state"]) if keep_state else history
+
+
+def fl_sharded_qwen3_topk(totals, inmem, state):
+    """``fl_sharded_qwen3_topk``: ``fl_lm_qwen3_topk_int8``'s spec
+    (full-width qwen3, K=4, chunk 2, top-k 0.01, stochastic int8, 2 rounds)
+    on the ``"sharded"`` scheduler with the ``"topk-sharded"`` store, on
+    the world-of-one (1, 1) mesh ``launch.mesh`` starts itself: history,
+    final params and banks equal the chunked run's bit for bit."""
+    spec = fl_lm_spec("qwen3-1.7b", **{
+        "fl.lbg_variant": "topk-sharded", "fl.lbg_kw": {"k_frac": 0.01},
+        "fl.chunk_size": 2, "fl.codec": "int8", "fl.scheduler": "sharded",
+        "fl.mesh": [1, 1], "rounds": len(inmem)})
+    want = fl_lm_expected(spec)
+    history, final, rec, peak = fl_lm_run(spec, keep_engine=True)
+    for got in rec["launches"]:
+        for k, n in got.items():
+            totals[k] += n
+    for r, (a, b) in enumerate(zip(history, inmem)):
+        for k in HIST_KEYS:
+            if a[k] != b[k]:
+                fail(f"fl_sharded_qwen3_topk round {r + 1}: {k} {a[k]} vs "
+                     f"{b[k]} on the chunked scheduler")
+    got = rec.pop("state")
+    for what in ("params", "banks"):
+        if got[what].keys() != state[what].keys():
+            fail(f"fl_sharded_qwen3_topk: {what} {sorted(got[what])} vs "
+                 f"{sorted(state[what])}")
+        for k, v in got[what].items():
+            if not torch_equal(v, state[what][k]):
+                fail(f"fl_sharded_qwen3_topk: {what} {k} differs from the "
+                     f"chunked run's")
+    out = fl_lm_record("fl_sharded_qwen3_topk", spec, history, final, rec,
+                       peak, want, mesh=[1, 1], bit_for_bit_chunked=True,
+                       entry="repro_torch.fed.experiment.run_experiment")
+    emit(out)
+    return out
+
+
+def torch_equal(a, b):
+    """Bit for bit (a 1-byte float compared through its bits)."""
+    import torch
+    if a.element_size() == 1 and a.is_floating_point():
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return a.dtype == b.dtype and torch.equal(a, b)
 
 
 def fl_lm_mixtral_topk(params, depth, rounds=3):
@@ -4235,7 +4402,7 @@ def fl_lm_qwen3_buffered_scalar_median(plain_rounds=2):
     bf16 weights, remat, one markov sequence a client) through
     ``run_experiment``: K=4, chunk 2, tau 2, b 1, T 2048, top-k 0.01 with
     the int8 wire, the buffered scheduler with one straggler a round late,
-    ``scalar_median`` against one ``sign_flip`` client (scale 4), 4 rounds:
+    ``scalar_median`` against one ``sign_flip`` client (scale 4), 3 rounds:
     flash 448 and the decision 28 launches a round (the collect rule
     decodes the int8 payloads in plain PyTorch: no dequant fold). Then
     ``plain_rounds`` rounds under the plain kernels, held as
@@ -4251,12 +4418,12 @@ def fl_lm_qwen3_buffered_scalar_median(plain_rounds=2):
         "fl.latency_kw": {"frac": 0.25, "delay": 1},
         "fl.aggregator": "scalar_median", "fl.attack": "sign_flip",
         "fl.attack_frac": 0.25, "fl.attack_kw": {"scale": 4.0},
-        "rounds": 4})
+        "rounds": 3})
     want = fl_lm_expected(spec)
     history, final, rec, peak = fl_lm_run(spec, keep_update=True)
     out = fl_lm_record(phase, spec, history, final, rec, peak, want,
                        entry="repro_torch.fed.experiment.run_experiment",
-                       ms_per_round_of="the mean of rounds 2-4",
+                       ms_per_round_of="the mean of rounds 2-3",
                        scheduler="buffered", latency=spec.fl.latency_kw,
                        aggregator=spec.fl.aggregator,
                        attack=[spec.fl.attack, spec.fl.attack_frac,
@@ -4368,7 +4535,7 @@ HIER_SPEC = ROOT / "examples" / "specs" / "hier_100k.json"
 HIER_LEAF_SIZES = (32, 25088, 10, 320)
 #: the shipped spec's rounds; the resume phase's checkpoint round and the
 #: round it resumes to (the spec checkpoints every 5 rounds)
-HIER_ROUNDS, HIER_SAVE, HIER_RESUMED = 20, 5, 10
+HIER_ROUNDS, HIER_SAVE, HIER_RESUMED = 20, 5, 7
 #: the rounds of the comparison runs (the shipped run is never cut)
 HIER_CMP_ROUNDS = 3
 #: the K = 100,000 topk-host peak may exceed the K = 10,000 peak by this
@@ -4650,9 +4817,10 @@ def hier_100k_vs_topk(totals, tmp, host):
 def hier_100k_resume(totals, tmp, host):
     """``hier_100k_resume``: ``python -m repro_torch.fed.run --spec
     examples/specs/hier_100k.json`` (its ``main``, in this process) for
-    5 rounds, which checkpoints at 5; then the same with ``--rounds 10
-    --resume`` in a new engine: every record and the params at round 10
-    equal the uninterrupted run's bit for bit."""
+    5 rounds, which checkpoints at 5; then the same with ``--rounds 7
+    --resume`` in a new engine: every
+    record and the params at round 7 equal the uninterrupted run's bit for
+    bit."""
     import torch
     from repro_torch.fed import run as fed_run
     from repro_torch.kernels import _build
@@ -4761,15 +4929,16 @@ def hier_card_vs_cpu(totals, tmp):
 
 def fl_lm_qwen3_topk_host(totals, inmem):
     """``fl_lm_qwen3_topk_host``: ``fl_lm_qwen3_topk_int8``'s settings
-    (full-width qwen3, K=4, chunk 2, top-k 0.01, int8, 3 rounds) with the
+    (full-width qwen3, K=4, chunk 2, top-k 0.01, int8, 2 rounds) with the
     ``topk-host`` bank and tiers [2] (accounting-only under a codec): its
-    history equals the in-memory phase's bit for bit; round 3 profiled
-    for the streamer's copies against the chunk's kernels."""
+    history equals the in-memory phase's bit for bit; the last round
+    profiled for the streamer's copies against the chunk's kernels."""
     spec = fl_lm_spec("qwen3-1.7b", **{
         "fl.lbg_variant": "topk-host", "fl.lbg_kw": {"k_frac": 0.01},
-        "fl.chunk_size": 2, "fl.codec": "int8", "fl.tiers": [2]})
+        "fl.chunk_size": 2, "fl.codec": "int8", "fl.tiers": [2],
+        "rounds": len(inmem)})
     want = fl_lm_expected(spec)
-    history, final, rec, peak = fl_lm_run(spec, profile_round=3)
+    history, final, rec, peak = fl_lm_run(spec, profile_round=len(inmem))
     for got in rec["launches"]:
         for k, n in got.items():
             totals[k] += n
@@ -4786,6 +4955,500 @@ def fl_lm_qwen3_topk_host(totals, inmem):
                        entry="repro_torch.fed.experiment.run_experiment")
     emit(out)
     return out
+
+
+# ------------------------------------------- the (clients, model) mesh
+
+#: fl_sharded_mesh_card's meshes, each a gloo world of c·m ranks on the
+#: one card
+MESH_CARD = ([2, 2], [1, 2])
+MESH_CARD_ROUNDS = 3
+MESH_LOSS_RTOL = 1e-5
+MESH_PARAMS_TOL = dict(rtol=1e-4, atol=1e-6)
+#: each client's sin² on a mesh against the chunked run's
+MESH_SIN2_TOL = dict(rtol=1e-5, atol=1e-6)
+#: the CPU rank tests' FCN (tests/test_torch_sharded_ranks.py): at d_model
+#: 704 fc1/w's 9 live block rows of 16 reach model rank 1 of m = 2, and
+#: delta 0.85 makes recycle rounds, so the model group's sum of the
+#: scalars decides a round
+MESH_WIDE = {
+    "name": "mesh-d704", "model": {"name": "fcn", "kw": {"d_model": 704}},
+    "data": {"name": "mixture", "kw": {"n": 600, "n_eval": 50, "seed": 0}},
+    "partition": {"name": "iid", "kw": {"seed": 0}},
+    "fl": {"lbg_variant": "topk", "lbg_kw": {"k_frac": 0.1},
+           "num_clients": 10, "tau": 2, "lr": 0.05, "batch_size": 16,
+           "seed": 0, "delta_threshold": 0.85, "chunk_size": 6,
+           "sample_frac": 0.5, "scheduler": "chunked"},
+    "rounds": 3,
+    "eval": {"every": 0, "final": False, "verbose": False}}
+
+
+@contextlib.contextmanager
+def collective_probe():
+    """Count and time every ``torch.distributed.all_reduce`` of the run
+    (the only collective the sharded path makes), each between two
+    synchronisations of the card, by its group's size. The round times
+    taken under it include those synchronisations."""
+    import torch.distributed as dist
+    real = dist.all_reduce
+    rec = {"calls": 0, "ms": 0.0, "bytes": 0, "by_group_size": {}}
+
+    def timed(t, *a, group=None, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = real(t, *a, group=group, **kw)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = dist.get_world_size(group)
+        g = rec["by_group_size"].setdefault(str(n), {"calls": 0, "ms": 0.0,
+                                                      "bytes": 0})
+        for r in (rec, g):
+            r["calls"] += 1
+            r["ms"] += ms
+            r["bytes"] += t.numel() * t.element_size()
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield rec
+    finally:
+        dist.all_reduce = real
+
+
+def _leaf_bytes(tree):
+    out = {}
+    for name, leaf in tree.items():
+        leaves = leaf.values() if isinstance(leaf, dict) else [leaf]
+        out[name] = int(sum(x.numel() * x.element_size() for x in leaves))
+    return out
+
+
+def _launch_shapes():
+    from repro_torch.kernels import _build
+    return ({k: v for k, v in _build.LAUNCHES.items() if v},
+            {k: dict(v) for k, v in _build.LAUNCH_SHAPES.items() if v})
+
+
+def mesh_engine_job(job):
+    """An engine job of :func:`mesh_rank`: ``build_experiment`` on the
+    job's device (the sharded scheduler's mesh joins the launcher's world
+    here), its rounds through the engine's prefetcher, timed per round
+    with the launch counters set to 0 first and every all_reduce counted
+    (:func:`collective_probe`). Returns the rank's record."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.fed.experiment import ExperimentSpec, build_experiment
+    from repro_torch.kernels import _build
+    spec = ExperimentSpec.from_dict(job["spec"])
+    with np.load(job["params"]) as z:
+        params = {k: z[k] for k in z.files}
+    dev = job["device"]
+    eng, _ = build_experiment(spec, params=params, device=dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(spec.fl.seed + 1)
+    ms, coll_ms = [], []
+    with collective_probe() as coll:
+        _build.reset_launch_counts()
+        src = eng.prefetcher(rng)
+        try:
+            for _ in range(job["rounds"]):
+                sync()
+                t0, c0 = time.perf_counter(), coll["ms"]
+                eng.run_round(src)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                coll_ms.append(coll["ms"] - c0)
+        finally:
+            src.close()
+        launches, shapes = _launch_shapes()
+    sched = eng.sched
+    rec = {"history": eng.history,
+           "params": {k: v.cpu().numpy() for k, v in eng.params.items()},
+           "bank_bytes": _leaf_bytes(eng.lbg),
+           "global_bank_bytes": _leaf_bytes(sched.global_banks(eng.lbg)),
+           "msharded": sched._msharded, "chunk": eng._chunk,
+           "local": sched.local, "client_rank": sched.client_rank,
+           "model_rank": sched.model_rank, "backend": dist.get_backend(),
+           "cuda_device": (torch.cuda.current_device() if dev == "cuda"
+                           else None),
+           "sin2": [x.tolist() for x in eng.sin2_history],
+           "launches": launches, "launches_by_shape": shapes,
+           "collectives": coll, "collective_ms": coll_ms, "ms": ms,
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if dev == "cuda" else None)}
+    eng.close()
+    return rec
+
+
+def mesh_cli_job(job, rank):
+    """A CLI job of :func:`mesh_rank`: ``repro_torch.fed.run.main`` with
+    ``{rank}`` in its arguments replaced by this rank, as ``torchrun
+    --nproc-per-node N -m repro_torch.fed.run`` runs it on each rank;
+    what it printed, its return code, its launches and whether the world
+    was ended (the CLI ends a launcher's world)."""
+    import io
+    import torch.distributed as dist
+    from repro_torch.fed import run as fed_run
+    from repro_torch.kernels import _build
+    argv = [a.replace("{rank}", str(rank)) for a in job["cli"]]
+    out = io.StringIO()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = fed_run.main(argv)
+    launches, shapes = _launch_shapes()
+    return {"rc": rc, "stdout": out.getvalue(),
+            "world_ended": not dist.is_initialized(),
+            "launches": launches, "launches_by_shape": shapes}
+
+
+def mesh_rank(root, rank, world, port, jobs, out_dir):
+    """One rank of ``fl_sharded_mesh_card``'s world, started as
+    ``torchrun`` starts one: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` and ``MASTER_PORT`` in its environment and no process
+    group of its own. The first engine's mesh starts the group
+    (``launch.mesh.ensure_world``: ``env://``, the backend of
+    ``backend_for``, the card ``LOCAL_RANK`` modulo the cards). Runs the
+    engine jobs (:func:`mesh_engine_job`), then the CLI job
+    (:func:`mesh_cli_job`), which ends the world, and writes
+    ``<tag>.r<rank>.pt`` for each; an exception is written to
+    ``<tag>.r<rank>.err``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import shutdown
+    tag = None
+    try:
+        for job in jobs:
+            tag = job["tag"]
+            rec = (mesh_cli_job(job, rank) if "cli" in job
+                   else mesh_engine_job(job))
+            torch.save(rec, os.path.join(out_dir, f"{tag}.r{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(out_dir, f"{tag}.r{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        shutdown()
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_mesh(worlds, out_dir, timeout=600):
+    """Run each ``(world, jobs)`` of ``worlds`` on ``world`` spawned ranks
+    (:func:`mesh_rank`), every world at once, each on its own port; every
+    process is joined (or killed) before it returns. Fails on any rank's
+    error or exit code. Returns ``{tag: [record of rank 0, 1, ...]}``."""
+    import multiprocessing
+    import torch
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    for world, jobs in worlds:
+        port = free_port()
+        procs += [ctx.Process(target=mesh_rank, args=(
+            str(ROOT), r, world, port, jobs, out_dir)) for r in range(world)]
+    for p in procs:
+        p.start()
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    errs = sorted(Path(out_dir).glob("*.err"))
+    if errs or any(p.exitcode != 0 for p in procs):
+        text = "\n".join(e.read_text() for e in errs)[-6000:]
+        fail(f"mesh ranks exited {[p.exitcode for p in procs]}:\n{text}")
+    return {job["tag"]: [torch.load(
+        os.path.join(out_dir, f"{job['tag']}.r{r}.pt"), weights_only=False)
+        for r in range(world)] for world, jobs in worlds for job in jobs}
+
+
+def mesh_reference(spec, device, path):
+    """The chunked run of ``spec`` on ``device`` from the model's own
+    init, whose params go to ``path`` for the ranks: (history, params,
+    sin² rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.fed.experiment import build_experiment
+    ref, _ = build_experiment(spec, device=device)
+    np.savez(path, **{k: v.cpu().numpy() for k, v in ref.params.items()})
+    hist = ref.run(spec.rounds)
+    out = (hist, {k: v.cpu().numpy() for k, v in ref.params.items()},
+           [np.asarray(s) for s in ref.sin2_history])
+    ref.close()
+    del ref
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_job(label, mesh, recs, ref, device):
+    """Every rank of ``label`` holds the same history and params; against
+    the chunked run ``ref``: the exact fields equal, loss within
+    MESH_LOSS_RTOL, params within MESH_PARAMS_TOL, each client's sin²
+    within MESH_SIN2_TOL; the world is gloo on card 0; each rank's bank
+    bytes 1/(c·m) of the bank for a model-sharded leaf and 1/c for a
+    replicated one. Returns (params max abs error, sin² max abs error)."""
+    import numpy as np
+    c, m = mesh
+    ref_hist, ref_params, ref_sin2 = ref
+    r0 = recs[0]
+    for r, rec in enumerate(recs):
+        if rec["backend"] != "gloo":
+            fail(f"{label}: rank {r} runs on {rec['backend']}, not gloo "
+                 f"({c * m} ranks share one card)")
+        if device == "cuda" and rec["cuda_device"] != 0:
+            fail(f"{label}: rank {r} on card {rec['cuda_device']}")
+        if r and (rec["history"] != r0["history"] or any(
+                not np.array_equal(rec["params"][k], v)
+                for k, v in r0["params"].items())):
+            fail(f"{label}: rank {r} holds another history or params than "
+                 f"rank 0")
+    if len(r0["history"]) != len(ref_hist):
+        fail(f"{label}: {len(r0['history'])} rounds, not {len(ref_hist)}")
+    for r, (a, b) in enumerate(zip(ref_hist, r0["history"])):
+        for k in ("uplink_floats", "frac_scalar", "wire_bytes", "savings"):
+            if a[k] != b[k]:
+                fail(f"{label} round {r + 1}: {k} {b[k]} vs {a[k]} chunked")
+        if not abs(a["loss"] - b["loss"]) <= MESH_LOSS_RTOL * abs(a["loss"]):
+            fail(f"{label} round {r + 1}: loss {b['loss']} vs {a['loss']} "
+                 f"chunked")
+    err = 0.0
+    for k, v in ref_params.items():
+        p = r0["params"][k]
+        if not np.allclose(p, v, **MESH_PARAMS_TOL):
+            fail(f"{label}: params {k} off the chunked run's by "
+                 f"{float(np.abs(p - v).max()):.3g}")
+        err = max(err, float(np.abs(p - v).max()))
+    sin2_err = 0.0
+    for r, rec in enumerate(recs):
+        for rnd, (got, want) in enumerate(zip(rec["sin2"], ref_sin2)):
+            got = np.asarray(got)
+            if got.shape != want.shape or not np.allclose(
+                    got, want, **MESH_SIN2_TOL):
+                fail(f"{label}: rank {r}'s sin2 of round {rnd + 1} off the "
+                     f"chunked run's: {got} vs {want}")
+            sin2_err = max(sin2_err, float(np.abs(got - want).max()))
+    ms = r0["msharded"] or {}
+    for r, rec in enumerate(recs):
+        for name, b in rec["bank_bytes"].items():
+            div = c * m if ms.get(name) else c
+            if b * div != rec["global_bank_bytes"][name]:
+                fail(f"{label}: rank {r} holds {b} bank bytes of {name}, "
+                     f"not 1/{div} of {rec['global_bank_bytes'][name]}")
+    return err, sin2_err
+
+
+def rank_row_launches(label, mesh, recs, params_like, k_frac, device):
+    """Each model rank's decision launches at its rows of each
+    model-sharded leaf: the live elements ``[q·nb/m·block, (q+1)·nb/m·
+    block)`` of the flat leaf at the rank's C/c clients. Fails when a
+    rank with live rows made no such launch on the card; returns
+    ``{leaf: {model rank: launches}}``."""
+    from repro_torch.core.lbgm import _block_layout
+    c, m = mesh
+    out = {}
+    for name, on in (recs[0]["msharded"] or {}).items():
+        if not on:
+            continue
+        size = int(params_like[name].size)
+        nb, block, kb = _block_layout(size, k_frac)
+        nb_l = nb // m
+        out[name] = {}
+        for rec in recs:
+            q = rec["model_rank"]
+            lo, hi = min(size, q * nb_l * block), min(size,
+                                                      (q + 1) * nb_l * block)
+            shp = (rec["local"], hi - lo, nb_l, block, kb)
+            n = rec["launches_by_shape"].get(
+                "lbgm_sparse_decision", {}).get(shp, 0)
+            out[name][q] = out[name].get(q, 0) + n
+            if device == "cuda" and hi > lo and not n:
+                fail(f"{label}: model rank {q} never launched the decision "
+                     f"at its rows of {name} {shp}")
+    return out
+
+
+def fl_sharded_mesh_card(totals, tmp, device="cuda"):
+    """``fl_sharded_mesh_card``: the ``"sharded"`` scheduler with the
+    ``"topk-sharded"`` store on the ``(2, 2)`` and ``(1, 2)`` meshes, 4 and
+    2 ranks spawned on the one card as ``torchrun`` spawns them (each
+    mesh's process group started by the engine: gloo carrying CUDA
+    tensors). Each world runs, in order:
+
+    * the paper cohort (FCN, K=100, tau 2, lr 0.05, b 16, label skew,
+      chunk 10) at k_frac 0.1, delta 0.2, 3 rounds;
+    * ``MESH_WIDE``, the CPU rank tests' FCN at d_model 704 (K=10 with
+      pad clients, sample_frac 0.5, delta 0.85), 3 rounds: it recycles,
+      and fc1/w has live rows on model rank 1, whose decision launch is
+      checked;
+    * the paper cohort through the CLI, ``repro_torch.fed.run.main`` on
+      every rank: rank 0 alone prints and writes ``--out``, every rank
+      returns 0 and the world ends; its history equals the first job's
+      and its round time is taken without the probe.
+
+    The first two are held against their chunked runs on the card from
+    the same weights (:func:`check_mesh_job`). Records the decision's
+    launch shapes at the rank slices, the collectives (calls, bytes and
+    ms a round, between synchronisations: the probed round times include
+    them) and ms a round. Both worlds run at once (6 processes on the
+    card), so their times are each other's neighbours'."""
+    import numpy as np
+    from repro_torch.fed.experiment import ExperimentSpec
+    base = fl_spec("fcn", lbg_variant="topk", lbg_kw={"k_frac": 0.1},
+                   chunk_size=10)
+    base = base.with_overrides({"rounds": MESH_CARD_ROUNDS,
+                                "eval.final": False})
+    wide = ExperimentSpec.from_dict(MESH_WIDE).with_overrides(
+        {"rounds": MESH_CARD_ROUNDS})
+    paths = {"paper": os.path.join(tmp, "mesh_params.npz"),
+             "wide": os.path.join(tmp, "mesh_wide_params.npz")}
+    refs = {"paper": mesh_reference(base, device, paths["paper"]),
+            "wide": mesh_reference(wide, device, paths["wide"])}
+    worlds = []
+    for c, m in MESH_CARD:
+        jobs = []
+        for what, spec in (("paper", base), ("wide", wide)):
+            d = spec.to_dict()
+            d["fl"].update(scheduler="sharded", mesh=[c, m],
+                           lbg_variant="topk-sharded")
+            jobs.append({"tag": f"{what}_{c}x{m}", "spec": d,
+                         "params": paths[what], "rounds": MESH_CARD_ROUNDS,
+                         "device": device})
+        spec_path = os.path.join(tmp, f"cli_{c}x{m}.json")
+        with open(spec_path, "w") as f:
+            json.dump(jobs[0]["spec"], f)
+        jobs.append({"tag": f"cli_{c}x{m}", "cli": [
+            "--spec", spec_path, "--device", device, "--out",
+            os.path.join(tmp, f"cli_{c}x{m}.r{{rank}}.json")]})
+        worlds.append((c * m, jobs))
+    t0 = time.perf_counter()
+    got = spawn_mesh(worlds, tmp)
+    wall = time.perf_counter() - t0
+    rounds = MESH_CARD_ROUNDS
+    for c, m in MESH_CARD:
+        label = f"fl_sharded_mesh_card_{c}x{m}"
+        recs, wrecs = got[f"paper_{c}x{m}"], got[f"wide_{c}x{m}"]
+        cli = got[f"cli_{c}x{m}"]
+        err, sin2_err = check_mesh_job(label, [c, m], recs, refs["paper"],
+                                       device)
+        werr, wsin2_err = check_mesh_job(f"{label} d704", [c, m], wrecs,
+                                         refs["wide"], device)
+        r0, w0 = recs[0], wrecs[0]
+        if not any(h["frac_scalar"] > 0 for h in w0["history"]):
+            fail(f"{label} d704: no recycle round")
+        with np.load(paths["wide"]) as z:
+            wide_rows = rank_row_launches(f"{label} d704", [c, m], wrecs,
+                                          {k: z[k] for k in z.files}, 0.1,
+                                          device)
+        # the CLI: rank 0 alone prints and writes --out; every rank
+        # returns 0 and leaves the world ended
+        outs = [os.path.exists(os.path.join(tmp, f"cli_{c}x{m}.r{r}.json"))
+                for r in range(c * m)]
+        if [x["rc"] for x in cli] != [0] * (c * m) or not all(
+                x["world_ended"] for x in cli):
+            fail(f"{label} CLI: return codes {[x['rc'] for x in cli]}, "
+                 f"world ended {[x['world_ended'] for x in cli]}")
+        if outs != [True] + [False] * (c * m - 1) or any(
+                x["stdout"] for x in cli[1:]) or "rounds on" not in \
+                cli[0]["stdout"]:
+            fail(f"{label} CLI: --out written by {outs}, printed "
+                 f"{[bool(x['stdout']) for x in cli]}")
+        with open(os.path.join(tmp, f"cli_{c}x{m}.r0.json")) as f:
+            res = json.load(f)
+        cli_hist = res["records"]
+        for r, (a, b) in enumerate(zip(r0["history"], cli_hist)):
+            for k in ("uplink_floats", "frac_scalar", "wire_bytes",
+                      "savings"):
+                if a[k] != b[k]:
+                    fail(f"{label} CLI round {r + 1}: {k} {b[k]} vs {a[k]}")
+            if not abs(a["loss"] - b["loss"]) <= MESH_LOSS_RTOL * abs(
+                    a["loss"]):
+                fail(f"{label} CLI round {r + 1}: loss {b['loss']} vs "
+                     f"{a['loss']}")
+        shapes = {}
+        for rec in recs + wrecs + cli:
+            for k, n in rec["launches"].items():
+                totals[k] += n
+            for k, v in rec["launches_by_shape"].items():
+                for shp, n in v.items():
+                    SHAPE_TOTALS.setdefault(k, {})
+                    SHAPE_TOTALS[k][shp] = SHAPE_TOTALS[k].get(shp, 0) + n
+                    shapes.setdefault(k, {})
+                    shapes[k][shp] = shapes[k].get(shp, 0) + n
+        if device == "cuda" and not shapes.get("lbgm_sparse_decision"):
+            fail(f"{label}: the decision kernel never launched")
+        ref_hist = refs["paper"][0]
+        emit({"phase": label, "mesh": [c, m], "ranks": c * m,
+              "backend": f"{r0['backend']} (CUDA tensors)"
+              if device == "cuda" else r0["backend"],
+              "process_group": "started by the engine's mesh from the "
+                               "launcher's environment (env://)",
+              "K": 100, "chunk": r0["chunk"],
+              "clients_per_rank_chunk": r0["local"],
+              "rounds": rounds, "delta": 0.2, "k_frac": 0.1,
+              "model_sharded_leaves": r0["msharded"] or {},
+              "ms_per_round_rank0": r0["ms"],
+              "ms_per_round_of": "each round under the collective probe "
+                                 "(two card synchronisations around each "
+                                 "all_reduce); both meshes' 6 ranks share "
+                                 "the card and the host's 8 cores",
+              "cli_ms_per_round": res["duration_s"] / rounds * 1e3,
+              "cli_ms_per_round_of": "the CLI's run of the same spec, no "
+                                     "probe (run_experiment's round time; "
+                                     "the other world may run beside it)",
+              "cli_history_bit_for_bit": all(
+                  a[k] == b[k] for a, b in zip(r0["history"], cli_hist)
+                  for k in a if k in b),
+              "collective_ms_by_round": [rec["collective_ms"]
+                                         for rec in recs],
+              "collective_calls_per_round":
+                  r0["collectives"]["calls"] / rounds,
+              "collective_bytes_per_round":
+                  r0["collectives"]["bytes"] / rounds,
+              "collectives_by_group_size": r0["collectives"]["by_group_size"],
+              "bank_bytes_per_rank": [rec["bank_bytes"] for rec in recs],
+              "global_bank_bytes": r0["global_bank_bytes"],
+              "decision_launch_shapes": [
+                  [list(shp), n] for shp, n in
+                  shapes.get("lbgm_sparse_decision", {}).items()],
+              "launches": {k: sum(rec["launches"].get(k, 0) for rec in recs)
+                           for k in r0["launches"]},
+              "peak_gb_per_rank": [rec["peak_gb"] for rec in recs],
+              "loss": [h["loss"] for h in r0["history"]],
+              "loss_chunked": [h["loss"] for h in ref_hist],
+              "frac_scalar": [h["frac_scalar"] for h in r0["history"]],
+              "uplink_floats": [h["uplink_floats"] for h in r0["history"]],
+              "params_max_abs_err_vs_chunked": err,
+              "sin2_max_abs_err_vs_chunked": sin2_err,
+              "d704": {
+                  "K": 10, "chunk": w0["chunk"], "delta": 0.85,
+                  "frac_scalar": [h["frac_scalar"] for h in w0["history"]],
+                  "loss": [h["loss"] for h in w0["history"]],
+                  "model_sharded_leaves": w0["msharded"] or {},
+                  "decision_launches_at_rank_rows": wide_rows,
+                  "bank_bytes_per_rank": [rec["bank_bytes"]
+                                          for rec in wrecs],
+                  "collective_calls_per_round":
+                      w0["collectives"]["calls"] / rounds,
+                  "collective_ms_by_round_rank0": w0["collective_ms"],
+                  "ms_per_round_rank0": w0["ms"],
+                  "params_max_abs_err_vs_chunked": werr,
+                  "sin2_max_abs_err_vs_chunked": wsin2_err},
+              "seconds_both_meshes_with_spawn": wall})
 
 
 # ------------------------------------------------ CPU sides of card vs CPU
@@ -5092,6 +5755,10 @@ def main():
         emit({"phase": "hier_total",
               "seconds": time.perf_counter() - t_hier})
 
+    # the (clients, model) mesh: 4 and 2 gloo ranks on the one card
+    with tempfile.TemporaryDirectory() as tmp:
+        fl_sharded_mesh_card(totals, tmp)
+
     # the card-vs-CPU phases' CPU sides, in a worker process beside the
     # LM phases (the heaviest first); their card sides run last
     cpu_dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
@@ -5112,10 +5779,14 @@ def main():
         fl_in = {a: draws.submit(fl_cvc_inputs, a, 2, 256, 2)
                  for a in LM_KERNEL}
         fl_lm_qwen3_dense()
-        inmem = fl_lm_topk("fl_lm_qwen3_topk_int8", "qwen3-1.7b",
-                           **{"fl.chunk_size": 2, "fl.codec": "int8"})
+        # the in-memory run is the reference of the topk-host and the
+        # sharded phases
+        inmem, state = fl_lm_topk(
+            "fl_lm_qwen3_topk_int8", "qwen3-1.7b", keep_state=True,
+            **{"fl.chunk_size": 2, "fl.codec": "int8", "rounds": 2})
         fl_lm_qwen3_topk_host(totals, inmem)
-        del inmem
+        fl_sharded_qwen3_topk(totals, inmem, state)
+        del inmem, state
         fl_lm_topk("fl_lm_rwkv6_topk", "rwkv6-3b",
                    **{"fl.num_clients": 2, "data.kw.n": 2, "rounds": 2})
         fl_lm_qwen3_buffered_scalar_median()

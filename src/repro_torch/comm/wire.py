@@ -157,6 +157,37 @@ class WireCodec:
     scale_bytes = 0.0      # per block row (sparse) / per leaf (dense)
     #: sparse payload leaf keys the aggregator sees
     payload_keys = ("idx", "val")
+    #: under a model-sharded mesh (:meth:`bind_model_rows`): this rank's
+    #: model rank, and name -> whether that leaf's payload rows are sharded
+    _model_rank = 0
+    _msharded = None
+
+    def bind_model_rows(self, model_rank: int, sharded) -> None:
+        """The sparse payloads this codec encodes hold model rank
+        ``model_rank``'s block rows of each leaf with ``sharded[name]``
+        (``model_rank * rows`` is their first row in the whole leaf), and
+        the whole leaf otherwise. Stochastic rounding then draws those
+        rows' uniforms of the whole leaf's stream, and the wire bytes are
+        this rank's share: its rows of the sharded leaves, and on model
+        rank 0 only the whole leaves and a recycle round's bytes. Summed
+        over the model ranks they are the whole payload's bytes."""
+        self._model_rank = int(model_rank)
+        self._msharded = dict(sharded)
+
+    def _first_row(self, name: str, rows: int) -> int:
+        """First row in the whole leaf of a payload of ``rows`` rows."""
+        if self._msharded and self._msharded.get(name):
+            return self._model_rank * rows
+        return 0
+
+    def _counted(self, name: str) -> bool:
+        """Whether this rank's wire bytes count leaf ``name``."""
+        return (not self._msharded or self._msharded.get(name)
+                or self._model_rank == 0)
+
+    def _scalar_wire(self, stats) -> torch.Tensor:
+        own = self._model_rank == 0
+        return torch.full_like(stats.rho, self.scalar_bytes if own else 0.0)
 
     # ------------------------------------------------------- byte model
     def sparse_full_bytes(self, send) -> torch.Tensor:
@@ -167,6 +198,8 @@ class WireCodec:
         static, varint = 0.0, None
         for name in sorted(send):
             idx = send[name]["idx"]
+            if not self._counted(name):
+                continue
             nk, nb = float(idx[0].numel()), float(idx.shape[1])
             static += self.value_bytes * nk + self.scale_bytes * nb
             if self.delta_idx:
@@ -191,8 +224,7 @@ class WireCodec:
         """Encode a chunk's sparse ``(send, gscale)`` payloads. Returns
         ``(out, new_lbg, wire_bytes (C,))``; the lossless codecs leave
         payload and bank untouched."""
-        wire = torch.where(stats.sent_scalar,
-                           torch.full_like(stats.rho, self.scalar_bytes),
+        wire = torch.where(stats.sent_scalar, self._scalar_wire(stats),
                            self.sparse_full_bytes(out[0]))
         return out, new_lbg, wire
 
@@ -233,20 +265,22 @@ class _QuantizedCodec(WireCodec):
     def __init__(self, stochastic: bool = True):
         self.stochastic = bool(stochastic)
 
-    def _round(self, f, seed, leaf: int):
+    def _round(self, f, seed, leaf: int, row0: int = 0):
         """Round ``f`` (C, rows, cols) to the grid: stochastically with
         client c's uniforms ``jax.random.uniform(fold_in(PRNGKey(seed_c),
-        leaf), (rows, cols))``, or to nearest."""
+        leaf), (R, cols))[row0:row0 + rows]`` (R the whole leaf's rows),
+        or to nearest."""
         if self.stochastic:
             C, rows, cols = f.shape
             key = fold_in_t(prng_key_t(seed.to(f.device)), leaf)
-            u = uniform_rows(key, rows * cols).reshape(C, rows, cols)
-            return stochastic_round(f, u)
+            u = uniform_rows(key, rows * cols, start=row0 * cols)
+            return stochastic_round(f, u.reshape(C, rows, cols))
         return torch.round(f)
 
-    def quantize(self, val, seed, leaf: int):
+    def quantize(self, val, seed, leaf: int, row0: int = 0):
         """(C, rows, cols) fp32 -> (wire-dtype grid, (C, rows, 1) fp32
-        scale). ``seed`` (C,) and ``leaf`` key the stochastic uniforms."""
+        scale). ``seed`` (C,), ``leaf`` and the first row ``row0`` key the
+        stochastic uniforms."""
         raise NotImplementedError
 
     def decode_leaf(self, sk):
@@ -257,7 +291,8 @@ class _QuantizedCodec(WireCodec):
         send2, lbg2 = {}, {}
         for i, name in enumerate(sorted(send)):
             sk = send[name]
-            q, scale = self.quantize(sk["val"], seed, i)
+            q, scale = self.quantize(sk["val"], seed, i, self._first_row(
+                name, sk["val"].shape[1]))
             send2[name] = {"idx": sk["idx"], "val": q, "scale": scale}
             # the bank keeps the DEQUANTIZED grid values — what the server
             # decoded; on a recycle round they are on the grid already and
@@ -266,8 +301,7 @@ class _QuantizedCodec(WireCodec):
                           "val": q.float() * scale}
         gscale_q = torch.where(stats.sent_scalar, e4m3_nearest(gscale),
                                gscale)
-        wire = torch.where(stats.sent_scalar,
-                           torch.full_like(stats.rho, self.scalar_bytes),
+        wire = torch.where(stats.sent_scalar, self._scalar_wire(stats),
                            self.sparse_full_bytes(send2))
         return (send2, gscale_q), lbg2, wire
 
@@ -288,10 +322,10 @@ class _QuantizedCodec(WireCodec):
 class Int8Codec(_QuantizedCodec):
     name = "int8"
 
-    def quantize(self, val, seed, leaf: int):
+    def quantize(self, val, seed, leaf: int, row0: int = 0):
         m = val.abs().amax(-1, keepdim=True)
         scale = pow2_scale(m, self.qmax)
-        q = self._round(val / scale, seed, leaf)
+        q = self._round(val / scale, seed, leaf, row0)
         q = q.clamp(-self.qmax, self.qmax)
         return q.to(self.wire_dtype), scale
 
@@ -302,7 +336,7 @@ class Fp8Codec(_QuantizedCodec):
     wire_dtype = torch.float8_e4m3fn
     qmax = E4M3_MAX
 
-    def quantize(self, val, seed, leaf: int):
+    def quantize(self, val, seed, leaf: int, row0: int = 0):
         m = val.abs().amax(-1, keepdim=True)
         scale = pow2_scale(m, self.qmax)
         x = val / scale
@@ -310,7 +344,7 @@ class Fp8Codec(_QuantizedCodec):
         step = _e4m3_step(a)
         # round the magnitude on its binade's grid; rounding up into the
         # next binade lands on that binade's grid (16 * step = 8 * 2step)
-        r = self._round(a / step, seed, leaf)
+        r = self._round(a / step, seed, leaf, row0)
         xq = (torch.sign(x) * r * step).clamp(-self.qmax, self.qmax)
         return xq.to(self.wire_dtype), scale
 

@@ -208,17 +208,18 @@ def _pieces(rows: int, n: int):
         yield s0, min(n, s0 + step)
 
 
-def uniform_rows(key, n: int) -> torch.Tensor:
-    """Row c is ``jax.random.uniform(key_c, (n,), float32)`` (minval 0,
-    maxval 1): (C, n) fp32 on the keys' device, bit for bit, drawn in
-    pieces of at most ``_PIECE`` elements."""
+def uniform_rows(key, n: int, start: int = 0) -> torch.Tensor:
+    """Row c is ``jax.random.uniform(key_c, (N,), float32)[start:start +
+    n]`` (minval 0, maxval 1) for any N >= start + n: (C, n) fp32 on the
+    keys' device, bit for bit, drawn in pieces of at most ``_PIECE``
+    elements."""
     rows = key[0].shape[0]
     out = torch.empty((rows, n), dtype=torch.float32, device=key[0].device)
     for s0, s1 in _pieces(rows, n):
         # JAX's floats * (maxval - minval) + minval is exact at [0, 1), and
         # the clamp at minval keeps -0.0 out
-        out[:, s0:s1] = torch.clamp(
-            _unit_floats(random_bits_rows(key, s0, s1)), min=0.0)
+        out[:, s0:s1] = torch.clamp(_unit_floats(
+            random_bits_rows(key, start + s0, start + s1)), min=0.0)
     return out
 
 

@@ -10,9 +10,11 @@ of ``fed.robust`` in collect mode, every wire codec (``none``,
 ``delta_idx``, ``int8``, ``fp8``), the Byzantine attacks of
 ``fed.attacks`` and straggler dropout, the out-of-core ``"topk-host"``
 store (:class:`HostTopKLBGStore`, streamed by :class:`_HostBankStreamer`),
-hierarchical tiers (``fed.hierarchy``) and checkpoint/resume. The sharded
-scheduler and ``model_sharding="auto"`` (multi-GPU) are later slices;
-``FLConfig`` rejects their keys until then.
+hierarchical tiers (``fed.hierarchy``), checkpoint/resume, and the
+``"sharded"`` scheduler with the ``"topk-sharded"`` store on a ``(clients,
+model)`` mesh of ``torch.distributed`` ranks (:class:`ShardedScheduler`,
+``launch.mesh``). ``model_sharding="auto"`` (tensor-parallel client
+compute) is the next slice; ``FLConfig`` rejects it until then.
 
 One round:
 
@@ -82,6 +84,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.comm.accounting import CommLedger
@@ -89,6 +92,8 @@ from repro_torch.comm.wire import WIRE_KEY, codec_rng, make_codec
 from repro_torch.compression import make_uplink_pipeline
 from repro_torch.core import lbgm as lbgm_lib
 from repro_torch.core.device import resolve_device  # noqa: F401  (re-export)
+from repro_torch.core.lbgm_sharded import (bank_model_partition,
+                                           make_mesh_topk_step)
 from repro_torch.core.tree_math import tree_size
 from repro_torch.fed.attacks import (BYZ_KEY, STALE_KEY, fault_rng,
                                      make_attack, select_byzantine)
@@ -102,6 +107,7 @@ from repro_torch.fed.robust import (CollectDenseAggregator,
                                     ScalarMedianSparseAggregator,
                                     make_robust_rule)
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import is_writer
 
 
 #: attribute a model component sets on its loss function (``True``) when
@@ -251,6 +257,50 @@ class HostTopKLBGStore(TopKLBGStore):
         return _tmap(host, proto)
 
 
+class ShardedTopKLBGStore(TopKLBGStore):
+    """The top-k bank laid out for the ``(clients, model)`` mesh.
+
+    The bank's shapes, cost model and aggregator are
+    :class:`TopKLBGStore`'s; the decision goes through
+    ``core.lbgm_sharded``:
+
+    * on the client axis each rank holds the bank rows of the clients it
+      trains (placed by :meth:`ShardedScheduler.layout_banks`), so the
+      decision adds no traffic;
+    * with ``n_model > 1`` and the sparse payload, each leaf's block rows
+      shard over the model axis where ``nb`` divides
+      (:meth:`bank_model_partition`): the scheduler binds the store to its
+      model rank and group (:meth:`bind_model_rank`), each rank decides on
+      its rows of the global block layout, and the three scalars go
+      through one ``all_reduce`` over the model group. A rank holds
+      O(K·k_frac·M / (c·m)) bank bytes.
+
+    With ``n_model == 1`` the step is the rank-local one, bit for bit
+    :class:`TopKLBGStore`'s: the two stores are interchangeable on any
+    scheduler."""
+
+    def __init__(self, delta_threshold: float, k_frac: float = 0.1,
+                 fused: bool = False, n_model: int = 1):
+        super().__init__(delta_threshold, k_frac, fused=fused)
+        self.n_model = int(n_model)
+
+    def bind_model_rank(self, model_rank: int, group) -> None:
+        """Decide on model rank ``model_rank``'s rows, summing the
+        scalars over ``group`` (the mesh's model group): the sparse step
+        of those rows takes the place of the whole leaf's. The dense
+        g_tilde step (``fused_kernels=False``) stays the whole leaf's,
+        and its banks stay model-replicated."""
+        self.sparse_client_step = make_mesh_topk_step(
+            self.delta, self.k_frac, n_model=self.n_model,
+            model_rank=model_rank, group=group, sparse_out=True,
+            fused=self.fused)
+
+    def bank_model_partition(self, params) -> Dict[str, bool]:
+        """name -> whether that leaf's bank rows shard over the model axis
+        (the one rule of ``core.lbgm_sharded``)."""
+        return bank_model_partition(params, self.k_frac, self.n_model)
+
+
 def _lbg_kw(cfg: FLConfig) -> dict:
     """User lbg_kw, refusing the engine-controlled keys."""
     kw = dict(cfg.lbg_kw or {})
@@ -275,6 +325,11 @@ register_lbg_store("topk")(
     lambda cfg: TopKLBGStore(cfg.delta_threshold,
                              fused=resolve_fused_kernels(cfg),
                              **_lbg_kw(cfg)))
+register_lbg_store("topk-sharded")(
+    lambda cfg: ShardedTopKLBGStore(cfg.delta_threshold,
+                                    fused=resolve_fused_kernels(cfg),
+                                    n_model=cfg.mesh_model_dim,
+                                    **_lbg_kw(cfg)))
 register_lbg_store("topk-host")(
     lambda cfg: HostTopKLBGStore(cfg.delta_threshold,
                                  fused=resolve_fused_kernels(cfg),
@@ -485,6 +540,32 @@ class _ChunkLoop:
     chunk: int
     pad: int
 
+    # bank placement: identities here; the sharded scheduler places each
+    # rank's rows of the (clients, model) mesh
+    def configure_store(self, store, sparse_agg: bool, params,
+                        codec=None) -> None:
+        """Bind ``store`` and ``codec`` to this scheduler's bank layout
+        before the banks are allocated."""
+
+    def bank_rows(self, Kp: int) -> int:
+        """Client rows of the banks this process allocates."""
+        return Kp
+
+    def layout_banks(self, bank):
+        """The allocated banks in the layout :meth:`run` indexes."""
+        return bank
+
+    def global_banks(self, bank):
+        """The banks in the checkpoint's layout."""
+        return bank
+
+    def local_banks(self, bank):
+        """This process's rows of banks in the checkpoint's layout."""
+        return bank
+
+    def sync(self) -> None:
+        """Wait for every process of the run (one process: nothing)."""
+
     def prepare_batch(self, stacked: Dict[str, np.ndarray]):
         """(K, tau, b, ...) host arrays, zero-padded to K + pad rows."""
         if not self.pad:
@@ -518,8 +599,10 @@ class _ChunkLoop:
         return (out, *y)
 
     def _chunk(self, client_fn, params, batch, lbg, resid, maskf, s):
-        """``client_fn`` over the clients of slice ``s``; their bank rows
-        are written back in place where ``maskf`` is set. Returns
+        """``client_fn`` over the clients at ``s`` (a slice of the banks'
+        client rows, or a chunk's index on the sharded ``(n_chunks,
+        chunk/c, ...)`` layout); their bank rows are written back in place
+        where ``maskf`` is set. Returns
         ``(gt, *per-client outputs)``."""
         l_c = _tmap(lambda x: x[s], lbg)
         r_c = _tmap(lambda x: x[s], resid)
@@ -535,7 +618,7 @@ class _ChunkLoop:
 class VmapScheduler(_ChunkLoop):
     """All K clients in one chunk; O(K·M) transient working set."""
 
-    def __init__(self, cfg: FLConfig, num_clients: int):
+    def __init__(self, cfg: FLConfig, num_clients: int, device="cuda"):
         self.num_clients = num_clients
         self.chunk, self.pad = num_clients, 0
 
@@ -545,7 +628,7 @@ class ChunkedScheduler(_ChunkLoop):
     """Chunks of ``pick_chunk(K, chunk_size)`` clients; O(chunk·M)
     transient working set."""
 
-    def __init__(self, cfg: FLConfig, num_clients: int):
+    def __init__(self, cfg: FLConfig, num_clients: int, device="cuda"):
         self.num_clients = num_clients
         self.chunk = pick_chunk(num_clients, cfg.chunk_size)
         self.pad = (-num_clients) % self.chunk
@@ -624,8 +707,355 @@ class BufferedScheduler(ChunkedScheduler):
                 sin2)
 
 
-def make_scheduler(cfg: FLConfig, num_clients: int):
-    return SCHEDULERS.get(cfg.scheduler)(cfg, num_clients)
+def pick_sharded_chunk(num_clients: int, chunk_size: int, n_dev: int) -> int:
+    """Chunk size of the sharded scheduler: :func:`pick_chunk`'s policy,
+    with the chunk split evenly over the ``n_dev`` client ranks.
+    ``n_dev == 1`` is ``pick_chunk`` exactly (half of what makes the
+    one-rank round bit for bit the chunked one)."""
+    if n_dev == 1:
+        return pick_chunk(num_clients, chunk_size)
+    # capped at min(chunk_size, K) like pick_chunk, rounded down to the
+    # mesh grid, never below n_dev (the smallest legal chunk)
+    c = max(min(chunk_size, num_clients) // n_dev * n_dev, n_dev)
+    divs = [x for x in range(n_dev, c + 1, n_dev) if num_clients % x == 0]
+    if divs and divs[-1] >= max(n_dev, c // 2):
+        return divs[-1]
+    return c
+
+
+def _pack_bytes(tensors):
+    """One flat int64 buffer holding every tensor's bytes, each tensor's
+    segment at an 8-byte boundary, and the segments' (offset, nbytes)."""
+    spans, off = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        spans.append((off, n))
+        off += -(-n // 8) * 8
+    buf = torch.zeros(max(off, 8) // 8, dtype=torch.int64,
+                      device=tensors[0].device)
+    raw = buf.view(torch.uint8)
+    for t, (o, n) in zip(tensors, spans):
+        raw[o:o + n].copy_(t.contiguous().reshape(-1).view(torch.uint8))
+    return buf, spans
+
+
+def _gather_sum(tensors, group):
+    """The gather the sharded path runs as an ``all_reduce``: each rank
+    passes zero-filled tensors holding its own elements, no byte of which
+    any other rank fills. Summed as integers over ``group``, each byte is
+    one rank's byte plus zeros, so the result is the gather bit for bit
+    (signed zeros and NaN payloads included), in one collective. Returns
+    new tensors."""
+    buf, spans = _pack_bytes(tensors)
+    dist.all_reduce(buf, group=group)
+    raw = buf.view(torch.uint8)
+    return [raw[o:o + n].view(t.dtype).reshape(t.shape).clone()
+            for t, (o, n) in zip(tensors, spans)]
+
+
+@register_scheduler("sharded")
+class ShardedScheduler(_ChunkLoop):
+    """The chunked layout over a ``(clients, model)`` mesh of
+    ``torch.distributed`` ranks (``FLConfig.mesh``, resolved by
+    ``launch.mesh.make_fl_mesh``). Every rank builds the same engine; the
+    chunk splits evenly over the c client ranks.
+
+    * **Rows a rank holds.** Client rank r holds positions ``[r·chunk/c,
+      (r+1)·chunk/c)`` of *every* chunk (the JAX bank shards axis 1 of its
+      ``(n_chunks, chunk, ...)`` layout over ``clients``): their bank rows,
+      their batches, and it trains those clients. Banks are stored
+      ``(n_chunks, chunk/c, ...)``; a model-sharded leaf of the sparse bank
+      (:meth:`configure_store`) keeps only model rank q's ``nb/m`` block
+      rows. Per rank that is 1/c of the bank, 1/(c·m) for a model-sharded
+      leaf.
+    * **Seed, then sum.** Per chunk, client rank 0 folds its clients into
+      the carry, the others into zeros, and one ``all_reduce`` over the
+      client group sums them. On one client rank there is no collective:
+      a ``(1, 1)`` mesh makes the chunked scheduler's ``accumulate``
+      calls in its order, bit for bit, and ``n`` equals ``[n, 1]``.
+      More client ranks reassociate the client sum (fp32 tolerance;
+      uplink accounting stays exact).
+    * **The carry over ``model``.** A model-sharded carry leaf holds each
+      model rank's own rows; the round's end assembles every leaf across
+      the model group (replicated leaves from model rank 0).
+    * **Collect mode** (robust rules): every rank gathers the whole
+      ``(Kp, ...)`` payload stack in client order (model-sharded payload
+      rows assembled too) and the rule reduces it once.
+    * **Per-client outputs** (loss, uplink, scalar, wire, sin²) come back
+      in client order on every rank, so every rank holds the same history.
+
+    The collectives are ``all_reduce`` only; a gather is an
+    ``all_reduce`` of zero-filled buffers (:func:`_gather_sum`)."""
+
+    AXIS = "clients"
+    MODEL_AXIS = "model"
+
+    def __init__(self, cfg: FLConfig, num_clients: int, device="cuda"):
+        from repro_torch.launch.mesh import make_fl_mesh
+        self.mesh = make_fl_mesh(cfg.mesh, device=device,
+                                 client_axis=self.AXIS,
+                                 model_axis=self.MODEL_AXIS)
+        self.n_client_dev, self.n_model = (int(d) for d in
+                                           self.mesh.mesh.shape)
+        self.n_dev = self.n_client_dev * self.n_model
+        self.client_rank = self.mesh.get_local_rank(self.AXIS)
+        self.model_rank = self.mesh.get_local_rank(self.MODEL_AXIS)
+        self.client_group = self.mesh.get_group(self.AXIS)
+        self.model_group = self.mesh.get_group(self.MODEL_AXIS)
+        self.num_clients = num_clients
+        self.chunk = pick_sharded_chunk(num_clients, cfg.chunk_size,
+                                        self.n_client_dev)
+        self.pad = (-num_clients) % self.chunk
+        self.local = self.chunk // self.n_client_dev
+        # set by configure_store when the sparse bank model-shards:
+        # {name: bool} for the bank's block rows, mirrored by the carry;
+        # None: everything model-replicated
+        self._msharded: Optional[Dict[str, bool]] = None
+
+    # ----------------------------------------------------- placement
+    def configure_store(self, store, sparse_agg: bool, params,
+                        codec=None) -> None:
+        """Model sharding is on when the mesh has a model axis, the engine
+        took the sparse payload (the dense g_tilde cannot be assembled
+        across model ranks) and the store partitions its bank; otherwise
+        every bank row and carry leaf is model-replicated. The store then
+        decides on this model rank's rows, and ``codec`` encodes them."""
+        if (self.n_model > 1 and sparse_agg
+                and isinstance(store, ShardedTopKLBGStore)):
+            self._msharded = store.bank_model_partition(params)
+            store.bind_model_rank(self.model_rank, self.model_group)
+            if codec is not None:
+                codec.bind_model_rows(self.model_rank, self._msharded)
+
+    def _model_rows(self, name, x, dim: int):
+        """(start, rows) of model rank q's rows along ``dim`` of a leaf
+        whose global extent there is ``x.shape[dim]``, or None when the
+        leaf is model-replicated."""
+        if not (self._msharded or {}).get(name):
+            return None
+        nb_l = x.shape[dim] // self.n_model
+        return self.model_rank * nb_l, nb_l
+
+    def bank_rows(self, Kp: int) -> int:
+        """Client rows of the banks this rank allocates."""
+        return Kp // self.chunk * self.local
+
+    def layout_banks(self, bank):
+        """This rank's ``(n_chunks * chunk/c, ...)`` bank -> ``(n_chunks,
+        chunk/c, ...)``, a model-sharded sparse leaf narrowed to this model
+        rank's block rows."""
+        out = {}
+        for name, leaf in bank.items():
+            if isinstance(leaf, dict):
+                out[name] = {}
+                for k, x in leaf.items():
+                    x = x.reshape((-1, self.local) + tuple(x.shape[1:]))
+                    rows = self._model_rows(name, x, 2)
+                    if rows is not None:
+                        x = x.narrow(2, *rows).clone()
+                    out[name][k] = x
+            else:
+                out[name] = leaf.reshape((-1, self.local)
+                                         + tuple(leaf.shape[1:]))
+        return out
+
+    def prepare_batch(self, stacked: Dict[str, np.ndarray]):
+        """(K, tau, b, ...) host arrays -> this rank's (n_chunks, chunk/c,
+        tau, b, ...): every rank draws every client's batch from the same
+        stream, then keeps its own."""
+        c0 = self.client_rank * self.local
+        out = {}
+        for k, v in super().prepare_batch(stacked).items():
+            v = v.reshape((-1, self.chunk) + v.shape[1:])
+            out[k] = np.ascontiguousarray(v[:, c0:c0 + self.local])
+        return out
+
+    # ----------------------------------------------------- gathers
+    def _to_global(self, name, local, model_dim: Optional[int]):
+        """Zero-filled ``(n_chunks, chunk, ...)`` holding this rank's
+        ``(n_chunks, chunk/c, ...)`` rows at their client positions (and
+        model rows along ``model_dim`` for a model-sharded leaf, or for any
+        tensor named None: each model rank's own slot there); a
+        model-replicated leaf is filled by model rank 0 alone."""
+        shape = list(local.shape)
+        shape[1] = self.chunk
+        rows = None
+        if model_dim is not None and (
+                name is None or (self._msharded or {}).get(name)):
+            shape[model_dim] *= self.n_model
+            rows = (self.model_rank * local.shape[model_dim],
+                    local.shape[model_dim])
+        out = local.new_zeros(shape)
+        if rows is None and self.model_rank != 0:
+            return out
+        c0 = self.client_rank * self.local
+        dst = out[:, c0:c0 + self.local]
+        if rows is not None:
+            dst = dst.narrow(model_dim, *rows)
+        dst.copy_(local)
+        return out
+
+    def _gather(self, items):
+        """``[(name, local, model_dim)]`` -> each local ``(n_chunks,
+        chunk/c, ...)`` tensor at its global ``(n_chunks, chunk, ...)``
+        extent, on every rank, in one gather over the world. ``model_dim``
+        is the block-row dim of a sparse leaf (None: no model rows)."""
+        if self.n_dev == 1 or not items:
+            return [x for _, x, _ in items]
+        return _gather_sum([self._to_global(*it) for it in items], None)
+
+    def _gather_tree(self, tree, model_dim: Optional[int]):
+        """:meth:`_gather` over every leaf of ``{name: tensor}`` or
+        ``{name: {k: tensor}}`` (``model_dim`` applies to the latter)."""
+        items = []
+        for name in sorted(tree):
+            leaf = tree[name]
+            if isinstance(leaf, dict):
+                items += [(name, leaf[k], model_dim) for k in sorted(leaf)]
+            else:
+                items.append((name, leaf, None))
+        it = iter(self._gather(items))
+        return {name: ({k: next(it) for k in sorted(tree[name])}
+                       if isinstance(tree[name], dict) else next(it))
+                for name in sorted(tree)}
+
+    def global_banks(self, bank):
+        """The banks in the JAX sharded engine's global ``(n_chunks,
+        chunk, ...)`` layout (the checkpoint's), on every rank."""
+        return self._gather_tree(bank, 2)
+
+    def local_banks(self, bank):
+        """This rank's rows of global ``(n_chunks, chunk, ...)`` banks."""
+        c0 = self.client_rank * self.local
+        out = {}
+        for name, leaf in bank.items():
+            if isinstance(leaf, dict):
+                out[name] = {}
+                for k, x in leaf.items():
+                    x = x[:, c0:c0 + self.local]
+                    rows = self._model_rows(name, x, 2)
+                    out[name][k] = x if rows is None else x.narrow(2, *rows)
+            else:
+                out[name] = leaf[:, c0:c0 + self.local]
+        return out
+
+    def sync(self) -> None:
+        """Every rank waits for every other (one all_reduce of a zero):
+        a checkpoint is on disk before any rank reads it."""
+        if self.n_dev > 1:
+            z = torch.zeros(1, device=self.mesh.device_type)
+            dist.all_reduce(z)
+
+    def _client_sum(self, acc):
+        """The chunk's carry summed over the client group: one
+        ``all_reduce`` of every leaf in one flat fp32 buffer. The leaves
+        come back as views of it."""
+        names = sorted(acc)
+        flat = torch.cat([acc[n].reshape(-1) for n in names])
+        dist.all_reduce(flat, group=self.client_group)
+        out, off = {}, 0
+        for n in names:
+            k = acc[n].numel()
+            out[n] = flat[off:off + k].view(acc[n].shape)
+            off += k
+        return out
+
+    def _acc_init(self, agg, params):
+        acc = agg.init(params)
+        for name, a in acc.items():
+            rows = self._model_rows(name, a, 0)
+            if rows is not None:
+                acc[name] = a.narrow(0, *rows).clone()
+        return acc
+
+    def _assemble_acc(self, acc):
+        """Every carry leaf at its global extent, on every rank of the
+        model group: the rank's rows (model-sharded) or model rank 0's
+        leaf (replicated), gathered in one ``all_reduce``."""
+        if self.n_model == 1:
+            return acc
+        names = sorted(acc)
+        parts = []
+        for name in names:
+            a = acc[name]
+            if (self._msharded or {}).get(name):
+                full = a.new_zeros((a.shape[0] * self.n_model,)
+                                   + a.shape[1:])
+                full.narrow(0, self.model_rank * a.shape[0],
+                            a.shape[0]).copy_(a)
+            else:
+                full = a.clone() if self.model_rank == 0 \
+                    else torch.zeros_like(a)
+            parts.append(full)
+        return dict(zip(names, _gather_sum(parts, self.model_group)))
+
+    # ----------------------------------------------------- the round
+    def run(self, client_fn, agg, params, batch, lbg, resid, w, maskf):
+        K, chunk, pad, cl = (self.num_clients, self.chunk, self.pad,
+                             self.local)
+        if pad:
+            w = torch.cat([w, w.new_zeros(pad)])
+            maskf = torch.cat([maskf, maskf.new_zeros(pad)])
+        n_chunks = (K + pad) // chunk
+        c0 = self.client_rank * cl
+        w_l = w.reshape(n_chunks, chunk)[:, c0:c0 + cl].contiguous()
+        m_l = maskf.reshape(n_chunks, chunk)[:, c0:c0 + cl].contiguous()
+        collect = getattr(agg, "collect", False)
+        acc = None if collect else self._acc_init(agg, params)
+        ys, gts = [], []
+        for i in range(n_chunks):
+            gt, *y = self._chunk(client_fn, params, batch, lbg, resid, m_l,
+                                 i)
+            if collect:
+                gts.append(gt)
+            elif self.n_client_dev == 1:
+                acc = agg.accumulate(acc, w_l[i], gt)
+            else:
+                if self.client_rank != 0:
+                    acc = {n: torch.zeros_like(a) for n, a in acc.items()}
+                acc = self._client_sum(agg.accumulate(acc, w_l[i], gt))
+            ys.append(y)
+        # per-client outputs in client order, from model rank 0; under
+        # model sharding each model rank's wire bytes are its share of the
+        # payload (the codec's bind_model_rows), summed here
+        cols = [torch.stack(col) for col in zip(*ys)]
+        items = [(n, c, None) for n, c in zip(
+            ("loss", "uplink", "scalar", "wire", "sin2"), cols)]
+        if self._msharded:
+            items[3] = (None, cols[3][..., None], 2)
+        y = self._gather(items)
+        if self._msharded:
+            y[3] = y[3].double().sum(-1).float()
+        y = [x.reshape(-1)[:K] for x in y]
+        if collect:
+            stack = self._gather_payloads(gts)
+            out = agg.reduce(w, stack)
+        else:
+            out = agg.finalize(self._assemble_acc(acc))
+        return (out, *y)
+
+    def _gather_payloads(self, gts):
+        """Collect mode: the chunks' payloads (dense ``{name: (cl, ...)}``
+        or sparse ``({name: {k: (cl, nb_l, kb)}}, gscale (cl,))``) as the
+        whole ``(Kp, ...)`` stack in client order, on every rank."""
+        flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
+        stack = lambda parts: _tmap(lambda *xs: torch.stack(xs), *parts)
+        if not isinstance(gts[0], tuple):
+            return _tmap(flat, self._gather_tree(stack(gts), None))
+        send = stack([g[0] for g in gts])
+        keys = [(name, k) for name in sorted(send) for k in sorted(send[name])]
+        got = self._gather([(name, send[name][k], 2) for name, k in keys]
+                           + [(None, torch.stack([g[1] for g in gts]), None)])
+        out = {}
+        for (name, k), x in zip(keys, got):
+            out.setdefault(name, {})[k] = flat(x)
+        return out, flat(got[-1])
+
+
+def make_scheduler(cfg: FLConfig, num_clients: int, device="cuda"):
+    """The configured scheduler: ``factory(cfg, num_clients, device=)``
+    (the sharded scheduler builds its mesh on ``device``)."""
+    return SCHEDULERS.get(cfg.scheduler)(cfg, num_clients, device=device)
 
 
 # ------------------------------------------------------------- engine
@@ -684,7 +1114,7 @@ class FLEngine:
             else:
                 self._payload_attack = self.attack
         self._fault_rng = fault_rng(flcfg.seed)
-        self.sched = make_scheduler(flcfg, K)
+        self.sched = make_scheduler(flcfg, K, device=self.device)
         self._chunk, self._pad = self.sched.chunk, self.sched.pad
         sizes = np.array([len(next(iter(d.values())))
                           for d in client_data], np.float64)
@@ -733,8 +1163,9 @@ class FLEngine:
                 f"codec={flcfg.codec!r} is lossy, but the dense LBGM bank "
                 "cannot track the server-decoded values (recycle rounds "
                 "would replay unquantized LBGs the server never saw). Use "
-                "the sparse payload path (lbg_variant='topk' with "
-                "fused_kernels not False) or vanilla FL (use_lbgm=False)")
+                "the sparse payload path (lbg_variant='topk'/'topk-sharded' "
+                "with fused_kernels not False) or vanilla FL "
+                "(use_lbgm=False)")
         # buffered scheduler: the latency model, the host delivery plan and
         # (below, once Kp is known) the staleness buffer on the device
         self._latency = None
@@ -745,8 +1176,8 @@ class FLEngine:
                 raise ValueError(
                     "scheduler='buffered' buffers sparse (idx, val) "
                     "payloads between dispatch and delivery — use "
-                    "lbg_variant='topk' and leave fused_kernels unset or "
-                    "True")
+                    "lbg_variant='topk'/'topk-sharded' and leave "
+                    "fused_kernels unset or True")
             self._latency = make_latency(flcfg)
             # at most one payload in flight per client; arrival[k] is the
             # round it lands (-1: idle)
@@ -757,15 +1188,26 @@ class FLEngine:
             self._tau_vec = self._latency.sample_tau(K, flcfg.tau)
             #: payloads delivered over the run
             self.n_delivered = 0.0
+        # the (clients, model) mesh: the scheduler decides, with the store,
+        # which bank and carry leaves shard over the model axis, before the
+        # banks are allocated
+        self.sched.configure_store(self.store, self._sparse_agg, self.params,
+                                   codec=self.codec)
         Kp = K + self._pad
+        # a scheduler that places banks (the sharded one) allocates only
+        # this rank's client rows and lays them out itself
+        rows = self.sched.bank_rows(Kp)
         self._pipeline, self._use_ef = make_uplink_pipeline(
             flcfg.compressor, flcfg.compressor_kw, flcfg.error_feedback)
         self.lbg = self.store.init(
-            self.params, Kp, promote=torch.float32 if self._use_ef else None)
+            self.params, rows,
+            promote=torch.float32 if self._use_ef else None)
         self.residual = {
-            k: torch.zeros((Kp,) + tuple(p.shape), dtype=torch.float32,
+            k: torch.zeros((rows,) + tuple(p.shape), dtype=torch.float32,
                            device=self.device)
             for k, p in self.params.items()} if self._use_ef else {}
+        self.lbg = self.sched.layout_banks(self.lbg)
+        self.residual = self.sched.layout_banks(self.residual)
         if self._latency is not None:
             self._buffer = self._init_buffer(Kp)
         self._client_fn = self._build_client_fn()
@@ -1320,15 +1762,22 @@ class FLEngine:
         (atomically, ``checkpoint.ckpt``'s format): params, the LBG bank
         (the host bank under topk-host), the residual, the staleness buffer
         and delivered count, every host stream, the ledger and the history
-        — what :meth:`restore_checkpoint` needs to continue bit for bit."""
+        — what :meth:`restore_checkpoint` needs to continue bit for bit.
+        On a mesh every rank calls it: the banks are gathered to the JAX
+        sharded engine's global layout, rank 0 writes, and every rank waits
+        until the file is there."""
         if self._host_snapshot is None:
             raise ValueError(
                 "save_checkpoint: no completed round to snapshot — run "
                 "at least one round first")
+        # on a mesh the banks in the JAX sharded engine's global
+        # (n_chunks, chunk, ...) layout, gathered on every rank
+        lbg = self.sched.global_banks(self.lbg)
+        residual = self.sched.global_banks(self.residual)
         state = {
             "params": self.params,
-            "lbg": self.lbg,
-            "residual": self.residual,
+            "lbg": lbg,
+            "residual": residual,
             "host": self._host_snapshot,
             "ledger": self.ledger.state_dict(),
             "history": self.history,
@@ -1339,9 +1788,11 @@ class FLEngine:
                 lambda t: t.view(torch.uint8) if _is_byte_float(t) else t,
                 self._buffer)
             state["n_delivered"] = np.float64(self.n_delivered)
-        ckpt_lib.save_checkpoint(path, state, metadata={
-            "version": 1, "round": len(self.history),
-            "config": self.cfg.to_dict()})
+        if is_writer():
+            ckpt_lib.save_checkpoint(path, state, metadata={
+                "version": 1, "round": len(self.history),
+                "config": self.cfg.to_dict()})
+        self.sched.sync()
 
     def restore_checkpoint(self, path: str,
                            rng: np.random.RandomState) -> int:
@@ -1349,7 +1800,8 @@ class FLEngine:
         (checked against the checkpoint's metadata), and set ``rng``, the
         caller's batch/mask stream for the rounds to come. Every bank and
         buffer is written in place, so the topk-host streamer keeps its
-        reference to the host bank. Returns the number of completed
+        reference to the host bank; on a mesh each rank takes its own rows
+        of the global banks. Returns the number of completed
         rounds (the index to resume from)."""
         tree, meta = ckpt_lib.load_checkpoint(path)
         if meta.get("config") != self.cfg.to_dict():
@@ -1363,7 +1815,10 @@ class FLEngine:
         for name, have in (("lbg", self.lbg), ("residual", self.residual),
                            ("buffer", self._buffer)):
             if have:
-                _tmap(_copy_in, have, tree[name])
+                src = tree[name]
+                if name != "buffer":
+                    src = self.sched.local_banks(src)
+                _tmap(_copy_in, have, src)
         if self._buffer is not None:
             self.n_delivered = float(tree["n_delivered"])
         host = tree["host"]

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.fed.flconfig import FLConfig
+from repro_torch.launch.mesh import is_writer
 from repro_torch.fed.registry import (DATASETS, MODELS, PARTITIONERS,
                                       register_dataset, register_model,
                                       register_partitioner)
@@ -332,7 +333,7 @@ def run_experiment(spec: ExperimentSpec, rounds: Optional[int] = None,
             ev: Dict[str, float] = {}
             if policy.every and (r + 1) % policy.every == 0:
                 ev = eval_fn(engine.params)
-                if policy.verbose:
+                if policy.verbose and is_writer():
                     shown = {**m, **ev}
                     print(f"[{spec.name}] round {r+1:4d} " +
                           " ".join(f"{k}={v:.4g}"

@@ -4,9 +4,12 @@ Same fields, defaults, validation and JSON form as
 ``repro.fed.flconfig.FLConfig``, so one spec file drives either package.
 Registry-keyed fields are checked against the PORT's registries
 (``repro_torch.fed.registry``); a key the port has not ported yet fails
-with the usual "unknown ...; registered: [...]" error.
-``model_sharding="auto"`` (multi-GPU) is not ported yet and is rejected
-here for the same reason: it must not silently run something else.
+with the usual "unknown ...; registered: [...]" error. The ``"sharded"``
+scheduler and ``mesh`` run on ``torch.distributed`` ranks
+(``repro_torch.launch.mesh``); ``model_sharding="auto"``
+(tensor-parallel client compute) is the next slice of the port and is
+rejected here for the same reason: it must not silently run something
+else.
 
 This module stays import-light (no torch): registries are consulted
 lazily, which also lets ``repro_torch.configs`` import it without cycles.
@@ -36,12 +39,15 @@ class FLConfig:
     sample_frac: float = 1.0         # Algorithm 3 device sampling
     seed: int = 0
     scheduler: str = "vmap"          # registry key: vmap | chunked |
-    #                                  buffered
+    #                                  buffered | sharded
     chunk_size: int = 16             # max clients per chunk
-    mesh: Union[None, int, list] = None     # sharded scheduler (not ported)
+    mesh: Union[None, int, list] = None
+    # ^ the sharded scheduler's (clients, model) mesh of ranks: None = every
+    #   rank on the client axis, int n = [n, 1], [c, m] = c client ranks x
+    #   m model ranks (launch.mesh.make_fl_mesh)
     model_sharding: str = "replicate"
     lbg_variant: str = "dense"       # registry key: dense | topk |
-    #                                  topk-host | null
+    #                                  topk-host | topk-sharded | null
     lbg_kw: Optional[dict] = None    # e.g. {"k_frac": 0.1} for topk
     aggregator: str = "mean"         # registry key: mean | trimmed_mean |
     #   coordinate_median | geometric_median | scalar_median
@@ -215,10 +221,13 @@ class FLConfig:
         if self.ckpt_every > 0 and not self.ckpt_path:
             bad(f"ckpt_every={self.ckpt_every} needs a ckpt_path to "
                 "write to")
-        # multi-GPU, not ported yet (see ROADMAP.md §1)
+        # tensor-parallel client compute: the next slice of the port
+        # (ROADMAP.md §1)
         if self.model_sharding == "auto":
-            bad("model_sharding='auto' is not ported to repro_torch yet; "
-                "use the JAX package (repro) for it")
+            bad("model_sharding='auto' is not ported to repro_torch yet "
+                "(it is the next slice of the multi-GPU port, after the "
+                "'sharded' scheduler's 'replicate' mode); use the JAX "
+                "package (repro) for it")
         from repro_torch.fed import registry as reg
         if self.scheduler not in reg.SCHEDULERS:
             bad(f"unknown scheduler {self.scheduler!r}; registered "

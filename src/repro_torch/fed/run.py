@@ -9,17 +9,31 @@ Without ``--spec`` a small built-in spec runs (4-client FCN on the mixture
 dataset); ``--print-spec`` dumps the resolved spec as JSON without
 running. It runs on the CUDA card; ``--device cpu`` runs on the CPU
 instead (without a card and without that flag it exits with an error).
+
+A spec on the ``"sharded"`` scheduler runs on a ``(clients, model)`` mesh of
+ranks (``fl.mesh``); launch one process per rank with ``torchrun``:
+
+    torchrun --nproc-per-node 4 -m repro_torch.fed.run \
+        --spec examples/specs/yi34b_mesh2x4.json --set 'fl.mesh=[2,2]' \
+        --device cpu
+
+(gloo on the CPU; on the card NCCL with a card per rank, gloo when ranks
+share a card). Every rank runs the experiment and holds the same history;
+rank 0 alone prints, writes ``--out`` and the checkpoints. A sharded spec
+whose mesh is ``(1, 1)`` needs no launcher.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Optional
 
 from repro_torch.fed.experiment import (ComponentSpec, EvalPolicy,
                                         ExperimentSpec, run_experiment)
 from repro_torch.fed.flconfig import FLConfig
+from repro_torch.launch.mesh import is_writer, shutdown
 
 
 def default_spec() -> ExperimentSpec:
@@ -85,7 +99,16 @@ def main(argv: Optional[list] = None) -> int:
         print(spec.to_json())
         return 0
 
-    result = run_experiment(spec, device=args.device, resume=args.resume)
+    try:
+        result = run_experiment(spec, device=args.device,
+                                resume=args.resume)
+        writer = is_writer()
+    finally:
+        if "WORLD_SIZE" in os.environ:
+            # the launcher's ranks leave together
+            shutdown()
+    if not writer:
+        return 0
     last = result.records[-1]
     print(f"[{spec.name}] {result.rounds} rounds on {result.device} in "
           f"{result.duration_s:.2f}s "

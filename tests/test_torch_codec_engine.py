@@ -252,3 +252,86 @@ def test_stochastic_codec_matches_jax(case):
     jh = [jeng.run_round(jrng) for _ in range(rounds)]
     th = [teng.run_round(trng) for _ in range(rounds)]
     assert_runs_agree(case, jeng, teng, jh, th, ties=True)
+
+
+def _payload_capture(monkeypatch):
+    """Record every payload row block the int8 codecs quantize (the
+    fc1/w-sized ones): the JAX package's through a debug callback, one
+    (nb, kb) client at a time, the port's as (C, nb, kb) chunks."""
+    import jax
+    jax_rows, port_rows = [], []
+    jq, tq = jw.Int8Codec.quantize, tw.Int8Codec.quantize
+
+    def jquant(self, val, key):
+        if val.shape[-1] > 1000:
+            jax.debug.callback(lambda v: jax_rows.append(np.array(v)), val)
+        return jq(self, val, key)
+
+    def tquant(self, val, seed, leaf, row0=0):
+        if val.shape[-1] > 1000:
+            port_rows.extend(val.numpy().copy())
+        return tq(self, val, seed, leaf, row0)
+    monkeypatch.setattr(jw.Int8Codec, "quantize", jquant)
+    monkeypatch.setattr(tw.Int8Codec, "quantize", tquant)
+    return jax_rows, port_rows
+
+
+def test_stochastic_int8_parts_from_jax_by_payload_order(monkeypatch):
+    """Why stochastic int8 at d_model 704 parts from the JAX package
+    beyond the tie rule (ROADMAP §3): the two packages send the same
+    values, and a few of them in another order.
+
+    The spec is ``test_torch_sharded_ranks.py``'s FCN (d_model 704, K=10,
+    chunks of 5, sample_frac 0.5, top-k at k_frac 0.1) with the int8
+    codec's default stochastic rounding, one round from the JAX package's
+    params. fc1/w's payload is (16, 3449) a client. Held here:
+
+    * every payload row holds the same values in both packages, up to
+      the gradients' float error (sorted rows within rtol 2e-6);
+    * the positions that hold another value are few (at most 1e-3 of the
+      payload) and each is one of a near tie: its |value| is within
+      1e-6 of another such position's, so the block top-k in value order
+      (ties to the lower index, both packages) ranks them by their last
+      bits, which the gradients' sums in another order set apart;
+    * there is at least one, the parting this test pins.
+
+    Round to nearest ignores the order. Stochastic rounding draws its
+    uniform by payload position, so a value at another position draws
+    another uniform and may land on the other grid point: after one
+    round 35 of fc1/w's 551,936 elements and 1 of fc2/w's 7,040 differ
+    from the JAX package's by one or two grid steps (up to 1.6e-5), 658
+    after two rounds and 1,760 after three (over the 1e-3 tie rule)."""
+    jax_rows, port_rows = _payload_capture(monkeypatch)
+    d = {"name": "w704", "model": {"name": "fcn", "kw": {"d_model": 704}},
+         "data": {"name": "mixture", "kw": {"n": 600, "n_eval": 50,
+                                            "seed": 0}},
+         "partition": {"name": "iid", "kw": {"seed": 0}},
+         "fl": dict(TOPK, lbg_kw={"k_frac": 0.1}, num_clients=10, tau=2,
+                    lr=0.05, batch_size=16, seed=0, delta_threshold=0.85,
+                    scheduler="chunked", chunk_size=6, sample_frac=0.5,
+                    codec="int8"),
+         "rounds": 1, "eval": {"every": 0, "final": False,
+                               "verbose": False}}
+    jeng, teng = _engines(d)
+    assert teng.codec.stochastic and jeng.codec.stochastic
+    jeng.run_round(np.random.RandomState(1))
+    teng.run_round(np.random.RandomState(1))
+    assert len(jax_rows) == len(port_rows) == 10
+    assert jax_rows[0].shape == (16, 3449)
+    moved = 0
+    for a in jax_rows:
+        # the port's client whose sorted rows these are (the callback's
+        # order is not the clients')
+        b = min(port_rows, key=lambda b: float(
+            np.abs(np.sort(a, -1) - np.sort(b, -1)).sum()))
+        np.testing.assert_allclose(np.sort(b, -1), np.sort(a, -1),
+                                   rtol=2e-6, atol=0)
+        for ra, rb in zip(a, b):
+            pos = np.flatnonzero(np.abs(ra - rb) > 1e-4 * np.abs(ra))
+            moved += pos.size
+            mag = np.abs(ra[pos])
+            for p in pos:
+                twin = np.abs(mag - abs(ra[p])) <= 1e-6 * abs(ra[p])
+                assert twin.sum() >= 2, (p, ra[p], rb[p])
+                assert np.any(np.abs(ra[pos] - rb[p]) <= 2e-6 * abs(rb[p]))
+    assert 0 < moved <= 1e-3 * sum(a.size for a in jax_rows), moved

@@ -51,7 +51,7 @@ def test_scan_covers_the_port():
         "configs/mixtral_8x22b.py", "configs/llama4_maverick_400b_a17b.py",
         "configs/recurrentgemma_2b.py", "configs/qwen2_vl_2b.py",
         "configs/whisper_base.py", "launch/specs.py", "launch/dryrun.py",
-        "analysis/roofline.py")} \
+        "analysis/roofline.py", "launch/mesh.py", "core/lbgm_sharded.py")} \
         | {"chip_smoke.py"} <= names
 
 
@@ -77,11 +77,30 @@ def test_importing_the_entry_points_loads_neither_jax_nor_repro():
             "repro_torch.optim, repro_torch.models.moe, "
             "repro_torch.models.rglru, repro_torch.models.frontends, "
             "repro_torch.analysis.pca, repro_torch.analysis.roofline, "
-            "repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+            "repro_torch.launch.specs, repro_torch.launch.dryrun, "
+            "repro_torch.launch.mesh, repro_torch.core.lbgm_sharded\n"
             "from repro_torch.configs import all_configs; all_configs()\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin",
+                              "OMP_NUM_THREADS": "1"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_importing_the_mesh_modules_starts_no_process_group():
+    """``launch.mesh`` and ``core.lbgm_sharded`` (and the engine that
+    imports them) start no process group and touch no card on import:
+    the mesh is made by a function."""
+    code = ("import sys, torch.distributed as dist, repro_torch.launch.mesh, "
+            "repro_torch.core.lbgm_sharded, repro_torch.fed.engine\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "up = dist.is_available() and dist.is_initialized()\n"
+            "print(bad, up); sys.exit(1 if bad or up else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin",

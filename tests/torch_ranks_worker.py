@@ -1,0 +1,94 @@
+"""One rank of a ``torch.distributed`` world of the port's FL engine on
+the CPU (gloo), for ``tests/test_torch_sharded_ranks.py``.
+
+    RANK=r WORLD_SIZE=n LOCAL_RANK=r MASTER_ADDR=localhost MASTER_PORT=p \
+        python tests/torch_ranks_worker.py JOBS.json OUT_DIR
+
+``JOBS.json`` is a list of jobs run in order, in one process, so the
+imports are paid once. No process group is started here: the first
+engine's mesh joins the launcher's world (``launch.mesh.ensure_world``,
+``env://``), as under ``torchrun``.
+
+* An engine job, ``{"tag", "spec" (an ExperimentSpec dict), "params" (an
+  .npz of initial params, or null), "rounds", "resume", "copy_ckpt" (a
+  path rank 0 copies the job's checkpoint to)}``, builds the engine with
+  ``build_experiment(..., device="cpu")``, runs ``FLEngine.run`` and
+  writes ``OUT_DIR/<tag>.r<rank>.pt``: the history, the final params, the
+  per-leaf bytes of this rank's banks and of the global bank, the chunk
+  layout, the mesh ranks, the process group's backend and the sin² rows.
+* A CLI job, ``{"tag", "cli": [argv]}``, runs ``repro_torch.fed.run.main``
+  with ``{rank}`` in the arguments replaced by this rank, and writes its
+  return code and what it printed. The CLI ends the launcher's world, so
+  a CLI job comes last.
+"""
+import contextlib
+import io
+import json
+import os
+import shutil
+import sys
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+from repro_torch.fed import experiment as texp  # noqa: E402
+from repro_torch.fed import run as trun  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+
+
+def _bytes(tree):
+    out = {}
+    for name, leaf in tree.items():
+        leaves = leaf.values() if isinstance(leaf, dict) else [leaf]
+        out[name] = int(sum(x.numel() * x.element_size() for x in leaves))
+    return out
+
+
+def engine_job(job, rank):
+    import torch.distributed as dist
+    spec = texp.ExperimentSpec.from_dict(job["spec"])
+    params = None
+    if job.get("params"):
+        with np.load(job["params"]) as z:
+            params = {k: z[k] for k in z.files}
+    eng, _ = texp.build_experiment(spec, params=params, device="cpu")
+    hist = eng.run(job["rounds"], resume=job.get("resume", False))
+    sched = eng.sched
+    rec = {"history": hist,
+           "params": {k: v.numpy() for k, v in eng.params.items()},
+           "bank_bytes": _bytes(eng.lbg),
+           "global_bytes": _bytes(sched.global_banks(eng.lbg)),
+           "chunk": eng._chunk, "pad": eng._pad,
+           "msharded": getattr(sched, "_msharded", None),
+           "model_rank": getattr(sched, "model_rank", None),
+           "backend": dist.get_backend(),
+           "sin2": [np.asarray(s) for s in eng.sin2_history]}
+    if job.get("copy_ckpt") and rank == 0:
+        shutil.copy(spec.fl.ckpt_path, job["copy_ckpt"])
+    return rec
+
+
+def cli_job(job, rank):
+    argv = [a.replace("{rank}", str(rank)) for a in job["cli"]]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = trun.main(argv)
+    return {"rc": rc, "stdout": out.getvalue()}
+
+
+def main(jobs_path, out_dir):
+    rank = int(os.environ["RANK"])
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    try:
+        for job in jobs:
+            rec = (cli_job if "cli" in job else engine_job)(job, rank)
+            torch.save(rec, f"{out_dir}/{job['tag']}.r{rank}.pt")
+    finally:
+        tmesh.shutdown()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])
