@@ -61,22 +61,22 @@ From the root of a checkout. Phases, each printed as one JSON line:
    round held, its ms per round, peak memory and the rule's own ms; then
    one profiled round of the first. Then one-host scale-out
    (``hier_*``, checkpoints under a temporary directory):
-   ``hier_100k_topk_host`` runs ``examples/specs/hier_100k.json`` as
-   shipped (K=100,000 in chunks of 500, the ``topk-host`` bank in pinned
-   host memory at k_frac 0.05, tiers [256, 16] shuffled, a checkpoint
-   every 5 rounds, 20 rounds, prefetch on: ms a round, round 4 profiled
+   ``hier_100k_topk_host`` runs ``examples/specs/hier_100k.json``
+   (K=100,000 in chunks of 500, the ``topk-host`` bank in pinned host
+   memory at k_frac 0.05, tiers [256, 16] shuffled, a checkpoint every 5
+   rounds, prefetch on) for 10 of its 20 rounds: ms a round, round 4 profiled
    with the streamer's copies apart from the kernels, the host bank, one
    streamed chunk's device bytes, the peak, the tier bytes);
    ``hier_100k_vs_topk`` (3 rounds of the in-memory ``topk`` bank without
    tiers equal the ``topk-host`` run's bit for bit, history and params;
    the ``topk-host`` peak at K=100,000 within 5% of the in-memory bank of
-   the K=10,000 run's); ``hier_100k_resume`` (the CLI's ``main`` for 5
-   rounds, then ``--rounds 7 --resume`` in a new engine: records and
-   final params bit for bit); ``hier_card_vs_cpu`` (K=2,000, chunk 100,
+   the K=10,000 run's); ``hier_100k_resume`` (the CLI's ``main`` for 2
+   rounds with a checkpoint every 2, then ``--rounds 3 --resume`` in a new
+   engine: records and final params bit for bit); ``hier_card_vs_cpu`` (K=2,000, chunk 100,
    tiers [16, 4], delta 0.45, 3 rounds against the CPU run). Then the
    ``(clients, model)`` mesh: ``fl_sharded_mesh_card_2x2`` and ``_1x2``,
    the paper cohort (chunk 10) on the ``"sharded"`` scheduler with the
-   ``"topk-sharded"`` store (k_frac 0.1, delta 0.2, 3 rounds), 4 and 2
+   ``"topk-sharded"`` store (k_frac 0.1, delta 0.2, 2 rounds), 4 and 2
    ranks spawned at once on the one card with ``torchrun``'s environment
    (the engine's mesh starts the group: gloo carrying CUDA tensors); each
    world also runs the CPU rank tests' FCN at d_model 704 (recycle
@@ -159,8 +159,16 @@ From the root of a checkout. Phases, each printed as one JSON line:
    streamer's copies), ``fl_sharded_qwen3_topk`` (the same spec on the
    ``"sharded"`` scheduler and ``"topk-sharded"`` store, the (1, 1) mesh
    of the world of one the engine starts: history, final params and
-   banks equal the chunked run's bit for bit),
-   ``fl_lm_rwkv6_topk`` (K=2, chunk 1, 2 rounds,
+   banks equal the chunked run's bit for bit), ``fl_sharded_auto_card``
+   (the same spec cut to 2 layers on a (1, 2) mesh with
+   ``model_sharding="auto"``: 2 gloo ranks spawned on the card, each
+   resting half the params and running the client forward and backward
+   tensor-parallel, against the same spec on the (1, 1) mesh: decisions
+   equal, loss within 2e-3, the final params within twice the model's own
+   floor; flash at the local 8/4 heads and the decision at each rank's
+   rows, both held against their plain versions and added to the kernels
+   line; ms a round, all_reduce and broadcast calls and bytes a round,
+   each rank's peak), ``fl_lm_rwkv6_topk`` (K=2, chunk 1, 2 rounds,
    top-k: the scan 256 a round, the decision),
    ``fl_lm_qwen3_buffered_scalar_median`` (K=4, chunk 2, top-k 0.01,
    int8, buffered with one straggler a round late, the scalar median
@@ -4345,6 +4353,357 @@ def torch_equal(a, b):
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
+#: fl_sharded_auto_card: the (clients, model) mesh of fl_sharded_qwen3_topk's
+#: spec under model_sharding="auto" (2 gloo ranks on the one card), and the
+#: depth it is cut to: at all 28 layers the phase took 193 s
+#: (``scripts/chip_auto_readings.py`` on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W: 89.3 and 71.1 s rounds, 62-68 s of them gloo moving 45.7 GB
+#: a round through the host at ~0.65 GB/s), where a phase should take ~90 s
+AUTO_MESH = [1, 2]
+AUTO_DEPTH = 2
+
+
+def auto_engine_job(job):
+    """The engine job of :func:`fl_sharded_auto_card` in a rank of
+    :func:`mesh_rank`: ``build_experiment`` on the card (the params drawn
+    there from the spec's seed, then cut to this rank's shards), its
+    rounds through the prefetcher under :func:`collective_probe`, the
+    launch counters set to 0 first; then this rank's shards against the
+    ``(1, 1)`` run's final params (``job["ref_params"]``, whole leaves on
+    the host): the sums of squares of their difference and of the
+    reference's update from the initial shards (a replicated leaf on model
+    rank 0 only), the largest difference."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.fed.experiment import ExperimentSpec, build_experiment
+    from repro_torch.kernels import _build
+    spec = ExperimentSpec.from_dict(job["spec"])
+    eng, _ = build_experiment(spec, device="cuda")
+    tp, sched = eng._tp, eng.sched
+    init = {k: v.clone() for k, v in eng._params.items()}
+    elt = next(iter(init.values())).element_size()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(spec.fl.seed + 1)
+    ms, coll_ms = [], []
+    with collective_probe() as coll:
+        _build.reset_launch_counts()
+        src = eng.prefetcher(rng)
+        try:
+            for _ in range(job["rounds"]):
+                sync()
+                t0, c0 = time.perf_counter(), coll["ms"]
+                eng.run_round(src)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                coll_ms.append(coll["ms"] - c0)
+        finally:
+            src.close()
+        launches, shapes = _launch_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    ref = torch.load(job["ref_params"], mmap=True)
+    diff2 = upd2 = max_abs = 0.0
+    for k, p in eng._params.items():
+        if tp.sharded_dim(k) is None and tp.rank != 0:
+            continue
+        r = tp.shard(k, ref[k]).to("cuda").float()
+        d = p.float() - r
+        diff2 += float((d * d).sum())
+        u = r - init[k].float()
+        upd2 += float((u * u).sum())
+        max_abs = max(max_abs, float(d.abs().max()))
+    rec = {"history": eng.history,
+           "sin2": [x.tolist() for x in eng.sin2_history],
+           "specs": tp.specs, "model_rank": tp.rank,
+           "client_rank": sched.client_rank, "local": sched.local,
+           "msharded": sched._msharded, "backend": dist.get_backend(),
+           "cuda_device": torch.cuda.current_device(),
+           "rest_bytes": sum(v.numel() * v.element_size()
+                             for v in eng._params.values()),
+           "param_bytes": sum(int(np.prod(s)) * elt
+                              for s in tp.shapes.values()),
+           "shapes": {k: list(v) for k, v in tp.shapes.items()},
+           "launches": launches, "launches_by_shape": shapes,
+           "collectives": coll, "collective_ms": coll_ms, "ms": ms,
+           "peak_gb": peak / 1e9, "diff2": diff2, "upd2": upd2,
+           "max_abs_diff": max_abs}
+    eng.close()
+    return rec
+
+
+#: the flash call of fl_sharded_auto_card's tensor-parallel forward:
+#: qwen3-1.7b's 16 query and 8 kv heads over m = 2 (B 1, T 2048, hd 128)
+AUTO_FLASH = (1, 2048, 2048, 8, 4, 128)
+
+
+def auto_decision_records(shapes):
+    """The decision at each call shape of the auto run's model ranks (the
+    flat bf16 slice of a rank's rows, with ``block=``), each held against
+    the plain version (indices and values exact, ||g||² within 1e-5); the
+    largest call timed with its bound, plain time and torch.topk's."""
+    import torch
+    from repro_torch.kernels import lbgm_sparse as ks
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for i, (B, n, nb_l, block, kb) in enumerate(
+            sorted(shapes, key=lambda s: -s[1])):
+        g = torch.randn((B, n), generator=gen, device="cuda").bfloat16()
+        idx = torch.randint(0, block, (B, nb_l, kb), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        got = ks.lbgm_sparse_decision_batched(g, idx, block=block)
+        want = plain_decision_sliced(g, idx, block)
+        torch.cuda.synchronize()
+        what = f"auto decision {[B, n, nb_l, block, kb]}"
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                and torch.equal(got[3], want[3])):
+            fail(f"{what}: differs from the plain version")
+        if not torch.allclose(got[0], want[0], rtol=1e-5, atol=0.0):
+            fail(f"{what}: ||g||^2 off the plain version")
+        del got, want
+        rec = {"shape": [B, n, nb_l, block, kb], "dtype": "bfloat16",
+               "path": "fl_sharded_auto_card (a model rank's rows)",
+               "exact_vs_plain": True}
+        if i == 0:
+            live = -(-n // block)
+            bnd, by = bound_ms(B * n * 2 + B * live * kb * 4
+                               + B * nb_l * kb * 12 + B * 4, 2 * B * n)
+            padded = ref.flat_to_blocks(g, nb_l, block)
+            rec.update(
+                ms=time_ms(lambda: ks.lbgm_sparse_decision_batched(
+                    g, idx, block=block), n=10),
+                bound_ms=bnd, bound_by=by,
+                plain_ms=time_ms(lambda: plain_decision_sliced(
+                    g, idx, block), n=3),
+                library_ms=time_ms(lambda: torch.topk(
+                    padded.abs(), kb, dim=-1), n=3),
+                library_call="torch.topk of |g| per row of the rank's "
+                             "layout (the selection only)")
+            del padded
+        else:
+            rec["timed"] = "no: the largest call is"
+        out.append(rec)
+        del g, idx
+        torch.cuda.empty_cache()
+    return out
+
+
+def fl_sharded_auto_card(totals, tmp):
+    """:func:`fl_sharded_auto_start` then :func:`fl_sharded_auto_finish`,
+    with nothing beside the ranks."""
+    return fl_sharded_auto_finish(totals, fl_sharded_auto_start(tmp))
+
+
+def fl_sharded_auto_start(tmp):
+    """The first half of ``fl_sharded_auto_card``: the (1, 1) reference
+    run and the floor run in this process, then the 2 ranks started
+    (:func:`start_mesh`); returns what :func:`fl_sharded_auto_finish`
+    needs. This process may run other phases while the ranks run."""
+    import gc
+    import torch
+    one = fl_lm_spec("qwen3-1.7b", **{
+        "model.kw.n_layers": AUTO_DEPTH, "fl.lbg_variant": "topk-sharded",
+        "fl.lbg_kw": {"k_frac": 0.01}, "fl.chunk_size": 2,
+        "fl.codec": "int8", "fl.scheduler": "sharded", "fl.mesh": [1, 1],
+        "rounds": 2, "eval.final": False})
+    spec = one.with_overrides({"fl.mesh": AUTO_MESH,
+                               "fl.model_sharding": "auto"})
+    inmem, _, ref_rec, peak11 = fl_lm_run(one, keep_engine=True)
+    state = ref_rec.pop("state")
+    ref_path = os.path.join(tmp, "auto_ref_params.pt")
+    torch.save(state["params"], ref_path)
+    floor_diff2 = auto_update_floor(one, state["params"])
+    del state
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    c, m = AUTO_MESH
+    worlds = [(c * m, [{"tag": "auto", "auto": True,
+                        "spec": spec.to_dict(), "ref_params": ref_path,
+                        "rounds": len(inmem)}])]
+    return {"spec": spec, "inmem": inmem, "ref_ms": ref_rec["ms"],
+            "peak11": peak11, "floor_diff2": floor_diff2, "tmp": tmp,
+            "worlds": worlds, "t0": time.perf_counter(),
+            "procs": start_mesh(worlds, tmp)}
+
+
+def fl_sharded_auto_finish(totals, run, beside=None):
+    """``fl_sharded_auto_card``: ``fl_sharded_qwen3_topk``'s spec
+    (qwen3-1.7b at full width in bf16, K=4, chunk 2, tau 2, T 2048,
+    top-k-sharded at k_frac 0.01, stochastic int8, 2 rounds), cut to
+    AUTO_DEPTH layers, on the (1, 2) mesh with ``model_sharding="auto"``:
+    2 gloo ranks spawned on the one card as ``torchrun`` spawns them, each
+    resting its half of the params and running the client forward and
+    backward tensor-parallel. Held against the same spec's run on the
+    (1, 1) mesh in this process (``fl_sharded_qwen3_topk``'s, at the cut
+    depth): the decisions
+    (uplink_floats, frac_scalar, savings) equal, loss within
+    TRAIN_LOSS_RTOL, the final params' difference, relative L2 over the
+    model against the (1, 1) run's update, within the larger of
+    TRAIN_UPDATE_RTOL and TRAIN_UPDATE_FLOOR_FACTOR times the model's own
+    floor (the (1, 1) run again with every attention output moved by
+    TRAIN_NUDGE relative, :func:`auto_update_floor`: top-k at k_frac 0.01
+    and stochastic int8 move with the gradients' last bits), each rank's
+    resting params at most 1/2 + 0.02 of the bytes; the decision launched
+    at each rank's rows and flash at the local heads (8 over 4), both held
+    against their plain versions at those shapes. Records ms a round,
+    all_reduce calls and bytes a round, each rank's peak; the record is
+    printed before a failed check exits. ``run`` is
+    :func:`fl_sharded_auto_start`'s; ``beside`` names the phases this
+    process ran while the ranks ran. Returns the kernels line's new
+    records."""
+    import math
+    import types
+    import torch
+    spec, inmem = run["spec"], run["inmem"]
+    floor_diff2, peak11 = run["floor_diff2"], run["peak11"]
+    c, m = AUTO_MESH
+    got = join_mesh(run["worlds"], run["tmp"], run["procs"])
+    wall = time.perf_counter() - run["t0"]
+    recs = got["auto"]
+    r0 = recs[0]
+    label = "fl_sharded_auto_card"
+    bad = []
+    for r, rec in enumerate(recs):
+        if rec["backend"] != "gloo" or rec["cuda_device"] != 0:
+            fail(f"{label}: rank {r} on {rec['backend']} card "
+                 f"{rec['cuda_device']}, not gloo on card 0")
+        if rec["history"] != r0["history"]:
+            fail(f"{label}: rank {r} holds another history than rank 0")
+        if rec["rest_bytes"] > (1 / m + 0.02) * rec["param_bytes"]:
+            bad.append(f"rank {r} rests {rec['rest_bytes']} of "
+                       f"{rec['param_bytes']} param bytes")
+    if r0["specs"]["embed"] != (None, "model") or \
+            r0["specs"]["lm_head"] != ("model", None):
+        bad.append(f"embed {r0['specs']['embed']}, lm_head "
+                   f"{r0['specs']['lm_head']}")
+    loss_err = 0.0
+    for r, (a, b) in enumerate(zip(inmem, r0["history"])):
+        for k in ("uplink_floats", "frac_scalar", "savings"):
+            if a[k] != b[k]:
+                bad.append(f"round {r + 1}: {k} {b[k]} vs {a[k]} on the "
+                           f"(1, 1) mesh")
+        loss_err = max(loss_err, abs(a["loss"] - b["loss"]) / abs(a["loss"]))
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        bad.append(f"loss {loss_err:.3g} off the (1, 1) run's")
+    upd = math.sqrt(sum(rec["upd2"] for rec in recs))
+    upd_rel = math.sqrt(sum(rec["diff2"] for rec in recs)) / max(upd, 1e-30)
+    floor = math.sqrt(floor_diff2) / max(upd, 1e-30)
+    upd_tol = max(TRAIN_UPDATE_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * floor)
+    if not upd_rel <= upd_tol:
+        bad.append(f"final params off the (1, 1) run's by {upd_rel:.3g} of "
+                   f"its update (tolerance {upd_tol:.3g}, floor {floor:.3g})")
+    delta = spec.fl.delta_threshold
+    margin = min(abs(x - delta) for rnd in r0["sin2"] for x in rnd)
+    like = {k: types.SimpleNamespace(size=int(math.prod(v)))
+            for k, v in r0["shapes"].items()}
+    rows = rank_row_launches(label, AUTO_MESH, recs, like, 0.01, "cuda")
+    shapes = {}
+    for rec in recs:
+        for k, n in rec["launches"].items():
+            totals[k] += n
+        for k, v in rec["launches_by_shape"].items():
+            for shp, n in v.items():
+                SHAPE_TOTALS.setdefault(k, {})
+                SHAPE_TOTALS[k][shp] = SHAPE_TOTALS[k].get(shp, 0) + n
+                shapes.setdefault(k, {})
+                shapes[k][shp] = shapes[k].get(shp, 0) + n
+    if not shapes.get("flash_attention", {}).get(AUTO_FLASH):
+        bad.append(f"flash never launched at the local heads {AUTO_FLASH}: "
+                   f"{shapes.get('flash_attention')}")
+    gen = torch.Generator().manual_seed(12)
+    flash_err = check_flash(gen, *AUTO_FLASH, torch.bfloat16, True, None)
+    flash_rec = dict(flash_shape_record(gen, *AUTO_FLASH[:6]),
+                     path=label, max_abs_err_vs_plain=flash_err)
+    decisions = auto_decision_records(
+        list(shapes.get("lbgm_sparse_decision", {})))
+    rounds = len(inmem)
+    coll = [rec["collectives"] for rec in recs]
+    emit({"phase": label, "mesh": AUTO_MESH, "ranks": c * m,
+          "model_sharding": "auto", "arch": "qwen3-1.7b",
+          "dtype": "bfloat16", "K": spec.fl.num_clients,
+          "chunk": spec.fl.chunk_size, "tau": spec.fl.tau,
+          "seq_len": spec.data.kw["seq_len"], "codec": spec.fl.codec,
+          "k_frac": 0.01, "rounds": rounds,
+          "backend": "gloo (CUDA tensors), both ranks on card 0",
+          "process_group": "started by the engine's mesh from the "
+                           "launcher's environment (env://)",
+          "specs": r0["specs"],
+          "rest_bytes_per_rank": [rec["rest_bytes"] for rec in recs],
+          "param_bytes": r0["param_bytes"],
+          "rest_share_per_rank": [rec["rest_bytes"] / rec["param_bytes"]
+                                  for rec in recs],
+          "peak_gb_per_rank": [rec["peak_gb"] for rec in recs],
+          "peak_gb_of": "torch.cuda.max_memory_allocated in each rank's "
+                        "process over its rounds",
+          "layers": AUTO_DEPTH,
+          "reduced": [f"depth: {AUTO_DEPTH} of qwen3-1.7b's 28 layers "
+                      f"(the (1, 1) reference run at the same depth)"],
+          "peak_gb_1x1": peak11,
+          "ms_per_round_rank0": r0["ms"],
+          "ms_per_round_of": "each round under the collective probe (two "
+                             "card synchronisations around each "
+                             "collective); both ranks share the card and "
+                             "the host's cores with this process's "
+                             "phases (ranks_ran_beside) and the CPU "
+                             "worker",
+          "ms_per_round_1x1": run["ref_ms"],
+          "ranks_ran_beside": beside,
+          "collective_calls_per_round": [x["calls"] / rounds for x in coll],
+          "collective_bytes_per_round": [x["bytes"] / rounds for x in coll],
+          "collective_ms_by_round": [rec["collective_ms"] for rec in recs],
+          "broadcasts_per_round": [
+              {k: v / rounds for k, v in x["broadcast"].items()}
+              for x in coll],
+          "collectives_of": "all_reduce and broadcast calls (the "
+                            "reshards), bytes of the tensor passed, each "
+                            "timed between two synchronisations",
+          "wall_s": wall,
+          "loss": [h["loss"] for h in r0["history"]],
+          "loss_1x1": [h["loss"] for h in inmem],
+          "loss_max_rel_err": loss_err,
+          "wire_bytes": [h["wire_bytes"] for h in r0["history"]],
+          "wire_bytes_1x1": [h["wire_bytes"] for h in inmem],
+          "params_rel_l2_of_update": upd_rel,
+          "params_floor_rel_l2_of_update": floor,
+          "params_max_abs_diff": max(rec["max_abs_diff"] for rec in recs),
+          "smallest_sin2_margin": margin,
+          "tolerance": f"uplink_floats, frac_scalar, savings equal; loss "
+                       f"rtol {TRAIN_LOSS_RTOL}; final params within "
+                       f"{upd_tol:.4g} of the (1, 1) run's update "
+                       f"(relative L2 over the model; the larger of "
+                       f"{TRAIN_UPDATE_RTOL} and "
+                       f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor: the "
+                       f"(1, 1) run against itself with attention outputs "
+                       f"moved by {TRAIN_NUDGE} relative)",
+          "failures": bad,
+          "decision_launches_at_rank_rows": rows,
+          "flash_local_heads": flash_rec,
+          "decision_shapes": decisions,
+          "nvidia_smi": SMI_LINE})
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+    return flash_rec, decisions, flash_err
+
+
+def auto_update_floor(one, ref_params):
+    """The sum of squares, over the model, of the (1, 1) run's final
+    params moved by float-level noise: ``one`` (the (1, 1) spec) with
+    every attention output moved by TRAIN_NUDGE relative
+    (:func:`nudged_lm_kernels`), its final params against
+    ``ref_params`` (the (1, 1) run's, on the host)."""
+    import torch
+    with nudged_lm_kernels(TRAIN_NUDGE):
+        _, _, rec, _ = fl_lm_run(one, keep_engine=True)
+    params = rec.pop("state")["params"]
+    total = 0.0
+    for k, v in params.items():
+        d = v.cuda().float() - ref_params[k].cuda().float()
+        total += float((d * d).sum())
+    return total
+
+
 def fl_lm_mixtral_topk(params, depth, rounds=3):
     """``fl_lm_mixtral_topk``: mixtral-8x22b cut in depth only, with the
     weights of ``lm_train_mixtral`` (``params``, on the card), through
@@ -4533,9 +4892,10 @@ def fl_lm_card_vs_cpu(worker, inputs, K=2, T=256, rounds=2):
 HIER_SPEC = ROOT / "examples" / "specs" / "hier_100k.json"
 #: the leaves of hier_100k's FCN (d_model 32), in sorted key order
 HIER_LEAF_SIZES = (32, 25088, 10, 320)
-#: the shipped spec's rounds; the resume phase's checkpoint round and the
-#: round it resumes to (the spec checkpoints every 5 rounds)
-HIER_ROUNDS, HIER_SAVE, HIER_RESUMED = 20, 5, 7
+#: the rounds of the shipped spec's run (10 of its 20, cut to pay for
+#: fl_sharded_auto_card); the resume phase's checkpoint round and the
+#: round it resumes to (that phase checkpoints every HIER_SAVE rounds)
+HIER_ROUNDS, HIER_SAVE, HIER_RESUMED = 10, 2, 3
 #: the rounds of the comparison runs (the shipped run is never cut)
 HIER_CMP_ROUNDS = 3
 #: the K = 100,000 topk-host peak may exceed the K = 10,000 peak by this
@@ -4712,15 +5072,15 @@ def hier_run(label, spec, totals, **probe):
 
 
 def hier_100k_topk_host(totals, tmp):
-    """``hier_100k_topk_host``: ``examples/specs/hier_100k.json`` as
-    shipped (K = 100,000, chunk 500, ``topk-host`` at k_frac 0.05, tiers
-    [256, 16] shuffled, a checkpoint every 5 rounds, prefetch on, 20
-    rounds), its checkpoint moved under ``tmp``: ms a round, round 4
+    """``hier_100k_topk_host``: ``examples/specs/hier_100k.json`` (K =
+    100,000, chunk 500, ``topk-host`` at k_frac 0.05, tiers [256, 16]
+    shuffled, a checkpoint every 5 rounds, prefetch on) for HIER_ROUNDS of
+    its 20 rounds, its checkpoint moved under ``tmp``: ms a round, round 4
     profiled (kernel and copy ms, idle share), the host bank, one streamed
     chunk's device bytes, the peak, the last round's tier bytes."""
     import math
     from repro_torch.fed.engine import pick_chunk
-    spec = hier_spec(tmp)
+    spec = hier_spec(tmp, rounds=HIER_ROUNDS)
     t0 = time.perf_counter()
     res, rec, peak, launches, by_shape = hier_run(
         "hier_100k_topk_host", spec, totals,
@@ -4743,7 +5103,8 @@ def hier_100k_topk_host(totals, tmp):
           "rounds": len(hist),
           "tiers": spec.fl.tiers, "ckpt_every": spec.fl.ckpt_every,
           "seconds": seconds, "ms_per_round": steady_ms(rec),
-          "ms_per_round_of": "rounds 2-20 but the profiled round 4",
+          "ms_per_round_of": f"rounds 2-{HIER_ROUNDS} but the profiled "
+                             f"round 4",
           "round_ms": rec["ms"], "profile": rec["profile"],
           "host_draws_ms_per_round": sum(rec["sample_ms"]) / max(
               len(rec["sample_ms"]), 1),
@@ -4816,16 +5177,17 @@ def hier_100k_vs_topk(totals, tmp, host):
 
 def hier_100k_resume(totals, tmp, host):
     """``hier_100k_resume``: ``python -m repro_torch.fed.run --spec
-    examples/specs/hier_100k.json`` (its ``main``, in this process) for
-    5 rounds, which checkpoints at 5; then the same with ``--rounds 7
-    --resume`` in a new engine: every
-    record and the params at round 7 equal the uninterrupted run's bit for
-    bit."""
+    examples/specs/hier_100k.json --set fl.ckpt_every=2`` (its ``main``,
+    in this process) for HIER_SAVE rounds, which checkpoints there; then
+    the same with ``--rounds HIER_RESUMED --resume`` in a new engine:
+    every record and the params at round HIER_RESUMED equal the
+    uninterrupted run's bit for bit."""
     import torch
     from repro_torch.fed import run as fed_run
     from repro_torch.kernels import _build
     ckpt = os.path.join(tmp, "resume.ckpt.npz")
-    argv = ["--spec", str(HIER_SPEC), "--set", f"fl.ckpt_path={ckpt}"]
+    argv = ["--spec", str(HIER_SPEC), "--set", f"fl.ckpt_path={ckpt}",
+            "--set", f"fl.ckpt_every={HIER_SAVE}"]
     outs = []
     t0 = time.perf_counter()
     for rounds, extra in ((HIER_SAVE, []), (HIER_RESUMED, ["--resume"])):
@@ -4962,7 +5324,7 @@ def fl_lm_qwen3_topk_host(totals, inmem):
 #: fl_sharded_mesh_card's meshes, each a gloo world of c·m ranks on the
 #: one card
 MESH_CARD = ([2, 2], [1, 2])
-MESH_CARD_ROUNDS = 3
+MESH_CARD_ROUNDS = 2
 MESH_LOSS_RTOL = 1e-5
 MESH_PARAMS_TOL = dict(rtol=1e-4, atol=1e-6)
 #: each client's sin² on a mesh against the chunked run's
@@ -4985,34 +5347,38 @@ MESH_WIDE = {
 
 @contextlib.contextmanager
 def collective_probe():
-    """Count and time every ``torch.distributed.all_reduce`` of the run
-    (the only collective the sharded path makes), each between two
-    synchronisations of the card, by its group's size. The round times
-    taken under it include those synchronisations."""
+    """Count and time every ``torch.distributed.all_reduce`` and
+    ``broadcast`` of the run (the only collectives the sharded path
+    makes), each between two synchronisations of the card, by its group's
+    size (and the broadcasts apart: ``model_sharding="auto"``'s reshards).
+    The round times taken under it include those synchronisations."""
     import torch.distributed as dist
-    real = dist.all_reduce
-    rec = {"calls": 0, "ms": 0.0, "bytes": 0, "by_group_size": {}}
+    real = dist.all_reduce, dist.broadcast
+    rec = {"calls": 0, "ms": 0.0, "bytes": 0, "by_group_size": {},
+           "broadcast": {"calls": 0, "ms": 0.0, "bytes": 0}}
 
-    def timed(t, *a, group=None, **kw):
-        sync()
-        t0 = time.perf_counter()
-        out = real(t, *a, group=group, **kw)
-        sync()
-        ms = (time.perf_counter() - t0) * 1e3
-        n = dist.get_world_size(group)
-        g = rec["by_group_size"].setdefault(str(n), {"calls": 0, "ms": 0.0,
-                                                      "bytes": 0})
-        for r in (rec, g):
-            r["calls"] += 1
-            r["ms"] += ms
-            r["bytes"] += t.numel() * t.element_size()
-        return out
+    def probe(i, kind):
+        def timed(t, *a, group=None, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = real[i](t, *a, group=group, **kw)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            n = dist.get_world_size(group)
+            g = rec["by_group_size"].setdefault(
+                str(n), {"calls": 0, "ms": 0.0, "bytes": 0})
+            for r in (rec, g) + ((rec["broadcast"],) if kind else ()):
+                r["calls"] += 1
+                r["ms"] += ms
+                r["bytes"] += t.numel() * t.element_size()
+            return out
+        return timed
 
-    dist.all_reduce = timed
+    dist.all_reduce, dist.broadcast = probe(0, False), probe(1, True)
     try:
         yield rec
     finally:
-        dist.all_reduce = real
+        dist.all_reduce, dist.broadcast = real
 
 
 def _leaf_bytes(tree):
@@ -5126,6 +5492,7 @@ def mesh_rank(root, rank, world, port, jobs, out_dir):
         for job in jobs:
             tag = job["tag"]
             rec = (mesh_cli_job(job, rank) if "cli" in job
+                   else auto_engine_job(job) if job.get("auto")
                    else mesh_engine_job(job))
             torch.save(rec, os.path.join(out_dir, f"{tag}.r{rank}.pt"))
     except BaseException:
@@ -5148,16 +5515,28 @@ def spawn_mesh(worlds, out_dir, timeout=600):
     (:func:`mesh_rank`), every world at once, each on its own port; every
     process is joined (or killed) before it returns. Fails on any rank's
     error or exit code. Returns ``{tag: [record of rank 0, 1, ...]}``."""
+    return join_mesh(worlds, out_dir, start_mesh(worlds, out_dir), timeout)
+
+
+def start_mesh(worlds, out_dir):
+    """Start :func:`spawn_mesh`'s ranks and return their processes
+    (daemons: a failed check that ends this script ends them too)."""
     import multiprocessing
-    import torch
     ctx = multiprocessing.get_context("spawn")
     procs = []
     for world, jobs in worlds:
         port = free_port()
-        procs += [ctx.Process(target=mesh_rank, args=(
+        procs += [ctx.Process(target=mesh_rank, daemon=True, args=(
             str(ROOT), r, world, port, jobs, out_dir)) for r in range(world)]
     for p in procs:
         p.start()
+    return procs
+
+
+def join_mesh(worlds, out_dir, procs, timeout=600):
+    """Join (or kill) the ranks :func:`start_mesh` started; the rest of
+    :func:`spawn_mesh`."""
+    import torch
     t0 = time.perf_counter()
     try:
         for p in procs:
@@ -5290,9 +5669,10 @@ def fl_sharded_mesh_card(totals, tmp, device="cuda"):
     tensors). Each world runs, in order:
 
     * the paper cohort (FCN, K=100, tau 2, lr 0.05, b 16, label skew,
-      chunk 10) at k_frac 0.1, delta 0.2, 3 rounds;
+      chunk 10) at k_frac 0.1, delta 0.2, MESH_CARD_ROUNDS rounds;
     * ``MESH_WIDE``, the CPU rank tests' FCN at d_model 704 (K=10 with
-      pad clients, sample_frac 0.5, delta 0.85), 3 rounds: it recycles,
+      pad clients, sample_frac 0.5, delta 0.85), MESH_CARD_ROUNDS rounds: it
+      recycles,
       and fc1/w has live rows on model rank 1, whose decision launch is
       checked;
     * the paper cohort through the CLI, ``repro_torch.fed.run.main`` on
@@ -5790,15 +6170,33 @@ def main():
         fl_lm_topk("fl_lm_rwkv6_topk", "rwkv6-3b",
                    **{"fl.num_clients": 2, "data.kw.n": 2, "rounds": 2})
         fl_lm_qwen3_buffered_scalar_median()
+        # fl_sharded_auto_card: its (1, 1) reference here, then its 2
+        # ranks beside the card-vs-CPU phases' card sides (checks whose
+        # times are not cells)
+        auto_tmp = tempfile.mkdtemp(prefix="chip_smoke_auto_")
+        auto_run = fl_sharded_auto_start(auto_tmp)
         # every training LM and both FL-LMs against the CPU in fp32
         lm_train_card_vs_cpu(worker, train_in)
         fl_lm_card_vs_cpu(worker, fl_in)
+        auto = fl_sharded_auto_finish(
+            totals, auto_run, beside="lm_train_card_vs_cpu, "
+                                     "fl_lm_card_vs_cpu")
+        shutil.rmtree(auto_tmp, ignore_errors=True)
         draws.shutdown()
     finally:
         worker.close()
         shutil.rmtree(cpu_dir, ignore_errors=True)
 
     flash_single_bf16_p()
+    # fl_sharded_auto_card's launch shapes: flash at the local heads and
+    # the decision at each model rank's rows
+    flash_rec, decisions, flash_err = auto
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["shapes"].append(flash_rec)
+            k["max_abs_err"] = max(k["max_abs_err"], flash_err)
+        elif k["name"] == "lbgm_sparse_decision":
+            k["shapes"] += decisions
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     for name, rec in TRAIN_SHAPE_RECORDS:
         entry = next(k for k in kernels if k["name"] == name)

@@ -13,8 +13,9 @@ store (:class:`HostTopKLBGStore`, streamed by :class:`_HostBankStreamer`),
 hierarchical tiers (``fed.hierarchy``), checkpoint/resume, and the
 ``"sharded"`` scheduler with the ``"topk-sharded"`` store on a ``(clients,
 model)`` mesh of ``torch.distributed`` ranks (:class:`ShardedScheduler`,
-``launch.mesh``). ``model_sharding="auto"`` (tensor-parallel client
-compute) is the next slice; ``FLConfig`` rejects it until then.
+``launch.mesh``), whose ``model_sharding="auto"`` runs the client
+forward and backward of the dense ``"lm"`` family tensor-parallel over the
+model ranks (:meth:`FLEngine._setup_model_sharding`).
 
 One round:
 
@@ -107,7 +108,8 @@ from repro_torch.fed.robust import (CollectDenseAggregator,
                                     ScalarMedianSparseAggregator,
                                     make_robust_rule)
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import is_writer
+from repro_torch.launch.mesh import gather_sum, is_writer
+from repro_torch.models.tensor_parallel import TPContext
 
 
 #: attribute a model component sets on its loss function (``True``) when
@@ -116,6 +118,12 @@ from repro_torch.launch.mesh import is_writer
 #: component's loss checkpoints its blocks and CE chunks, and its kernels
 #: are autograd Functions without a vmap rule)
 CLIENT_LOOP = "client_loop"
+
+#: attribute a model component sets on its loss function: a callable
+#: ``tp -> loss`` (``tp`` a ``models.tensor_parallel.TPContext``) giving the
+#: loss on one model rank's param shards, which ``model_sharding="auto"``
+#: trains with
+TENSOR_PARALLEL = "tensor_parallel"
 
 #: reserved batch key: per-client local-step budgets (the buffered
 #: scheduler's compute heterogeneity), stripped before local SGD
@@ -723,36 +731,6 @@ def pick_sharded_chunk(num_clients: int, chunk_size: int, n_dev: int) -> int:
     return c
 
 
-def _pack_bytes(tensors):
-    """One flat int64 buffer holding every tensor's bytes, each tensor's
-    segment at an 8-byte boundary, and the segments' (offset, nbytes)."""
-    spans, off = [], 0
-    for t in tensors:
-        n = t.numel() * t.element_size()
-        spans.append((off, n))
-        off += -(-n // 8) * 8
-    buf = torch.zeros(max(off, 8) // 8, dtype=torch.int64,
-                      device=tensors[0].device)
-    raw = buf.view(torch.uint8)
-    for t, (o, n) in zip(tensors, spans):
-        raw[o:o + n].copy_(t.contiguous().reshape(-1).view(torch.uint8))
-    return buf, spans
-
-
-def _gather_sum(tensors, group):
-    """The gather the sharded path runs as an ``all_reduce``: each rank
-    passes zero-filled tensors holding its own elements, no byte of which
-    any other rank fills. Summed as integers over ``group``, each byte is
-    one rank's byte plus zeros, so the result is the gather bit for bit
-    (signed zeros and NaN payloads included), in one collective. Returns
-    new tensors."""
-    buf, spans = _pack_bytes(tensors)
-    dist.all_reduce(buf, group=group)
-    raw = buf.view(torch.uint8)
-    return [raw[o:o + n].view(t.dtype).reshape(t.shape).clone()
-            for t, (o, n) in zip(tensors, spans)]
-
-
 @register_scheduler("sharded")
 class ShardedScheduler(_ChunkLoop):
     """The chunked layout over a ``(clients, model)`` mesh of
@@ -785,7 +763,7 @@ class ShardedScheduler(_ChunkLoop):
       in client order on every rank, so every rank holds the same history.
 
     The collectives are ``all_reduce`` only; a gather is an
-    ``all_reduce`` of zero-filled buffers (:func:`_gather_sum`)."""
+    ``all_reduce`` of zero-filled buffers (``launch.mesh.gather_sum``)."""
 
     AXIS = "clients"
     MODEL_AXIS = "model"
@@ -826,6 +804,15 @@ class ShardedScheduler(_ChunkLoop):
             store.bind_model_rank(self.model_rank, self.model_group)
             if codec is not None:
                 codec.bind_model_rows(self.model_rank, self._msharded)
+
+    def bind_model_axes(self, axes_tree, params) -> Dict[str, tuple]:
+        """``model_sharding="auto"``: each leaf's spec over this mesh
+        (:func:`auto_specs`)."""
+        from repro_torch.train.sharding import MeshAxes
+        mesh = MeshAxes((self.AXIS, self.MODEL_AXIS),
+                        {self.AXIS: self.n_client_dev,
+                         self.MODEL_AXIS: self.n_model})
+        return auto_specs(axes_tree, params, mesh)
 
     def _model_rows(self, name, x, dim: int):
         """(start, rows) of model rank q's rows along ``dim`` of a leaf
@@ -902,7 +889,7 @@ class ShardedScheduler(_ChunkLoop):
         is the block-row dim of a sparse leaf (None: no model rows)."""
         if self.n_dev == 1 or not items:
             return [x for _, x, _ in items]
-        return _gather_sum([self._to_global(*it) for it in items], None)
+        return gather_sum([self._to_global(*it) for it in items], None)
 
     def _gather_tree(self, tree, model_dim: Optional[int]):
         """:meth:`_gather` over every leaf of ``{name: tensor}`` or
@@ -987,7 +974,7 @@ class ShardedScheduler(_ChunkLoop):
                 full = a.clone() if self.model_rank == 0 \
                     else torch.zeros_like(a)
             parts.append(full)
-        return dict(zip(names, _gather_sum(parts, self.model_group)))
+        return dict(zip(names, gather_sum(parts, self.model_group)))
 
     # ----------------------------------------------------- the round
     def run(self, client_fn, agg, params, batch, lbg, resid, w, maskf):
@@ -1052,6 +1039,40 @@ class ShardedScheduler(_ChunkLoop):
         return out, flat(got[-1])
 
 
+def auto_specs(axes_tree, params, mesh) -> Dict[str, tuple]:
+    """name -> spec (a tuple of ``"model"`` or None per dim) of every leaf
+    of ``params`` under ``model_sharding="auto"``, JAX's rule
+    (``ShardedScheduler.bind_model_axes``): the component's logical axes
+    through ``train.sharding.param_pspec`` in "replicated" mode, except
+    that a leaf with a ``vocab`` axis (the embedding, lm_head) shards its
+    ``embed`` (d_model) dim instead, where the extent divides, so the
+    token lookup and the CE's label pick stay local."""
+    from repro_torch.train.sharding import param_pspec
+    missing = sorted(set(params) - set(axes_tree))
+    if missing:
+        raise ValueError(
+            f"model_sharding='auto': the model component's axes tree "
+            f"is missing leaves {missing} — every param leaf needs a "
+            "logical-axis tuple (see train.sharding.params_shardings)")
+    m = mesh.shape.get(ShardedScheduler.MODEL_AXIS, 1)
+
+    def leaf_spec(name):
+        axes = tuple(axes_tree[name])
+        shape = tuple(params[name].shape)
+        if "vocab" in axes:
+            out, used = [], False
+            for logical, dim in zip(axes, shape):
+                if logical == "embed" and not used and dim % m == 0:
+                    out.append(ShardedScheduler.MODEL_AXIS)
+                    used = True
+                else:
+                    out.append(None)
+            return tuple(out)
+        return param_pspec(axes, shape, "replicated", mesh)
+
+    return {name: leaf_spec(name) for name in params}
+
+
 def make_scheduler(cfg: FLConfig, num_clients: int, device="cuda"):
     """The configured scheduler: ``factory(cfg, num_clients, device=)``
     (the sharded scheduler builds its mesh on ``device``)."""
@@ -1080,12 +1101,14 @@ class FLEngine:
                  device="cuda", model_axes=None):
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
-        # each leaf's logical axes, for model_sharding="auto" (a later
-        # slice: FLConfig refuses it until then)
+        # each leaf's logical axes, for model_sharding="auto"
         self.model_axes = model_axes
         self.cfg = flcfg
+        # model_sharding="auto": the model group's context, once bound
+        self._tp: Optional[TPContext] = None
         self.params = {k: torch.as_tensor(v).to(self.device)
                        for k, v in params.items()}
+        self._n_params = tree_size(self._params)
         K = flcfg.num_clients
         if len(client_data) != K:
             raise ValueError(f"FLEngine: {len(client_data)} client shards "
@@ -1210,6 +1233,8 @@ class FLEngine:
         self.residual = self.sched.layout_banks(self.residual)
         if self._latency is not None:
             self._buffer = self._init_buffer(Kp)
+        if flcfg.model_sharding == "auto":
+            self._setup_model_sharding(model_axes)
         self._client_fn = self._build_client_fn()
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
@@ -1228,7 +1253,82 @@ class FLEngine:
         #: save_checkpoint persists
         self._host_snapshot: Optional[dict] = None
 
+    # ------------------------------------------------------------ params
+    @property
+    def params(self):
+        """The global params. Under ``model_sharding="auto"`` each rank
+        rests its shards and reading this assembles the whole leaves over
+        the model group (a broadcast from each model rank: every rank of
+        the group reads it together, as ``run_experiment``'s eval and the
+        checkpoint do)."""
+        if self._tp is None:
+            return self._params
+        return self._tp.assemble(self._params)
+
+    @params.setter
+    def params(self, full):
+        self._params = (full if self._tp is None
+                        else self._tp.shard_tree(full))
+
+    def _server_step(self, agg):
+        """params -= lr * the round's aggregate (each rank's shards of it
+        under ``model_sharding="auto"``)."""
+        lr = self.cfg.lr
+        if self._tp is not None:
+            agg = self._tp.shard_tree(agg)
+        self._params = {k: p - lr * agg[k].to(p.dtype)
+                        for k, p in self._params.items()}
+
     # -------------------------------------------------------------- build
+    def _setup_model_sharding(self, model_axes):
+        """Wire ``model_sharding="auto"`` (from ``__init__``): every leaf's
+        spec by JAX's rule (:meth:`ShardedScheduler.bind_model_axes`), the
+        model component's tensor-parallel loss on this rank's shards, and
+        the params cut to those shards. The decision, the banks, the carry
+        and the uplink accounting stay ``"replicate"``'s: each chunk's
+        gradients are assembled to their whole leaves once, over the model
+        group, before the store's step. Every refusal names its fix."""
+        cfg = self.cfg
+
+        def bad(msg):
+            raise ValueError(f"model_sharding='auto': {msg}")
+
+        if model_axes is None:
+            bad("the model component carries no sharding metadata — only "
+                "components returning (params, loss_fn, axes_tree) support "
+                "tensor-parallel client compute (the 'lm' component does; "
+                "fcn/cnn do not). Pass model_axes to FLEngine or use "
+                "model_sharding='replicate'")
+        if not isinstance(self.sched, ShardedScheduler):
+            bad(f"scheduler {cfg.scheduler!r} cannot bind model axes; use "
+                "the built-in 'sharded' scheduler")
+        if getattr(self.agg, "collect", False):
+            bad(f"aggregator={cfg.aggregator!r} runs in collect mode, "
+                "which stacks per-client payloads across the model axis; "
+                "only the streaming 'mean' rule is supported")
+        if not (self._sparse_agg
+                and isinstance(self.store, ShardedTopKLBGStore)):
+            bad("requires the sparse aggregation contract over the "
+                "mesh-aware bank — set lbg_variant='topk-sharded' and "
+                "leave fused_kernels unset or True")
+        if cfg.compressor != "none":
+            bad(f"compressor={cfg.compressor!r} would run its top-k/sign "
+                "ops on model-sharded gradients inside the auto region; "
+                "only compressor='none' is supported")
+        tp_form = getattr(self.loss_fn, TENSOR_PARALLEL, None)
+        if tp_form is None:
+            bad("the model component's loss has no tensor-parallel form "
+                f"(a loss_fn.{TENSOR_PARALLEL} callable; the 'lm' "
+                "component's has one); use model_sharding='replicate'")
+        full = self._params
+        specs = self.sched.bind_model_axes(model_axes, full)
+        self._tp = TPContext(specs, {k: v.shape for k, v in full.items()},
+                             self.sched.model_group, self.sched.model_rank,
+                             self.sched.n_model)
+        self.loss_fn = tp_form(self._tp)
+        setattr(self.loss_fn, CLIENT_LOOP, True)
+        self._params = self._tp.shard_tree(full)
+
     def _init_buffer(self, Kp):
         """The buffered scheduler's staleness buffer: one in-flight slot
         per (padded) client — payload leaves in the codec's wire layout and
@@ -1361,6 +1461,7 @@ class FLEngine:
         sparse = self._sparse_agg
         codec = self.codec
         attack = self._payload_attack
+        tp = self._tp
         client_update = self._make_client_update()
         # the legacy dense-aggregation path over a top-k store prices the
         # same (idx, val) payload as the sparse path, from the static
@@ -1382,6 +1483,12 @@ class FLEngine:
             extras = {k: batches.pop(k) for k in list(batches)
                       if k.startswith("_atk_")}
             asg, loss = client_update(params, batches, tau_k)
+            if tp is not None:
+                # model_sharding="auto": the chunk's gradients of this
+                # rank's shards, reshard once to every leaf's whole extent
+                # (replicated leaves from model rank 0), so the store
+                # decides on the rows "replicate" mode hands it
+                asg = tp.assemble(asg, lead=1)
             if attack is not None:
                 # a Byzantine client corrupts its accumulated gradient
                 # BEFORE the uplink pipeline and the LBGM decision: its
@@ -1413,18 +1520,16 @@ class FLEngine:
         vectors (see :meth:`_sample_mask`). Loss is taken over the
         dispatch cohort; uplink, scalar fraction and wire bytes over the
         payloads delivered this round."""
-        cfg = self.cfg
         dispatchf, deliverf, stalef = (
             torch.as_tensor(plan[k].astype(np.float32), device=self.device)
             for k in ("dispatch", "deliver", "stale"))
         w0 = self.weights * dispatchf
         wl = w0 / torch.clamp(w0.sum(), min=1e-12)
         agg, losses, uplink, scalar, wire, sin2 = self.sched.run_buffered(
-            self._client_fn, self.agg, self.params, batch, self.lbg,
+            self._client_fn, self.agg, self._params, batch, self.lbg,
             self.residual, self._buffer, w0, dispatchf, deliverf, stalef,
             self._latency.staleness_weight)
-        self.params = {k: p - cfg.lr * agg[k].to(p.dtype)
-                       for k, p in self.params.items()}
+        self._server_step(agg)
         metrics = torch.stack([
             (losses * wl).sum(), uplink.sum(),
             scalar.sum() / torch.clamp(deliverf.sum(), min=1.0),
@@ -1434,18 +1539,16 @@ class FLEngine:
                          "wire_bytes"), metrics))
 
     def _round(self, batch, mask: np.ndarray):
-        cfg = self.cfg
         maskf = torch.as_tensor(mask.astype(np.float32), device=self.device)
         w = self.weights * maskf
         w = w / torch.clamp(w.sum(), min=1e-12)
         if self._host_bank:
             out = self._run_host_chunks(batch, w, maskf)
         else:
-            out = self.sched.run(self._client_fn, self.agg, self.params,
+            out = self.sched.run(self._client_fn, self.agg, self._params,
                                  batch, self.lbg, self.residual, w, maskf)
         agg, losses, uplink, scalar, wire, sin2 = out
-        self.params = {k: p - cfg.lr * agg[k].to(p.dtype)
-                       for k, p in self.params.items()}
+        self._server_step(agg)
         metrics = torch.stack([
             (losses * w).sum(),
             (uplink * maskf).sum(),
@@ -1466,7 +1569,7 @@ class FLEngine:
         ``finish_round`` is the round's one barrier (the host bank is then
         the post-round bank)."""
         K, chunk, pad = self.cfg.num_clients, self._chunk, self._pad
-        client_fn, agg, params = self._client_fn, self.agg, self.params
+        client_fn, agg, params = self._client_fn, self.agg, self._params
         if pad:
             w = torch.cat([w, w.new_zeros(pad)])
             maskf = torch.cat([maskf, maskf.new_zeros(pad)])
@@ -1680,10 +1783,10 @@ class FLEngine:
                 n_del = float(mask["deliver"].sum())
                 self.n_delivered += n_del
                 self.ledger.n_evicted += mask["n_evicted"]
-                vanilla = n_del * tree_size(self.params)
+                vanilla = n_del * self._n_params
             else:
                 m = self._round(batch, mask)
-                vanilla = float(mask.sum()) * tree_size(self.params)
+                vanilla = float(mask.sum()) * self._n_params
         tiers = None
         if self.tiers is not None:
             # the edge links carried this round's client payloads (the
@@ -1692,7 +1795,7 @@ class FLEngine:
             active = mask["deliver"] if isinstance(mask, dict) else mask
             tiers = self.tiers.round_bytes(
                 active, m["wire_bytes"],
-                carry_bytes=4.0 * tree_size(self.params))
+                carry_bytes=4.0 * self._n_params)
         self.ledger.record(m["uplink_floats"], vanilla,
                            wire=m["wire_bytes"], vanilla_wire=4.0 * vanilla,
                            tiers=tiers)
@@ -1811,7 +1914,7 @@ class FLEngine:
                 f"original config. Checkpoint config: {meta.get('config')}")
         self.params = {k: tree["params"][k].to(device=self.device,
                                                 dtype=p.dtype)
-                       for k, p in self.params.items()}
+                       for k, p in self._params.items()}
         for name, have in (("lbg", self.lbg), ("residual", self.residual),
                            ("buffer", self._buffer)):
             if have:

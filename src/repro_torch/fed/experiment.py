@@ -427,12 +427,15 @@ def _lm_model(seed: int = 0, arch: str = "qwen3-1.7b", reduced: bool = True,
     ``device`` (the engine's) from a generator there. The loss
     (``train.trainer.make_loss_fn``) is marked ``CLIENT_LOOP``:
     ``torch.func`` cannot take the gradient of its checkpointed blocks and
-    CE chunks, so the engine runs a chunk's clients one after another."""
+    CE chunks, so the engine runs a chunk's clients one after another.
+    Under ``model_sharding="auto"`` the engine takes the loss's
+    ``TENSOR_PARALLEL`` form (``train.trainer.make_tp_loss_fn``), which
+    refuses every arch outside the dense decoder family."""
     from repro_torch.configs import get_config
     from repro_torch.core.device import resolve_device
-    from repro_torch.fed.engine import CLIENT_LOOP
+    from repro_torch.fed.engine import CLIENT_LOOP, TENSOR_PARALLEL
     from repro_torch.models.transformer import init_lm
-    from repro_torch.train.trainer import make_loss_fn
+    from repro_torch.train.trainer import make_loss_fn, make_tp_loss_fn
 
     cfg = get_config(arch)
     if reduced:
@@ -446,6 +449,7 @@ def _lm_model(seed: int = 0, arch: str = "qwen3-1.7b", reduced: bool = True,
     params, axes = init_lm(gen.manual_seed(seed), cfg, device=dev)
     loss_fn = make_loss_fn(cfg)
     setattr(loss_fn, CLIENT_LOOP, True)
+    setattr(loss_fn, TENSOR_PARALLEL, lambda tp: make_tp_loss_fn(cfg, tp))
     return params, loss_fn, axes
 
 

@@ -6,10 +6,9 @@ Registry-keyed fields are checked against the PORT's registries
 (``repro_torch.fed.registry``); a key the port has not ported yet fails
 with the usual "unknown ...; registered: [...]" error. The ``"sharded"``
 scheduler and ``mesh`` run on ``torch.distributed`` ranks
-(``repro_torch.launch.mesh``); ``model_sharding="auto"``
-(tensor-parallel client compute) is the next slice of the port and is
-rejected here for the same reason: it must not silently run something
-else.
+(``repro_torch.launch.mesh``), ``model_sharding="auto"`` on the
+``"sharded"`` scheduler only, as in the JAX package (the engine refuses
+the model families and settings it has no tensor-parallel form for).
 
 This module stays import-light (no torch): registries are consulted
 lazily, which also lets ``repro_torch.configs`` import it without cycles.
@@ -117,6 +116,11 @@ class FLConfig:
         if self.model_sharding not in ("replicate", "auto"):
             bad("model_sharding must be 'replicate' or 'auto' — got "
                 f"{self.model_sharding!r}")
+        if self.model_sharding == "auto" and self.scheduler != "sharded":
+            bad(f"model_sharding='auto' shards the client forward/backward "
+                "over the 2-D (clients, model) mesh, which only "
+                f"scheduler='sharded' runs — got "
+                f"scheduler={self.scheduler!r}")
         if not any(self.fused_kernels is v for v in (None, True, False)):
             bad("fused_kernels must be None, true, or false — got "
                 f"{self.fused_kernels!r}; JSON/CLI specs must use the "
@@ -221,13 +225,6 @@ class FLConfig:
         if self.ckpt_every > 0 and not self.ckpt_path:
             bad(f"ckpt_every={self.ckpt_every} needs a ckpt_path to "
                 "write to")
-        # tensor-parallel client compute: the next slice of the port
-        # (ROADMAP.md §1)
-        if self.model_sharding == "auto":
-            bad("model_sharding='auto' is not ported to repro_torch yet "
-                "(it is the next slice of the multi-GPU port, after the "
-                "'sharded' scheduler's 'replicate' mode); use the JAX "
-                "package (repro) for it")
         from repro_torch.fed import registry as reg
         if self.scheduler not in reg.SCHEDULERS:
             bad(f"unknown scheduler {self.scheduler!r}; registered "

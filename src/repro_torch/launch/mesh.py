@@ -172,3 +172,40 @@ def make_debug_mesh(data: int = 1, model: int = 1, *, device):
     """Small ``("data", "model")`` mesh over the world (tests, examples)."""
     return _mesh((data, model), ("data", "model"), device,
                  "(data, model) debug mesh")
+
+
+# ------------------------------------------------------------ gathers
+
+def pack_bytes(tensors, fill: bool = True):
+    """One flat int64 buffer holding every tensor's bytes, each tensor's
+    segment at an 8-byte boundary, and the segments' (offset, nbytes).
+    ``fill=False``: an uninitialised buffer of that layout (to receive
+    into)."""
+    spans, off = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        spans.append((off, n))
+        off += -(-n // 8) * 8
+    if not fill:
+        return torch.empty(max(off, 8) // 8, dtype=torch.int64,
+                           device=tensors[0].device), spans
+    buf = torch.zeros(max(off, 8) // 8, dtype=torch.int64,
+                      device=tensors[0].device)
+    raw = buf.view(torch.uint8)
+    for t, (o, n) in zip(tensors, spans):
+        raw[o:o + n].copy_(t.contiguous().reshape(-1).view(torch.uint8))
+    return buf, spans
+
+
+def gather_sum(tensors, group):
+    """The gather the sharded path runs as an ``all_reduce``: each rank
+    passes zero-filled tensors holding its own elements, no byte of which
+    any other rank fills. Summed as integers over ``group``, each byte is
+    one rank's byte plus zeros, so the result is the gather bit for bit
+    (signed zeros and NaN payloads included), in one collective. Returns
+    new tensors."""
+    buf, spans = pack_bytes(tensors)
+    dist.all_reduce(buf, group=group)
+    raw = buf.view(torch.uint8)
+    return [raw[o:o + n].view(t.dtype).reshape(t.shape).clone()
+            for t, (o, n) in zip(tensors, spans)]

@@ -30,6 +30,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv6_lib
+from repro_torch.models import tensor_parallel as tpl
 from repro_torch.models.attention import attention, mrope_rotate, rope_rotate
 from repro_torch.models.common import (ParamStore, rms_norm,
                                        sinusoidal_positions, subtree, swiglu)
@@ -357,4 +358,183 @@ def lm_loss(params, cfg: ArchConfig, tokens, labels, extra_embeds=None,
         tot, cnt = tot + t, cnt + n
     ce = tot / torch.clamp(cnt, min=1.0)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+# ------------------------------------------------- tensor-parallel forms
+#
+# model_sharding="auto": the client forward and backward of the dense
+# decoder family (attn/swa blocks, a dense SwiGLU FFN, GQA, optional
+# qk-norm, tied or untied head, stacked or per-layer leaves) over the
+# model ranks of ``models.tensor_parallel.TPContext``. Each rank runs on
+# its resting shards, placed by the JAX package's spec rule: the query
+# heads of its rows of wa_o, the kv heads those need (gathered where the
+# spec cut a rank's kv columns off whole heads: reduced yi-34b at m = 4
+# rests half a kv head a rank), its d_ff columns, its d_model columns of
+# the embedding (gathered to full d) and of the head (partial logits summed
+# in fp32). A leaf the rule leaves replicated runs the plain form.
+
+def tensor_parallel_refusal(cfg: ArchConfig):
+    """None for the dense decoder family, else why ``cfg`` has no
+    tensor-parallel form yet."""
+    odd = sorted(set(cfg.block_pattern) - {"attn", "swa"})
+    if cfg.moe.num_experts:
+        return "an MoE (its expert axis)"
+    if odd:
+        return f"{'/'.join(odd)} blocks (hidden and heads in the mixer)"
+    if cfg.encdec:
+        return "an encoder-decoder"
+    if cfg.mrope:
+        return "the M-RoPE VLM"
+    return None
+
+
+def block_specs(tp, cfg: ArchConfig):
+    """key -> (spec, global shape) of one decoder layer's params (every
+    layer of the dense family has the same)."""
+    if uses_scan(cfg):
+        pre, drop = "blocks/", 1
+    else:
+        pre, drop = "layer_00/", 0
+    return {k[len(pre):]: (tp.specs[k][drop:], tp.shapes[k][drop:])
+            for k in tp.specs if k.startswith(pre)}
+
+
+def _attn_heads(cfg: ArchConfig, m: int, rank: int):
+    """Model rank ``rank``'s rows ``[lo, hi)`` of wa_o (its 1/m of nq·hd),
+    the query heads they touch and the kv heads those use."""
+    hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    g = nq // nkv
+    n = nq * hd // m
+    lo, hi = rank * n, (rank + 1) * n
+    h_lo, h_hi = lo // hd, -(-hi // hd)
+    return (lo, hi), (h_lo, h_hi), (h_lo // g, (h_hi - 1) // g + 1)
+
+
+def _attn_local_tp(p, x, cfg: ArchConfig, kind: str, positions, tp, spec):
+    """This rank's partial of the attention sublayer: its query heads'
+    output through its rows of wa_o (the model ranks' partials sum to
+    the sublayer's output)."""
+    B, T, d = x.shape
+    hd, g = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    plans = [_attn_heads(cfg, tp.m, r) for r in range(tp.m)]
+    (lo, hi), (h_lo, h_hi), (kv_lo, kv_hi) = plans[tp.rank]
+    q_al = tpl.ranges_aligned(tp, cfg.n_heads * hd,
+                              [(a * hd, b * hd) for _, (a, b), _ in plans])
+    kv_al = tpl.ranges_aligned(tp, cfg.n_kv_heads * hd,
+                               [(a * hd, b * hd) for _, _, (a, b) in plans])
+    xin = tpl.copy_in(x, tp)
+    wq = tp.part(p["wa_q"], *spec["wa_q"], 1, h_lo * hd, h_hi * hd, q_al)
+    wk = tp.part(p["wa_k"], *spec["wa_k"], 1, kv_lo * hd, kv_hi * hd, kv_al)
+    wv = tp.part(p["wa_v"], *spec["wa_v"], 1, kv_lo * hd, kv_hi * hd, kv_al)
+    nh, nkh = h_hi - h_lo, kv_hi - kv_lo
+    q = (xin @ wq).reshape(B, T, nh, hd)
+    k = (xin @ wk).reshape(B, T, nkh, hd)
+    v = (xin @ wv).reshape(B, T, nkh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, tpl.copy_in(p["q_norm"], tp), cfg.norm_eps)
+        k = rms_norm(k, tpl.copy_in(p["k_norm"], tp), cfg.norm_eps)
+    q = rope_rotate(q, positions, cfg.rope_theta)
+    k = rope_rotate(k, positions, cfg.rope_theta)
+    if h_lo % g or nh % g:
+        # the rank's query heads do not take whole kv groups: one kv head
+        # per query head, so the kernel's GQA map is the global one
+        sel = torch.tensor([h // g - kv_lo for h in range(h_lo, h_hi)],
+                           device=x.device)
+        k, v = k[:, :, sel], v[:, :, sel]
+    window = cfg.sliding_window if kind == "swa" else None
+    o = attention(q, k, v, causal=True, window=window).reshape(B, T, nh * hd)
+    if (lo, hi) != (h_lo * hd, h_hi * hd):
+        o = o[..., lo - h_lo * hd:hi - h_lo * hd]
+    return o @ p["wa_o"]
+
+
+def _ffn_local_tp(p, x, tp):
+    """This rank's partial of the SwiGLU: its d_ff columns."""
+    return swiglu(tpl.copy_in(x, tp), p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _local(remat: bool, fn, *args):
+    """``fn(*args)``, checkpointed when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _apply_block_tp(p, x, cfg: ArchConfig, kind: str, positions, tp, spec,
+                    remat: bool):
+    """One block on this rank's shards. Under ``remat`` each sublayer's
+    local part is checkpointed between its collectives (the plain form
+    checkpoints the whole block): the backward recomputes the heads and
+    the d_ff columns but not the ``all_reduce`` of the sublayer's sum."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if tp.m > 1 and spec["wa_o"][0][0] != tpl.MODEL:
+        x = x + _local(remat, _apply_attn_train, p, h, cfg, kind, positions,
+                       None)
+    else:
+        x = x + tpl.reduce_out(_local(remat, _attn_local_tp, p, h, cfg, kind,
+                                      positions, tp, spec), tp)
+    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if tp.m > 1 and spec["w_down"][0][0] != tpl.MODEL:
+        return x + _local(remat, swiglu, h2, p["w_gate"], p["w_up"],
+                          p["w_down"])
+    return x + tpl.reduce_out(_local(remat, _ffn_local_tp, p, h2, tp), tp)
+
+
+def forward_hidden_tp(params, cfg: ArchConfig, tokens: torch.Tensor, tp):
+    """:func:`forward_hidden` of the dense family on this rank's shards:
+    the embedding's d_model columns gathered to full d (its gradient, the
+    same on every rank, sliced back), each block tensor-parallel."""
+    spec = block_specs(tp, cfg)
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    if tp.specs["embed"][1] == tpl.MODEL:
+        x = tpl.gather(x, -1, tp, replicated_grad=True)
+    positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for kind, p in layer_params(params, cfg):
+        x = _apply_block_tp(p, x, cfg, kind, positions, tp, spec, remat)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _chunk_ce_tp(xc, lc, head, tp, cols):
+    """:func:`_chunk_ce` with the head's rows ``cols`` of d_model on this
+    rank (None: the head is replicated): the partial logits of every
+    rank, summed by one fp32 all_reduce."""
+    if cols is None:
+        return _chunk_ce(xc, lc, head)
+    xc = tpl.copy_in(xc, tp)
+    if cols != (0, xc.shape[-1]):
+        xc = xc[..., cols[0]:cols[1]]
+    logits = tpl.reduce_out((xc @ head).float(), tp)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None].long())[..., 0]
+    mask = (lc >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def lm_loss_tp(params, cfg: ArchConfig, tokens, labels, tp,
+               ce_chunk: int = 512):
+    """:func:`lm_loss` of the dense family on this rank's shards
+    (``tp``: a ``models.tensor_parallel.TPContext``); the loss is the same
+    on every model rank, and with m = 1 it is :func:`lm_loss`'s bit for
+    bit. With m > 1 a CE chunk is not checkpointed: its recompute would
+    sum the (B, c, V) partial logits over the ranks a second time."""
+    x = forward_hidden_tp(params, cfg, tokens, tp)
+    head = _head(params, cfg)
+    name, dim = ("embed", 1) if cfg.tie_embeddings else ("lm_head", 0)
+    cols = (tp.own(cfg.d_model) if tp.specs[name][dim] == tpl.MODEL
+            else None)
+    T = x.shape[1]
+    c = min(ce_chunk, T)
+    if T % c:
+        raise ValueError(f"seq len {T} is not a multiple of ce_chunk {c}")
+    remat = torch.is_grad_enabled() and (tp.m == 1 or cols is None)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, T, c):
+        xc, lc = x[:, i:i + c], labels[:, i:i + c]
+        t, n = _local(remat, _chunk_ce_tp, xc, lc, head, tp, cols)
+        tot, cnt = tot + t, cnt + n
+    ce = tot / torch.clamp(cnt, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return ce + aux, {"ce": ce, "aux": aux}

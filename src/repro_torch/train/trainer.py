@@ -30,7 +30,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import lbgm as lbgm_lib
 from repro_torch.core.device import resolve_device
 from repro_torch.models.common import params_from_numpy
-from repro_torch.models.transformer import init_lm, lm_loss, prefill_logits
+from repro_torch.models.transformer import (init_lm, lm_loss, lm_loss_tp,
+                                           prefill_logits,
+                                           tensor_parallel_refusal)
 from repro_torch.optim.sgd import sgd_init, sgd_update
 
 
@@ -53,6 +55,24 @@ def make_loss_fn(cfg: ArchConfig):
     def loss_fn(params, batch):
         return lm_loss(params, cfg, batch["tokens"], batch["labels"],
                        batch.get("extra"))
+    return loss_fn
+
+
+def make_tp_loss_fn(cfg: ArchConfig, tp):
+    """:func:`make_loss_fn`'s loss on one model rank's shards
+    (``models.transformer.lm_loss_tp``; ``tp``: a
+    ``models.tensor_parallel.TPContext``). Only the dense decoder family
+    has a tensor-parallel form: any other arch raises, naming it."""
+    why = tensor_parallel_refusal(cfg)
+    if why is not None:
+        raise ValueError(
+            f"model_sharding='auto': arch {cfg.name!r} is {why}, which has "
+            "no tensor-parallel form in repro_torch yet (only the dense "
+            "decoder family: attn/swa blocks with a dense SwiGLU FFN); it "
+            "is queued in ROADMAP.md §1. Use model_sharding='replicate'")
+
+    def loss_fn(params, batch):
+        return lm_loss_tp(params, cfg, batch["tokens"], batch["labels"], tp)
     return loss_fn
 
 

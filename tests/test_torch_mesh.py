@@ -5,7 +5,7 @@ meshes are in ``test_torch_sharded_ranks.py``).
 
 The port's counterparts of the JAX package's non-slow cases of
 ``test_sharded_scheduler.py`` and ``test_mesh2d.py`` (the
-``model_sharding="auto"`` ones excepted):
+``model_sharding="auto"`` ones are in ``test_torch_tensor_parallel.py``):
 
 * ``pick_sharded_chunk``, ``model_shard_rows`` and ``bank_model_partition``
   equal the JAX functions over a grid, and over the FCN's, CNN's and

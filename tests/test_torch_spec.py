@@ -8,9 +8,9 @@ accepted with the same JSON form (and the tiers, checkpoint and
 ``"sharded"`` scheduler with ``"topk-sharded"``, with
 ``examples/specs/yi34b_mesh2x4.json``), and the port's ``FLConfig``
 rejects every registry key and knob it has not ported with the
-reference's "unknown ...; registered: [...]" error (or a "not ported"
-error for non-registry knobs such as ``model_sharding="auto"``), instead
-of running something else.
+reference's "unknown ...; registered: [...]" error, instead of running
+something else (``model_sharding="auto"`` is accepted; the engine refuses
+the model families it has no tensor-parallel form for, by name).
 """
 import json
 import subprocess
@@ -72,12 +72,11 @@ def test_flconfig_fields_and_defaults_match():
 @pytest.mark.parametrize("kw,word", [
     (dict(scheduler="sharded"), None),
     (dict(lbg_variant="topk-sharded"), None),
-    (dict(scheduler="sharded", mesh=[1, 1], model_sharding="auto"),
-     "not ported"),
+    (dict(scheduler="sharded", mesh=[1, 1], model_sharding="auto"), None),
 ])
 def test_unported_keys_raise(kw, word):
-    """The sharded scheduler and store are ported: both packages accept
-    them with the same JSON form; ``model_sharding="auto"`` is not."""
+    """The sharded scheduler and store, and ``model_sharding="auto"``,
+    are ported: both packages accept them with the same JSON form."""
     j = JFL(**kw)  # valid in the reference
     if word is None:
         t = TFL(**kw)
@@ -129,13 +128,23 @@ def test_example_spec_loads_and_roundtrips(name):
 
 
 def test_tensor_parallel_spec_is_refused():
-    """examples/specs/yi34b_tp2x4.json asks for model_sharding="auto",
-    which the port does not run yet: it is refused by name, not run as
-    something else."""
+    """examples/specs/yi34b_tp2x4.json (model_sharding="auto") loads in
+    both packages to the same dict; its parity run on 8 ranks is
+    ``test_torch_sharded_ranks.py::test_yi34b_tp2x4_spec_matches_jax``.
+    What the port has no tensor-parallel form for is refused by name,
+    not run as something else: the spec with an arch outside the dense
+    decoder family (rwkv6-3b) fails at engine build, naming the arch and
+    ROADMAP.md §1."""
     path = ROOT / "examples" / "specs" / "yi34b_tp2x4.json"
-    jexp.ExperimentSpec.load(str(path))
-    with pytest.raises(ValueError, match="model_sharding='auto'"):
+    js, ts = jexp.ExperimentSpec.load(str(path)), \
         texp.ExperimentSpec.load(str(path))
+    assert ts.fl.model_sharding == "auto"
+    assert js.to_dict() == ts.to_dict()
+    rwkv = ts.with_overrides({"fl.mesh": [1, 1], "model.kw": {
+        "arch": "rwkv6-3b", "reduced": True, "n_layers": 2},
+        "data.kw.vocab": 512})
+    with pytest.raises(ValueError, match="rwkv6-3b.*ROADMAP.md §1"):
+        texp.build_experiment(rwkv, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [

@@ -16,6 +16,14 @@ engine's mesh joins the launcher's world (``launch.mesh.ensure_world``,
   writes ``OUT_DIR/<tag>.r<rank>.pt``: the history, the final params, the
   per-leaf bytes of this rank's banks and of the global bank, the chunk
   layout, the mesh ranks, the process group's backend and the sin² rows.
+  Under ``model_sharding="auto"`` it also writes each leaf's spec and this
+  rank's resting param bytes.
+* A tensor-parallel job, ``{"tag", "tp": {"arch", "kw" (``reduced()``
+  overrides), "mesh", "seed"}}``, draws the arch's params from a CPU
+  generator of ``seed``, cuts this rank's shards by the engine's spec rule
+  (``fed.engine.auto_specs``) and writes the tensor-parallel loss
+  (``train.trainer.make_tp_loss_fn``) and gradients of its shards on
+  :func:`tp_batch`, and the gradients assembled over the model group.
 * A CLI job, ``{"tag", "cli": [argv]}``, runs ``repro_torch.fed.run.main``
   with ``{rank}`` in the arguments replaced by this rank, and writes its
   return code and what it printed. The CLI ends the launcher's world, so
@@ -65,9 +73,48 @@ def engine_job(job, rank):
            "model_rank": getattr(sched, "model_rank", None),
            "backend": dist.get_backend(),
            "sin2": [np.asarray(s) for s in eng.sin2_history]}
+    if eng._tp is not None:
+        rec["specs"] = eng._tp.specs
+        rec["rest_bytes"] = sum(v.numel() * v.element_size()
+                                for v in eng._params.values())
     if job.get("copy_ckpt") and rank == 0:
         shutil.copy(spec.fl.ckpt_path, job["copy_ckpt"])
     return rec
+
+
+def tp_batch(cfg, seed, client_rank, B=2, T=16):
+    """A client rank's (B, T) tokens and next-token labels."""
+    rng = np.random.RandomState(seed + 101 * client_rank)
+    toks = rng.randint(0, cfg.vocab_size, size=(B, T + 1))
+    return {"tokens": torch.as_tensor(toks[:, :-1]),
+            "labels": torch.as_tensor(toks[:, 1:])}
+
+
+def tp_job(job, rank):
+    from repro_torch.configs import get_config
+    from repro_torch.fed.engine import auto_specs
+    from repro_torch.models.tensor_parallel import TPContext
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.sharding import mesh_axes
+    from repro_torch.train.trainer import grad_and_loss, make_tp_loss_fn
+    tp = job["tp"]
+    cfg = get_config(tp["arch"]).reduced(**tp.get("kw", {}))
+    mesh = tmesh.make_fl_mesh(tp["mesh"], device="cpu")
+    params, axes = init_lm(torch.Generator().manual_seed(tp["seed"]), cfg,
+                           device="cpu")
+    specs = auto_specs(axes, params, mesh_axes(mesh))
+    ctx = TPContext(specs, {k: v.shape for k, v in params.items()},
+                    mesh.get_group("model"), mesh.get_local_rank("model"),
+                    tp["mesh"][1])
+    client_rank = mesh.get_local_rank("clients")
+    grads, loss = grad_and_loss(make_tp_loss_fn(cfg, ctx),
+                                ctx.shard_tree(params),
+                                tp_batch(cfg, tp["seed"], client_rank))
+    return {"loss": float(loss), "specs": specs,
+            "model_rank": ctx.rank, "client_rank": client_rank,
+            "grads": {k: v.numpy() for k, v in grads.items()},
+            "assembled": {k: v.numpy()
+                          for k, v in ctx.assemble(grads).items()}}
 
 
 def cli_job(job, rank):
@@ -84,7 +131,9 @@ def main(jobs_path, out_dir):
         jobs = json.load(f)
     try:
         for job in jobs:
-            rec = (cli_job if "cli" in job else engine_job)(job, rank)
+            run = (cli_job if "cli" in job else tp_job if "tp" in job
+                   else engine_job)
+            rec = run(job, rank)
             torch.save(rec, f"{out_dir}/{job['tag']}.r{rank}.pt")
     finally:
         tmesh.shutdown()
