@@ -168,8 +168,15 @@ From the root of a checkout. Phases, each printed as one JSON line:
    floor; flash at the local 8/4 heads and the decision at each rank's
    rows, both held against their plain versions and added to the kernels
    line; ms a round, all_reduce and broadcast calls and bytes a round,
-   each rank's peak), ``fl_lm_rwkv6_topk`` (K=2, chunk 1, 2 rounds,
-   top-k: the scan 256 a round, the decision),
+   each rank's peak), ``fl_sharded_auto_recurrent_card`` (the same spec
+   and checks for rwkv6-3b at 2 layers and recurrentgemma-2b at 3, one
+   rglru, rglru, swa cycle, both at T 512, the ranks running one arch
+   after the other: the scan at a rank's 20 of 40 heads and flash at its
+   5 query heads over the one kv head, hd 256, added to the kernels line
+   with the decision at each rank's rows; its (1, 1) references run after
+   ``uplink_launches`` and its ranks beside the robust and scale-out
+   phases, its checks after them), ``fl_lm_rwkv6_topk`` (K=2,
+   chunk 1, 2 rounds, top-k: the scan 256 a round, the decision),
    ``fl_lm_qwen3_buffered_scalar_median`` (K=4, chunk 2, top-k 0.01,
    int8, buffered with one straggler a round late, the scalar median
    against a sign-flipping client, 3 rounds: flash 448 and the decision
@@ -2860,16 +2867,7 @@ def scan_entry(gen, errs, B=4, T=4096):
     H, hd = 40, 64
     ins = scan_inputs(gen, B, T, H, hd, "zeros", "model")
     c = rs.CHUNK
-    # per chunk and head: the strictly-lower c x c product, A.v with the
-    # diagonal, r_dec.S, the state update and decay, the diagonal bonus,
-    # and 7 elementwise ops per element (cum, 3 exps, 3 products); fp32
-    # work, at the fp32 rate (the kernel runs the products as three TF32
-    # tensor-core products each: hi.hi, hi.lo, lo.hi)
-    per_chunk = (2 * hd * c * (c - 1) // 2 + 2 * hd * c * (c + 1) // 2
-                 + 4 * c * hd * hd + hd * hd + 3 * c * hd + 7 * c * hd)
-    flops = per_chunk * (T // c) * B * H
-    nbytes = 5 * B * T * H * hd * 4 + 2 * B * H * hd * hd * 4 + H * hd * 4
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = scan_bound(B, T, H, hd)
     Bd = 8
     dec = scan_inputs(gen, Bd, 1, H, hd, "random", "model")
     cache = dec[5].clone()
@@ -3938,7 +3936,7 @@ def lm_train_card_vs_cpu(worker, inputs, K=2, b=1, steps=2):
 #: no round recycled: NVIDIA H100 80GB HBM3, 700 W)
 FL_LM_SPEC = ROOT / "examples" / "specs" / "qwen3_fl_lm.json"
 FL_LM_VOCAB = {"qwen3-1.7b": 151936, "rwkv6-3b": 65536,
-               "mixtral-8x22b": 32768}
+               "mixtral-8x22b": 32768, "recurrentgemma-2b": 256000}
 #: card against CPU in fp32 at depth 2: round 1's loss (rtol) and
 #: aggregated update (relative L2: FL_CPU_UPDATE_RTOL or, where larger,
 #: twice the model's own floor, the card's round against itself with the
@@ -4378,6 +4376,7 @@ def auto_engine_job(job):
     import torch.distributed as dist
     from repro_torch.fed.experiment import ExperimentSpec, build_experiment
     from repro_torch.kernels import _build
+    t_job = time.perf_counter()
     spec = ExperimentSpec.from_dict(job["spec"])
     eng, _ = build_experiment(spec, device="cuda")
     tp, sched = eng._tp, eng.sched
@@ -4427,14 +4426,10 @@ def auto_engine_job(job):
            "launches": launches, "launches_by_shape": shapes,
            "collectives": coll, "collective_ms": coll_ms, "ms": ms,
            "peak_gb": peak / 1e9, "diff2": diff2, "upd2": upd2,
-           "max_abs_diff": max_abs}
+           "max_abs_diff": max_abs,
+           "job_s": time.perf_counter() - t_job}
     eng.close()
     return rec
-
-
-#: the flash call of fl_sharded_auto_card's tensor-parallel forward:
-#: qwen3-1.7b's 16 query and 8 kv heads over m = 2 (B 1, T 2048, hd 128)
-AUTO_FLASH = (1, 2048, 2048, 8, 4, 128)
 
 
 def auto_decision_records(shapes):
@@ -4489,88 +4484,179 @@ def auto_decision_records(shapes):
     return out
 
 
+#: fl_sharded_auto_recurrent_card: (arch, depth, T) of the recurrent
+#: families on AUTO_MESH at full width in bf16: rwkv6-3b (the scan at a
+#: rank's 20 of 40 heads) and recurrentgemma-2b at one rglru, rglru, swa
+#: cycle (flash at a rank's 5 query heads over the one kv head, hd 256).
+#: T 512 keeps gloo's partial logits at 0.5 GB a client step for
+#: recurrentgemma's 256,000-token vocabulary; there its window of 2048
+#: does not bind (the CPU tests hold the windowed case)
+AUTO_RECURRENT = (("rwkv6-3b", 2, 512), ("recurrentgemma-2b", 3, 512))
+
+
+def auto_spec(arch, depth, T=None):
+    """The (1, 1) spec of an auto phase, ``fl_sharded_qwen3_topk``'s at
+    ``arch``, ``depth`` layers and seq_len ``T`` (None: the spec's 2048),
+    and the same on AUTO_MESH with ``model_sharding="auto"``."""
+    over = {"model.kw.n_layers": depth, "fl.lbg_variant": "topk-sharded",
+            "fl.lbg_kw": {"k_frac": 0.01}, "fl.chunk_size": 2,
+            "fl.codec": "int8", "fl.scheduler": "sharded", "fl.mesh": [1, 1],
+            "rounds": 2, "eval.final": False}
+    if T is not None:
+        over["data.kw.seq_len"] = T
+    one = fl_lm_spec(arch, **over)
+    return one, one.with_overrides({"fl.mesh": AUTO_MESH,
+                                    "fl.model_sharding": "auto"})
+
+
+def auto_local_calls(spec):
+    """The LM kernel calls each model rank of AUTO_MESH makes: ``{kernel:
+    {launch shape: call kwargs}}``, from the ranks' heads
+    (``models.transformer._attn_heads``, ``models.rwkv6.tp_heads``) at B 1
+    and the spec's T."""
+    from repro_torch.models import rwkv6 as rw
+    from repro_torch.models import transformer as tr
+    cfg = get_cfg(spec)
+    T, m = spec.data.kw["seq_len"], AUTO_MESH[1]
+    hd = cfg.resolved_head_dim
+    kinds = {cfg.block_kind(i) for i in range(cfg.n_layers)}
+    out = {}
+    for r in range(m):
+        for kind in sorted(kinds & {"attn", "swa"}):
+            _, (h_lo, h_hi), (kv_lo, kv_hi) = tr._attn_heads(cfg, m, r)
+            nh, nkh = h_hi - h_lo, kv_hi - kv_lo
+            g = cfg.n_heads // cfg.n_kv_heads
+            if nkh > 1 and (h_lo % g or nh % g):
+                nkh = nh
+            window = cfg.sliding_window if kind == "swa" else None
+            out.setdefault("flash_attention", {})[
+                (1, T, T, nh, nkh, hd)] = {"window": window}
+        if "rwkv6" in kinds:
+            _, (h_lo, h_hi) = rw.tp_heads(cfg, m, r)
+            out.setdefault("rwkv6_scan", {})[(1, T, h_hi - h_lo, hd)] = {}
+    return out
+
+
 def fl_sharded_auto_card(totals, tmp):
     """:func:`fl_sharded_auto_start` then :func:`fl_sharded_auto_finish`,
     with nothing beside the ranks."""
     return fl_sharded_auto_finish(totals, fl_sharded_auto_start(tmp))
 
 
-def fl_sharded_auto_start(tmp):
-    """The first half of ``fl_sharded_auto_card``: the (1, 1) reference
-    run and the floor run in this process, then the 2 ranks started
-    (:func:`start_mesh`); returns what :func:`fl_sharded_auto_finish`
-    needs. This process may run other phases while the ranks run."""
+def fl_sharded_auto_start(tmp, runs=(("qwen3-1.7b", AUTO_DEPTH, None),),
+                          label="fl_sharded_auto_card"):
+    """The first half of an auto phase: :func:`auto_refs` of ``runs``,
+    then :func:`auto_launch`."""
+    return auto_launch(tmp, auto_refs(runs, tmp), label)
+
+
+def auto_refs(runs, tmp):
+    """For each ``(arch, depth, T)`` of ``runs`` (:func:`auto_spec`) the
+    (1, 1) reference run and the floor run in this process, the reference
+    params saved under ``tmp`` for the ranks. Returns the arms of
+    :func:`auto_launch`."""
     import gc
     import torch
-    one = fl_lm_spec("qwen3-1.7b", **{
-        "model.kw.n_layers": AUTO_DEPTH, "fl.lbg_variant": "topk-sharded",
-        "fl.lbg_kw": {"k_frac": 0.01}, "fl.chunk_size": 2,
-        "fl.codec": "int8", "fl.scheduler": "sharded", "fl.mesh": [1, 1],
-        "rounds": 2, "eval.final": False})
-    spec = one.with_overrides({"fl.mesh": AUTO_MESH,
-                               "fl.model_sharding": "auto"})
-    inmem, _, ref_rec, peak11 = fl_lm_run(one, keep_engine=True)
-    state = ref_rec.pop("state")
-    ref_path = os.path.join(tmp, "auto_ref_params.pt")
-    torch.save(state["params"], ref_path)
-    floor_diff2 = auto_update_floor(one, state["params"])
-    del state
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    arms = []
+    for arch, depth, T in runs:
+        one, spec = auto_spec(arch, depth, T)
+        inmem, _, ref_rec, peak11 = fl_lm_run(one, keep_engine=True)
+        state = ref_rec.pop("state")
+        ref_path = os.path.join(tmp, f"auto_ref_params_{arch}.pt")
+        torch.save(state["params"], ref_path)
+        floor_diff2 = auto_update_floor(one, state["params"])
+        del state
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        arms.append({"arch": arch, "depth": depth, "spec": spec,
+                     "inmem": inmem, "ref_ms": ref_rec["ms"],
+                     "peak11": peak11, "floor_diff2": floor_diff2,
+                     "calls": auto_local_calls(spec), "ref_path": ref_path,
+                     "refs_s": time.perf_counter() - t0})
+    return arms
+
+
+def auto_launch(tmp, arms, label):
+    """The 2 ranks of an auto phase started (:func:`start_mesh`), one
+    engine job per arm of :func:`auto_refs` in order; returns what
+    :func:`fl_sharded_auto_finish` needs. This process may run other
+    phases while the ranks run."""
+    jobs = [{"tag": arm["arch"], "auto": True, "spec": arm["spec"].to_dict(),
+             "ref_params": arm["ref_path"], "rounds": len(arm["inmem"])}
+            for arm in arms]
     c, m = AUTO_MESH
-    worlds = [(c * m, [{"tag": "auto", "auto": True,
-                        "spec": spec.to_dict(), "ref_params": ref_path,
-                        "rounds": len(inmem)}])]
-    return {"spec": spec, "inmem": inmem, "ref_ms": ref_rec["ms"],
-            "peak11": peak11, "floor_diff2": floor_diff2, "tmp": tmp,
-            "worlds": worlds, "t0": time.perf_counter(),
+    worlds = [(c * m, jobs)]
+    return {"label": label, "arms": arms, "tmp": tmp, "worlds": worlds,
+            "refs_s": arms[-1]["refs_s"], "t0": time.perf_counter(),
             "procs": start_mesh(worlds, tmp)}
 
 
 def fl_sharded_auto_finish(totals, run, beside=None):
-    """``fl_sharded_auto_card``: ``fl_sharded_qwen3_topk``'s spec
-    (qwen3-1.7b at full width in bf16, K=4, chunk 2, tau 2, T 2048,
-    top-k-sharded at k_frac 0.01, stochastic int8, 2 rounds), cut to
-    AUTO_DEPTH layers, on the (1, 2) mesh with ``model_sharding="auto"``:
-    2 gloo ranks spawned on the one card as ``torchrun`` spawns them, each
-    resting its half of the params and running the client forward and
-    backward tensor-parallel. Held against the same spec's run on the
-    (1, 1) mesh in this process (``fl_sharded_qwen3_topk``'s, at the cut
-    depth): the decisions
-    (uplink_floats, frac_scalar, savings) equal, loss within
+    """An auto phase (``run``: :func:`fl_sharded_auto_start`'s; ``beside``
+    names the phases this process ran while the ranks ran).
+    ``fl_sharded_auto_card``: ``fl_sharded_qwen3_topk``'s spec (qwen3-1.7b
+    at full width in bf16, K=4, chunk 2, tau 2, T 2048, top-k-sharded at
+    k_frac 0.01, stochastic int8, 2 rounds), cut to AUTO_DEPTH layers;
+    ``fl_sharded_auto_recurrent_card``: the same spec for each arch of
+    AUTO_RECURRENT at its depth and T. Each runs on the (1, 2) mesh with
+    ``model_sharding="auto"``: 2 gloo ranks spawned on the one card as
+    ``torchrun`` spawns them, each resting its half of the params and
+    running the client forward and backward tensor-parallel. Each arch is
+    held against the same spec's run on the (1, 1) mesh in this process:
+    the decisions (uplink_floats, frac_scalar, savings) equal, loss within
     TRAIN_LOSS_RTOL, the final params' difference, relative L2 over the
     model against the (1, 1) run's update, within the larger of
     TRAIN_UPDATE_RTOL and TRAIN_UPDATE_FLOOR_FACTOR times the model's own
-    floor (the (1, 1) run again with every attention output moved by
+    floor (the (1, 1) run again with every flash and scan output moved by
     TRAIN_NUDGE relative, :func:`auto_update_floor`: top-k at k_frac 0.01
     and stochastic int8 move with the gradients' last bits), each rank's
     resting params at most 1/2 + 0.02 of the bytes; the decision launched
-    at each rank's rows and flash at the local heads (8 over 4), both held
-    against their plain versions at those shapes. Records ms a round,
-    all_reduce calls and bytes a round, each rank's peak; the record is
-    printed before a failed check exits. ``run`` is
-    :func:`fl_sharded_auto_start`'s; ``beside`` names the phases this
-    process ran while the ranks ran. Returns the kernels line's new
-    records."""
+    at each rank's rows, flash and the scan at each rank's local heads
+    (:func:`auto_local_calls`), each held against its plain version at
+    those shapes. Records ms a round, all_reduce and broadcast calls and
+    bytes a round, each rank's peak; each arch's record is printed before
+    a failed check exits. Returns the kernels line's new records: ``{kernel
+    name: [shape records]}`` and the largest errors."""
+    got = join_mesh(run["worlds"], run["tmp"], run["procs"])
+    wall = time.perf_counter() - run["t0"]
+    out, errs, bad = {}, {}, []
+    for arm in run["arms"]:
+        recs, fails = auto_arm(totals, run, arm, got[arm["arch"]], wall,
+                               beside)
+        for name, rs in recs.items():
+            out.setdefault(name, []).extend(rs)
+            for rec in rs:
+                if "max_abs_err_vs_plain" in rec:
+                    errs[name] = max(errs.get(name, 0.0),
+                                     rec["max_abs_err_vs_plain"])
+        bad += [f"{arm['arch']}: {b}" for b in fails]
+    if bad:
+        fail(f"{run['label']}: " + "; ".join(bad))
+    return out, errs
+
+
+def auto_arm(totals, run, arm, recs, wall, beside):
+    """One arch of :func:`fl_sharded_auto_finish`: its checks and record.
+    Returns (``{kernel name: [shape records]}``, the failed checks)."""
     import math
     import types
     import torch
-    spec, inmem = run["spec"], run["inmem"]
-    floor_diff2, peak11 = run["floor_diff2"], run["peak11"]
+    from repro_torch.configs import get_config
+    spec, inmem, arch = arm["spec"], arm["inmem"], arm["arch"]
+    floor_diff2, peak11 = arm["floor_diff2"], arm["peak11"]
     c, m = AUTO_MESH
-    got = join_mesh(run["worlds"], run["tmp"], run["procs"])
-    wall = time.perf_counter() - run["t0"]
-    recs = got["auto"]
     r0 = recs[0]
-    label = "fl_sharded_auto_card"
+    label = run["label"]
     bad = []
     for r, rec in enumerate(recs):
         if rec["backend"] != "gloo" or rec["cuda_device"] != 0:
-            fail(f"{label}: rank {r} on {rec['backend']} card "
+            fail(f"{label} {arch}: rank {r} on {rec['backend']} card "
                  f"{rec['cuda_device']}, not gloo on card 0")
         if rec["history"] != r0["history"]:
-            fail(f"{label}: rank {r} holds another history than rank 0")
+            fail(f"{label} {arch}: rank {r} holds another history than "
+                 f"rank 0")
         if rec["rest_bytes"] > (1 / m + 0.02) * rec["param_bytes"]:
             bad.append(f"rank {r} rests {rec['rest_bytes']} of "
                        f"{rec['param_bytes']} param bytes")
@@ -4598,7 +4684,8 @@ def fl_sharded_auto_finish(totals, run, beside=None):
     margin = min(abs(x - delta) for rnd in r0["sin2"] for x in rnd)
     like = {k: types.SimpleNamespace(size=int(math.prod(v)))
             for k, v in r0["shapes"].items()}
-    rows = rank_row_launches(label, AUTO_MESH, recs, like, 0.01, "cuda")
+    rows = rank_row_launches(f"{label} {arch}", AUTO_MESH, recs, like, 0.01,
+                             "cuda")
     shapes = {}
     for rec in recs:
         for k, n in rec["launches"].items():
@@ -4609,19 +4696,31 @@ def fl_sharded_auto_finish(totals, run, beside=None):
                 SHAPE_TOTALS[k][shp] = SHAPE_TOTALS[k].get(shp, 0) + n
                 shapes.setdefault(k, {})
                 shapes[k][shp] = shapes[k].get(shp, 0) + n
-    if not shapes.get("flash_attention", {}).get(AUTO_FLASH):
-        bad.append(f"flash never launched at the local heads {AUTO_FLASH}: "
-                   f"{shapes.get('flash_attention')}")
     gen = torch.Generator().manual_seed(12)
-    flash_err = check_flash(gen, *AUTO_FLASH, torch.bfloat16, True, None)
-    flash_rec = dict(flash_shape_record(gen, *AUTO_FLASH[:6]),
-                     path=label, max_abs_err_vs_plain=flash_err)
-    decisions = auto_decision_records(
-        list(shapes.get("lbgm_sparse_decision", {})))
+    kern = {}
+    for name, calls in sorted(arm["calls"].items()):
+        for shp, kw in sorted(calls.items()):
+            if not shapes.get(name, {}).get(shp):
+                bad.append(f"{name} never launched at the local heads "
+                           f"{shp}: {shapes.get(name)}")
+            if name == "flash_attention":
+                err = check_flash(gen, *shp, torch.bfloat16, True,
+                                  kw["window"])
+                rec = dict(flash_shape_record(gen, *shp, window=kw[
+                    "window"]), path=f"{label} {arch}",
+                    max_abs_err_vs_plain=err)
+            else:
+                rec = dict(scan_shape_record(gen, *shp),
+                           path=f"{label} {arch}")
+            kern.setdefault(name, []).append(rec)
+    kern["lbgm_sparse_decision"] = [
+        dict(rec, path=f"{label} {arch} (a model rank's rows)")
+        for rec in auto_decision_records(
+            list(shapes.get("lbgm_sparse_decision", {})))]
     rounds = len(inmem)
     coll = [rec["collectives"] for rec in recs]
     emit({"phase": label, "mesh": AUTO_MESH, "ranks": c * m,
-          "model_sharding": "auto", "arch": "qwen3-1.7b",
+          "model_sharding": "auto", "arch": arch,
           "dtype": "bfloat16", "K": spec.fl.num_clients,
           "chunk": spec.fl.chunk_size, "tau": spec.fl.tau,
           "seq_len": spec.data.kw["seq_len"], "codec": spec.fl.codec,
@@ -4637,9 +4736,12 @@ def fl_sharded_auto_finish(totals, run, beside=None):
           "peak_gb_per_rank": [rec["peak_gb"] for rec in recs],
           "peak_gb_of": "torch.cuda.max_memory_allocated in each rank's "
                         "process over its rounds",
-          "layers": AUTO_DEPTH,
-          "reduced": [f"depth: {AUTO_DEPTH} of qwen3-1.7b's 28 layers "
-                      f"(the (1, 1) reference run at the same depth)"],
+          "layers": arm["depth"],
+          "reduced": [f"depth: {arm['depth']} of {arch}'s "
+                      f"{get_config(arch).n_layers} layers (the (1, 1) "
+                      f"reference run at the same depth)"]
+          + ([f"seq_len {spec.data.kw['seq_len']} (the FL-LM phases' "
+              f"2048)"] if spec.data.kw["seq_len"] != 2048 else []),
           "peak_gb_1x1": peak11,
           "ms_per_round_rank0": r0["ms"],
           "ms_per_round_of": "each round under the collective probe (two "
@@ -4648,7 +4750,7 @@ def fl_sharded_auto_finish(totals, run, beside=None):
                              "the host's cores with this process's "
                              "phases (ranks_ran_beside) and the CPU "
                              "worker",
-          "ms_per_round_1x1": run["ref_ms"],
+          "ms_per_round_1x1": arm["ref_ms"],
           "ranks_ran_beside": beside,
           "collective_calls_per_round": [x["calls"] / rounds for x in coll],
           "collective_bytes_per_round": [x["bytes"] / rounds for x in coll],
@@ -4659,7 +4761,11 @@ def fl_sharded_auto_finish(totals, run, beside=None):
           "collectives_of": "all_reduce and broadcast calls (the "
                             "reshards), bytes of the tensor passed, each "
                             "timed between two synchronisations",
-          "wall_s": wall,
+          "job_s_per_rank": [rec["job_s"] for rec in recs],
+          "wall_s": wall, "refs_s": run["refs_s"],
+          "wall_of": "wall_s: from the ranks' start to their join, every "
+                     "arch's job; refs_s: every arch's (1, 1) reference "
+                     "and floor runs in this process before",
           "loss": [h["loss"] for h in r0["history"]],
           "loss_1x1": [h["loss"] for h in inmem],
           "loss_max_rel_err": loss_err,
@@ -4675,22 +4781,56 @@ def fl_sharded_auto_finish(totals, run, beside=None):
                        f"(relative L2 over the model; the larger of "
                        f"{TRAIN_UPDATE_RTOL} and "
                        f"{TRAIN_UPDATE_FLOOR_FACTOR} x the floor: the "
-                       f"(1, 1) run against itself with attention outputs "
-                       f"moved by {TRAIN_NUDGE} relative)",
+                       f"(1, 1) run against itself with flash and scan "
+                       f"outputs moved by {TRAIN_NUDGE} relative)",
           "failures": bad,
           "decision_launches_at_rank_rows": rows,
-          "flash_local_heads": flash_rec,
-          "decision_shapes": decisions,
+          "local_kernels": kern,
           "nvidia_smi": SMI_LINE})
-    if bad:
-        fail(f"{label}: " + "; ".join(bad))
-    return flash_rec, decisions, flash_err
+    return kern, bad
+
+
+def scan_bound(B, T, H, hd):
+    """(bound ms, bound by) of one scan call at (B, T, H, hd) from a zero
+    state: per chunk and head the strictly-lower c x c product, A.v with
+    the diagonal, r_dec.S, the state update and decay, the diagonal bonus,
+    and 7 elementwise ops per element (cum, 3 exps, 3 products); fp32 work
+    at the fp32 rate (the kernel runs the products as three TF32
+    tensor-core products each: hi.hi, hi.lo, lo.hi); r, k, v, log decay
+    read and out written once, the state written, u read."""
+    from repro_torch.kernels import rwkv6_scan as rs
+    c = min(rs.CHUNK, T)
+    per_chunk = (2 * hd * c * (c - 1) // 2 + 2 * hd * c * (c + 1) // 2
+                 + 4 * c * hd * hd + hd * hd + 3 * c * hd + 7 * c * hd)
+    flops = per_chunk * (T // c) * B * H
+    nbytes = 5 * B * T * H * hd * 4 + 2 * B * H * hd * hd * 4 + H * hd * 4
+    return bound_ms(nbytes, flops)
+
+
+def scan_shape_record(gen, B, T, H, hd):
+    """The scan kernel at one call shape of the main path (fp32, a zero
+    state, the LM's decay), held against its plain chunked version
+    (:func:`check_scan`): ms, bound, the plain version's ms. ``launches``
+    is filled in from the main path's per-shape counts."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rs
+    err, _ = check_scan(gen, B, T, H, hd, "zeros", "model")
+    ins = scan_inputs(gen, B, T, H, hd, "zeros", "model")
+    bnd, by = scan_bound(B, T, H, hd)
+    return {"shape": [B, T, H, hd], "dtype": "float32", "launches": None,
+            "ms": time_ms(lambda: rs.rwkv6_scan(*ins)),
+            "plain_ms": time_ms(lambda: ref.rwkv6_chunked_ref(
+                *ins, min(rs.CHUNK, T)), n=5),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "library_call": "none: no single PyTorch call computes the "
+                            "chunked WKV recurrence",
+            "max_abs_err_vs_plain": err}
 
 
 def auto_update_floor(one, ref_params):
     """The sum of squares, over the model, of the (1, 1) run's final
     params moved by float-level noise: ``one`` (the (1, 1) spec) with
-    every attention output moved by TRAIN_NUDGE relative
+    every flash and scan output moved by TRAIN_NUDGE relative
     (:func:`nudged_lm_kernels`), its final params against
     ``ref_params`` (the (1, 1) run's, on the host)."""
     import torch
@@ -4892,10 +5032,11 @@ def fl_lm_card_vs_cpu(worker, inputs, K=2, T=256, rounds=2):
 HIER_SPEC = ROOT / "examples" / "specs" / "hier_100k.json"
 #: the leaves of hier_100k's FCN (d_model 32), in sorted key order
 HIER_LEAF_SIZES = (32, 25088, 10, 320)
-#: the rounds of the shipped spec's run (10 of its 20, cut to pay for
-#: fl_sharded_auto_card); the resume phase's checkpoint round and the
+#: the rounds of the shipped spec's run (5 of its 20, cut to pay for
+#: fl_sharded_auto_card and fl_sharded_auto_recurrent_card);
+#: the resume phase's checkpoint round and the
 #: round it resumes to (that phase checkpoints every HIER_SAVE rounds)
-HIER_ROUNDS, HIER_SAVE, HIER_RESUMED = 10, 2, 3
+HIER_ROUNDS, HIER_SAVE, HIER_RESUMED = 5, 2, 3
 #: the rounds of the comparison runs (the shipped run is never cut)
 HIER_CMP_ROUNDS = 3
 #: the K = 100,000 topk-host peak may exceed the K = 10,000 peak by this
@@ -6121,6 +6262,14 @@ def main():
     profile_round("fcn_topk", fl_spec("fcn", **topk))
     profile_round("fcn_topk_int8", fl_spec("fcn", **int8))
     uplink_launches()
+    # fl_sharded_auto_recurrent_card: its (1, 1) references here, then its
+    # 2 ranks beside the robust and scale-out phases (host-bound, little
+    # of the card: checks whose times are not cells); placed after the
+    # card-vs-CPU phases they added 117 s to a 1,360 s run (NVIDIA H100
+    # 80GB HBM3, 700 W)
+    rec_tmp = tempfile.mkdtemp(prefix="chip_smoke_auto_recurrent_")
+    rec_run = auto_launch(rec_tmp, auto_refs(AUTO_RECURRENT, rec_tmp),
+                          "fl_sharded_auto_recurrent_card")
     robust_phases(totals)
 
     # one-host scale-out: the shipped 100,000-client spec on the topk-host
@@ -6134,6 +6283,10 @@ def main():
         hier_card_vs_cpu(totals, tmp)
         emit({"phase": "hier_total",
               "seconds": time.perf_counter() - t_hier})
+    autos = [fl_sharded_auto_finish(
+        totals, rec_run, beside="the robust phases (fcn_topk_signflip_gm "
+                                "to fcn_buffered_straggler), hier_*")]
+    shutil.rmtree(rec_tmp, ignore_errors=True)
 
     # the (clients, model) mesh: 4 and 2 gloo ranks on the one card
     with tempfile.TemporaryDirectory() as tmp:
@@ -6178,9 +6331,9 @@ def main():
         # every training LM and both FL-LMs against the CPU in fp32
         lm_train_card_vs_cpu(worker, train_in)
         fl_lm_card_vs_cpu(worker, fl_in)
-        auto = fl_sharded_auto_finish(
+        autos.append(fl_sharded_auto_finish(
             totals, auto_run, beside="lm_train_card_vs_cpu, "
-                                     "fl_lm_card_vs_cpu")
+                                     "fl_lm_card_vs_cpu"))
         shutil.rmtree(auto_tmp, ignore_errors=True)
         draws.shutdown()
     finally:
@@ -6188,15 +6341,16 @@ def main():
         shutil.rmtree(cpu_dir, ignore_errors=True)
 
     flash_single_bf16_p()
-    # fl_sharded_auto_card's launch shapes: flash at the local heads and
-    # the decision at each model rank's rows
-    flash_rec, decisions, flash_err = auto
-    for k in kernels:
-        if k["name"] == "flash_attention":
-            k["shapes"].append(flash_rec)
-            k["max_abs_err"] = max(k["max_abs_err"], flash_err)
-        elif k["name"] == "lbgm_sparse_decision":
-            k["shapes"] += decisions
+
+    # the auto phases' launch shapes: flash and the scan at a model rank's
+    # local heads and the decision at each model rank's rows
+    for recs, errs in autos:
+        for k in kernels:
+            name = k["name"]
+            if recs.get(name):
+                k.setdefault("shapes", []).extend(recs[name])
+                k["max_abs_err"] = max(k["max_abs_err"],
+                                       errs.get(name, 0.0))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     for name, rec in TRAIN_SHAPE_RECORDS:
         entry = next(k for k in kernels if k["name"] == name)

@@ -15,6 +15,9 @@ orders, so they agree to fp32 rounding (a few ulps of h per doubling
 step; the CPU tests hold them at rtol 1e-5 / atol 1e-6 on the block's
 state). Decode is the same block at T = 1 (O(1) state). The JAX package
 has no kernel here (plain jnp), so neither has the port.
+
+:func:`apply_rglru_tp` is the block on one model rank's shards under
+``model_sharding="auto"`` (``models.tensor_parallel``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import tensor_parallel as tpl
 from repro_torch.models.common import ParamStore, silu
 
 C_EXP = 8.0
@@ -79,6 +83,21 @@ def _rglru_scan(a, bx, h0=None):
     return bx
 
 
+def _rglru_gates(x32_all, x32, w_a, w_x, b_a, b_x, lam):
+    """The recurrence's decay a_t and input sqrt(1 - a_t^2) (i_t * x_t)
+    (fp32) of the channels of ``x32``, the gates from ``x32_all`` through
+    the matching columns of w_a and w_x (``x32_all`` is ``x32`` but on a
+    model rank, whose columns need every channel)."""
+    r = torch.sigmoid(x32_all @ w_a.float() + b_a.float())
+    i = torch.sigmoid(x32_all @ w_x.float() + b_x.float())
+    log_a0 = F.logsigmoid(lam.float())
+    log_a = C_EXP * r * log_a0                       # log a_t <= 0
+    a = torch.exp(log_a)
+    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i * x32)
+    return a, bx
+
+
 def apply_rglru(p, x: torch.Tensor, cfg: ArchConfig, state=None,
                 conv_state=None):
     """Griffin recurrent block. x:(B,T,d) -> (out, (h_state fp32 (B,d),
@@ -88,13 +107,8 @@ def apply_rglru(p, x: torch.Tensor, cfg: ArchConfig, state=None,
     xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"], conv_state)
 
     x32 = xi.float()
-    r = torch.sigmoid(x32 @ p["w_a"].float() + p["b_a"].float())
-    i = torch.sigmoid(x32 @ p["w_x"].float() + p["b_x"].float())
-    log_a0 = F.logsigmoid(p["lam"].float())
-    log_a = C_EXP * r * log_a0                       # log a_t <= 0
-    a = torch.exp(log_a)
-    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
-        * (i * x32)
+    a, bx = _rglru_gates(x32, x32, p["w_a"], p["w_x"], p["b_a"], p["b_x"],
+                         p["lam"])
     h = _rglru_scan(a, bx, h0=state)
     new_state = h[:, -1]
     out = h.to(x.dtype) * gate
@@ -106,3 +120,63 @@ def rglru_decode_step(p, x1: torch.Tensor, cfg: ArchConfig, state,
                       conv_state):
     """Single-token decode (the block at T = 1, from the carried state)."""
     return apply_rglru(p, x1, cfg, state=state, conv_state=conv_state)
+
+
+# ------------------------------------------------- tensor-parallel form
+
+#: the replicated per-channel leaves, each read only through a rank's
+#: channels under model_sharding="auto"
+TP_REPLICATED = ("conv_w", "conv_b", "b_a", "b_x", "lam")
+
+
+def _rglru_in(x, w_gate_branch, w_in, conv_w, conv_b):
+    """A rank's channels of the gate branch and of the conv output (fp32)."""
+    gate = silu(x @ w_gate_branch)
+    xi = x @ w_in
+    xi, _ = _causal_conv(xi, conv_w, conv_b)
+    return gate, xi.float()
+
+
+def _rglru_mix(x32_all, x32, gate, w_a, w_x, b_a, b_x, lam):
+    """A rank's channels of the gated RG-LRU output: the gates from the
+    whole conv output ``x32_all`` through its columns of w_a and w_x, the
+    recurrence on its channels ``x32``."""
+    h = _rglru_scan(*_rglru_gates(x32_all, x32, w_a, w_x, b_a, b_x, lam))
+    return h.to(gate.dtype) * gate
+
+
+def apply_rglru_tp(p, x: torch.Tensor, cfg: ArchConfig, tp, spec,
+                   remat: bool):
+    """:func:`apply_rglru`'s output on this rank's shards (``tp``: a
+    ``models.tensor_parallel.TPContext``; ``spec``: key -> (spec, global
+    shape) of the block's leaves), the whole (B, T, d) on every model
+    rank. x: the normed residual, the same on every rank.
+
+    Every d x d weight is column-sharded, so a rank owns d/m channels: the
+    gate branch, w_in and the depthwise conv (its slice of conv_w, conv_b)
+    give its channels; w_a and w_x need the whole conv output, which is
+    gathered in fp32 (its gradient differs between ranks: summed); the
+    gates, the recurrence (b_a, b_x, lam sliced) and the gating are its
+    channels again. w_out is column-sharded, so its input is gathered
+    (summed gradient) and its output gathered (the residual's gradient,
+    the same on every rank: sliced). The two local parts are checkpointed
+    under ``remat``; the replicated leaves enter by one
+    :func:`tensor_parallel.copy_in_leaves`, x by ``copy_in``.
+
+    Collectives of a block at m > 1: forward the three gathers (3
+    all_reduce of (B, T, d)); backward x's copy_in, the leaves' (8 d
+    fp32) and the first two gathers': 4 all_reduce. The weights must be
+    column-sharded (d_model divisible by m; the caller runs the plain
+    block otherwise)."""
+    lo, hi = tp.own(cfg.d_model)
+    xin = tpl.copy_in(x, tp)
+    rep = tpl.copy_in_leaves({k: p[k] for k in TP_REPLICATED}, tp)
+    if tp.m > 1:
+        rep = {k: v[..., lo:hi] for k, v in rep.items()}
+    gate, x32 = tpl.local(remat, _rglru_in, xin, p["w_gate_branch"],
+                          p["w_in"], rep["conv_w"], rep["conv_b"])
+    x32_all = tpl.gather(x32, -1, tp, replicated_grad=False)
+    h = tpl.local(remat, _rglru_mix, x32_all, x32, gate, p["w_a"], p["w_x"],
+                  rep["b_a"], rep["b_x"], rep["lam"])
+    y = tpl.gather(h, -1, tp, replicated_grad=False)
+    return tpl.gather(y @ p["w_out"], -1, tp, replicated_grad=True)

@@ -10,7 +10,9 @@ besides ``broadcast`` (ROADMAP §1, the collectives rule), which
 
 * :func:`copy_in` enters a tensor-parallel region: identity forward,
   ``all_reduce`` backward (each rank's use of a replicated tensor adds a
-  partial gradient);
+  partial gradient); :func:`copy_in_leaves` does so for several small
+  replicated leaves at once, their gradients summed by one fp32
+  ``all_reduce``;
 * :func:`reduce_out` leaves it: ``all_reduce`` forward (each rank holds a
   partial sum), identity backward;
 * :func:`gather` assembles a dim sharded over the model ranks (the
@@ -34,6 +36,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import gather_sum, pack_bytes
 
@@ -52,6 +55,23 @@ class _CopyIn(torch.autograd.Function):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+class _CopyInMany(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = torch.cat([g.reshape(-1).float() for g in gs])
+        dist.all_reduce(flat, group=ctx.group)
+        out, o = [], 0
+        for g in gs:
+            out.append(flat[o:o + g.numel()].view(g.shape).to(g.dtype))
+            o += g.numel()
+        return (None, *out)
 
 
 class _ReduceOut(torch.autograd.Function):
@@ -89,6 +109,27 @@ class _Gather(torch.autograd.Function):
 
 def copy_in(x: torch.Tensor, tp: "TPContext") -> torch.Tensor:
     return x if tp.m == 1 else _CopyIn.apply(x, tp.group)
+
+
+def copy_in_leaves(tree: Dict[str, torch.Tensor], tp: "TPContext"
+                   ) -> Dict[str, torch.Tensor]:
+    """:func:`copy_in` of every tensor of ``tree`` (replicated leaves that
+    each rank uses only through its slice), their gradients summed over
+    the model ranks in fp32 by one ``all_reduce`` of their packed
+    elements."""
+    if tp.m == 1:
+        return dict(tree)
+    names = sorted(tree)
+    return dict(zip(names, _CopyInMany.apply(tp.group,
+                                             *[tree[k] for k in names])))
+
+
+def local(remat: bool, fn, *args):
+    """``fn(*args)``, checkpointed when ``remat``: a local part between two
+    collectives, so the backward's recompute repeats none of them."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def reduce_out(x: torch.Tensor, tp: "TPContext") -> torch.Tensor:

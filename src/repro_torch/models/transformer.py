@@ -365,39 +365,52 @@ def lm_loss(params, cfg: ArchConfig, tokens, labels, extra_embeds=None,
 #
 # model_sharding="auto": the client forward and backward of the dense
 # decoder family (attn/swa blocks, a dense SwiGLU FFN, GQA, optional
-# qk-norm, tied or untied head, stacked or per-layer leaves) over the
-# model ranks of ``models.tensor_parallel.TPContext``. Each rank runs on
-# its resting shards, placed by the JAX package's spec rule: the query
-# heads of its rows of wa_o, the kv heads those need (gathered where the
-# spec cut a rank's kv columns off whole heads: reduced yi-34b at m = 4
-# rests half a kv head a rank), its d_ff columns, its d_model columns of
-# the embedding (gathered to full d) and of the head (partial logits summed
-# in fp32). A leaf the rule leaves replicated runs the plain form.
+# qk-norm, tied or untied head, stacked or per-layer leaves) and of the
+# recurrent families (rwkv6 blocks: ``rwkv6.apply_rwkv6_tp``; the RG-LRU +
+# local attention pattern: ``rglru.apply_rglru_tp``) over the model ranks
+# of ``models.tensor_parallel.TPContext``. Each rank runs on its resting
+# shards, placed by the JAX package's spec rule: the query heads of its
+# rows of wa_o, the kv heads those need (gathered where the spec cut a
+# rank's kv columns off whole heads: reduced yi-34b at m = 4 rests half a
+# kv head a rank, recurrentgemma's one kv head is split over every rank),
+# its columns of a recurrent mixer's d x d weights, its d_ff columns, its
+# d_model columns of the embedding (gathered to full d) and of the head
+# (partial logits summed in fp32). A leaf the rule leaves replicated runs
+# the plain form.
 
 def tensor_parallel_refusal(cfg: ArchConfig):
-    """None for the dense decoder family, else why ``cfg`` has no
-    tensor-parallel form yet."""
-    odd = sorted(set(cfg.block_pattern) - {"attn", "swa"})
+    """None for the families with a tensor-parallel form (attn, swa, rwkv6
+    and rglru blocks with a dense FFN), else why ``cfg`` has none yet."""
     if cfg.moe.num_experts:
         return "an MoE (its expert axis)"
-    if odd:
-        return f"{'/'.join(odd)} blocks (hidden and heads in the mixer)"
     if cfg.encdec:
         return "an encoder-decoder"
     if cfg.mrope:
         return "the M-RoPE VLM"
+    odd = sorted(set(cfg.block_pattern) - {"attn", "swa", "rwkv6", "rglru"})
+    if odd:
+        return f"{'/'.join(odd)} blocks"
     return None
 
 
 def block_specs(tp, cfg: ArchConfig):
-    """key -> (spec, global shape) of one decoder layer's params (every
-    layer of the dense family has the same)."""
+    """kind -> {key: (spec, global shape)} of a decoder layer's params of
+    that block kind (every layer of one kind has the same; recurrentgemma's
+    cycle holds rglru and swa layers), read off the first such layer."""
     if uses_scan(cfg):
-        pre, drop = "blocks/", 1
+        first = {cfg.block_pattern[0]: ("blocks/", 1)}
     else:
-        pre, drop = "layer_00/", 0
-    return {k[len(pre):]: (tp.specs[k][drop:], tp.shapes[k][drop:])
-            for k in tp.specs if k.startswith(pre)}
+        first = {}
+        for i in range(cfg.n_layers):
+            first.setdefault(cfg.block_kind(i), (f"layer_{i:02d}/", 0))
+    return {kind: {k[len(pre):]: (tp.specs[k][drop:], tp.shapes[k][drop:])
+                   for k in tp.specs if k.startswith(pre)}
+            for kind, (pre, drop) in first.items()}
+
+
+def _sub_specs(spec, sub: str):
+    return {k[len(sub) + 1:]: v for k, v in spec.items()
+            if k.startswith(sub + "/")}
 
 
 def _attn_heads(cfg: ArchConfig, m: int, rank: int):
@@ -411,34 +424,52 @@ def _attn_heads(cfg: ArchConfig, m: int, rank: int):
     return (lo, hi), (h_lo, h_hi), (h_lo // g, (h_hi - 1) // g + 1)
 
 
-def _attn_local_tp(p, x, cfg: ArchConfig, kind: str, positions, tp, spec):
-    """This rank's partial of the attention sublayer: its query heads'
-    output through its rows of wa_o (the model ranks' partials sum to
-    the sublayer's output)."""
-    B, T, d = x.shape
-    hd, g = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+def _attn_weights_tp(p, cfg: ArchConfig, tp, spec):
+    """The weights of this rank's query heads and the kv heads they use
+    (gathered over the ranks where the spec cut them off whole heads), and
+    the norms; taken outside the checkpointed local part, so a gather is
+    not repeated by its recompute."""
+    hd = cfg.resolved_head_dim
     plans = [_attn_heads(cfg, tp.m, r) for r in range(tp.m)]
-    (lo, hi), (h_lo, h_hi), (kv_lo, kv_hi) = plans[tp.rank]
+    _, (h_lo, h_hi), (kv_lo, kv_hi) = plans[tp.rank]
     q_al = tpl.ranges_aligned(tp, cfg.n_heads * hd,
                               [(a * hd, b * hd) for _, (a, b), _ in plans])
     kv_al = tpl.ranges_aligned(tp, cfg.n_kv_heads * hd,
                                [(a * hd, b * hd) for _, _, (a, b) in plans])
-    xin = tpl.copy_in(x, tp)
-    wq = tp.part(p["wa_q"], *spec["wa_q"], 1, h_lo * hd, h_hi * hd, q_al)
-    wk = tp.part(p["wa_k"], *spec["wa_k"], 1, kv_lo * hd, kv_hi * hd, kv_al)
-    wv = tp.part(p["wa_v"], *spec["wa_v"], 1, kv_lo * hd, kv_hi * hd, kv_al)
-    nh, nkh = h_hi - h_lo, kv_hi - kv_lo
-    q = (xin @ wq).reshape(B, T, nh, hd)
-    k = (xin @ wk).reshape(B, T, nkh, hd)
-    v = (xin @ wv).reshape(B, T, nkh, hd)
+    w = {"wa_q": tp.part(p["wa_q"], *spec["wa_q"], 1, h_lo * hd, h_hi * hd,
+                         q_al),
+         "wa_k": tp.part(p["wa_k"], *spec["wa_k"], 1, kv_lo * hd,
+                         kv_hi * hd, kv_al),
+         "wa_v": tp.part(p["wa_v"], *spec["wa_v"], 1, kv_lo * hd,
+                         kv_hi * hd, kv_al),
+         "wa_o": p["wa_o"]}
     if cfg.qk_norm:
-        q = rms_norm(q, tpl.copy_in(p["q_norm"], tp), cfg.norm_eps)
-        k = rms_norm(k, tpl.copy_in(p["k_norm"], tp), cfg.norm_eps)
+        w["q_norm"] = tpl.copy_in(p["q_norm"], tp)
+        w["k_norm"] = tpl.copy_in(p["k_norm"], tp)
+    return w, plans[tp.rank]
+
+
+def _attn_local_tp(w, x, cfg: ArchConfig, kind: str, positions, plan):
+    """This rank's partial of the attention sublayer: its query heads'
+    output through its rows of wa_o (the model ranks' partials sum to
+    the sublayer's output); ``w`` and ``plan`` from
+    :func:`_attn_weights_tp`."""
+    B, T, d = x.shape
+    hd, g = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    (lo, hi), (h_lo, h_hi), (kv_lo, kv_hi) = plan
+    nh, nkh = h_hi - h_lo, kv_hi - kv_lo
+    q = (x @ w["wa_q"]).reshape(B, T, nh, hd)
+    k = (x @ w["wa_k"]).reshape(B, T, nkh, hd)
+    v = (x @ w["wa_v"]).reshape(B, T, nkh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, w["k_norm"], cfg.norm_eps)
     q = rope_rotate(q, positions, cfg.rope_theta)
     k = rope_rotate(k, positions, cfg.rope_theta)
-    if h_lo % g or nh % g:
+    if nkh > 1 and (h_lo % g or nh % g):
         # the rank's query heads do not take whole kv groups: one kv head
-        # per query head, so the kernel's GQA map is the global one
+        # per query head, so the kernel's GQA map is the global one (with
+        # one kv head, as recurrentgemma's, every map is)
         sel = torch.tensor([h // g - kv_lo for h in range(h_lo, h_hi)],
                            device=x.device)
         k, v = k[:, :, sel], v[:, :, sel]
@@ -446,46 +477,67 @@ def _attn_local_tp(p, x, cfg: ArchConfig, kind: str, positions, tp, spec):
     o = attention(q, k, v, causal=True, window=window).reshape(B, T, nh * hd)
     if (lo, hi) != (h_lo * hd, h_hi * hd):
         o = o[..., lo - h_lo * hd:hi - h_lo * hd]
-    return o @ p["wa_o"]
+    return o @ w["wa_o"]
 
 
-def _ffn_local_tp(p, x, tp):
-    """This rank's partial of the SwiGLU: its d_ff columns."""
-    return swiglu(tpl.copy_in(x, tp), p["w_gate"], p["w_up"], p["w_down"])
+#: kind -> (params subtree, the mixer's output weight) of a recurrent mixer
+_RECURRENT = {"rwkv6": ("tmix", "w_o"), "rglru": ("rec", "w_out")}
 
 
-def _local(remat: bool, fn, *args):
-    """``fn(*args)``, checkpointed when ``remat``."""
-    if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+def _mixer_plain(p, h, cfg: ArchConfig, kind: str, positions):
+    """The plain form of the block's mixer (its output only)."""
+    if kind == "rwkv6":
+        return rwkv6_lib.apply_rwkv6(subtree(p, "tmix"), h, cfg)[0]
+    if kind == "rglru":
+        return rglru_lib.apply_rglru(subtree(p, "rec"), h, cfg)[0]
+    return _apply_attn_train(p, h, cfg, kind, positions, None)
+
+
+def _mixer_tp(p, h, cfg: ArchConfig, kind: str, positions, tp, spec,
+              remat: bool):
+    """The block's mixer on the normed residual ``h``, the whole output on
+    every model rank. A mixer whose output weight the rule leaves
+    replicated (its heads or d_model not divisible by m) runs the plain
+    form on every rank, with no collective."""
+    sub, w_out = _RECURRENT.get(kind, (None, "wa_o"))
+    if tp.m > 1 and tpl.MODEL not in spec[
+            f"{sub}/{w_out}" if sub else w_out][0]:
+        return tpl.local(remat, _mixer_plain, p, h, cfg, kind, positions)
+    if kind == "rwkv6":
+        return rwkv6_lib.apply_rwkv6_tp(subtree(p, sub), h, cfg, tp,
+                                        _sub_specs(spec, sub), remat)
+    if kind == "rglru":
+        return rglru_lib.apply_rglru_tp(subtree(p, sub), h, cfg, tp,
+                                        _sub_specs(spec, sub), remat)
+    w, plan = _attn_weights_tp(p, cfg, tp, spec)
+    return tpl.reduce_out(tpl.local(remat, _attn_local_tp, w,
+                                    tpl.copy_in(h, tp), cfg, kind, positions,
+                                    plan), tp)
 
 
 def _apply_block_tp(p, x, cfg: ArchConfig, kind: str, positions, tp, spec,
                     remat: bool):
     """One block on this rank's shards. Under ``remat`` each sublayer's
-    local part is checkpointed between its collectives (the plain form
-    checkpoints the whole block): the backward recomputes the heads and
-    the d_ff columns but not the ``all_reduce`` of the sublayer's sum."""
+    local parts are checkpointed between its collectives (the plain form
+    checkpoints the whole block): the backward recomputes the heads, the
+    mixer's columns and the d_ff columns but no collective."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if tp.m > 1 and spec["wa_o"][0][0] != tpl.MODEL:
-        x = x + _local(remat, _apply_attn_train, p, h, cfg, kind, positions,
-                       None)
-    else:
-        x = x + tpl.reduce_out(_local(remat, _attn_local_tp, p, h, cfg, kind,
-                                      positions, tp, spec), tp)
+    x = x + _mixer_tp(p, h, cfg, kind, positions, tp, spec, remat)
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    ffn = (p["w_gate"], p["w_up"], p["w_down"])
     if tp.m > 1 and spec["w_down"][0][0] != tpl.MODEL:
-        return x + _local(remat, swiglu, h2, p["w_gate"], p["w_up"],
-                          p["w_down"])
-    return x + tpl.reduce_out(_local(remat, _ffn_local_tp, p, h2, tp), tp)
+        return x + tpl.local(remat, swiglu, h2, *ffn)
+    # this rank's partial of the SwiGLU: its d_ff columns
+    return x + tpl.reduce_out(tpl.local(remat, swiglu, tpl.copy_in(h2, tp),
+                                        *ffn), tp)
 
 
 def forward_hidden_tp(params, cfg: ArchConfig, tokens: torch.Tensor, tp):
-    """:func:`forward_hidden` of the dense family on this rank's shards:
-    the embedding's d_model columns gathered to full d (its gradient, the
-    same on every rank, sliced back), each block tensor-parallel."""
-    spec = block_specs(tp, cfg)
+    """:func:`forward_hidden` of the families with a tensor-parallel form
+    on this rank's shards: the embedding's d_model columns gathered to
+    full d (its gradient, the same on every rank, sliced back), each block
+    tensor-parallel."""
+    specs = block_specs(tp, cfg)
     B, T = tokens.shape
     x = params["embed"][tokens]
     if tp.specs["embed"][1] == tpl.MODEL:
@@ -493,7 +545,8 @@ def forward_hidden_tp(params, cfg: ArchConfig, tokens: torch.Tensor, tp):
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     remat = cfg.remat and torch.is_grad_enabled()
     for kind, p in layer_params(params, cfg):
-        x = _apply_block_tp(p, x, cfg, kind, positions, tp, spec, remat)
+        x = _apply_block_tp(p, x, cfg, kind, positions, tp, specs[kind],
+                            remat)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -515,7 +568,8 @@ def _chunk_ce_tp(xc, lc, head, tp, cols):
 
 def lm_loss_tp(params, cfg: ArchConfig, tokens, labels, tp,
                ce_chunk: int = 512):
-    """:func:`lm_loss` of the dense family on this rank's shards
+    """:func:`lm_loss` of the families with a tensor-parallel form (see
+    :func:`tensor_parallel_refusal`) on this rank's shards
     (``tp``: a ``models.tensor_parallel.TPContext``); the loss is the same
     on every model rank, and with m = 1 it is :func:`lm_loss`'s bit for
     bit. With m > 1 a CE chunk is not checkpointed: its recompute would
@@ -533,7 +587,7 @@ def lm_loss_tp(params, cfg: ArchConfig, tokens, labels, tp,
     tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, T, c):
         xc, lc = x[:, i:i + c], labels[:, i:i + c]
-        t, n = _local(remat, _chunk_ce_tp, xc, lc, head, tp, cols)
+        t, n = tpl.local(remat, _chunk_ce_tp, xc, lc, head, tp, cols)
         tot, cnt = tot + t, cnt + n
     ce = tot / torch.clamp(cnt, min=1.0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

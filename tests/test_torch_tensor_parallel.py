@@ -3,15 +3,18 @@ JAX package's, the tensor-parallel forms at m = 1, and the refusals.
 
 * ``train.sharding.param_pspec`` (both modes, the ``embed_shard``
   variant) and the engine's bound leaf specs (``fed.engine.auto_specs``)
-  equal the JAX package's rule for every leaf of reduced yi-34b and
-  qwen3-1.7b at m in {1, 2, 4, 8}: ``repro.train.sharding.param_pspec`` on
+  equal the JAX package's rule for every leaf of reduced yi-34b,
+  qwen3-1.7b, rwkv6-3b (stacked ``blocks/`` leaves) and
+  recurrentgemma-2b (per-layer rglru and swa leaves) at m in {1, 2, 4,
+  8}: ``repro.train.sharding.param_pspec`` on
   ``abstract_mesh``, plus the vocab rule of ``ShardedScheduler.
   bind_model_axes`` (``repro/fed/engine.py:1041-1049``);
 * at m = 1 the tensor-parallel loss and gradients are the plain ones bit
   for bit, and a ``(1, 1)`` auto run is the ``(1, 1)`` replicate run bit
   for bit;
 * the engine's refusals mirror ``tests/test_mesh2d.py:150-195``, and every
-  model family outside the dense decoder family is refused by name.
+  model family without a tensor-parallel form (MoE, the
+  encoder-decoder, the M-RoPE VLM) is refused by name.
 
 The tensor-parallel gradients on 2- and 4-rank gloo worlds, and
 ``examples/specs/yi34b_tp2x4.json`` on 8 ranks, are in
@@ -42,7 +45,7 @@ from repro_torch.train import sharding as tsh  # noqa: E402
 from repro_torch.train.trainer import grad_and_loss  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["yi-34b", "qwen3-1.7b"]
+ARCHS = ["yi-34b", "qwen3-1.7b", "rwkv6-3b", "recurrentgemma-2b"]
 MS = [1, 2, 4, 8]
 
 
@@ -116,6 +119,8 @@ def _batch(cfg, seed=0, B=2, T=16):
     ("qwen3-1.7b", {"tie_embeddings": True,
                     "block_pattern": ("attn", "swa"),
                     "sliding_window": 8}),
+    ("rwkv6-3b", {}),
+    ("recurrentgemma-2b", {"n_layers": 3, "remat": True}),
 ])
 def test_tp_loss_at_one_rank_is_the_plain_loss(arch, kw):
     """With m = 1 the tensor-parallel loss and gradients are
@@ -248,11 +253,10 @@ def test_model_sharding_auto_refuses_a_scheduler_without_model_axes(
         _fcn_engine()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "rwkv6-3b",
-                                  "recurrentgemma-2b", "whisper-base",
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-base",
                                   "qwen2-vl-2b"])
 def test_other_families_refused_by_name(arch):
-    """Every family outside the dense decoder family is refused at engine
+    """Every family without a tensor-parallel form is refused at engine
     build, naming the arch and ROADMAP.md §1: nothing runs as something
     else."""
     d = tp_spec()

@@ -19,11 +19,12 @@ engine's mesh joins the launcher's world (``launch.mesh.ensure_world``,
   Under ``model_sharding="auto"`` it also writes each leaf's spec and this
   rank's resting param bytes.
 * A tensor-parallel job, ``{"tag", "tp": {"arch", "kw" (``reduced()``
-  overrides), "mesh", "seed"}}``, draws the arch's params from a CPU
-  generator of ``seed``, cuts this rank's shards by the engine's spec rule
-  (``fed.engine.auto_specs``) and writes the tensor-parallel loss
-  (``train.trainer.make_tp_loss_fn``) and gradients of its shards on
-  :func:`tp_batch`, and the gradients assembled over the model group.
+  overrides), "mesh", "seed", "T" (optional, 16)}}``, draws the arch's
+  params from a CPU generator of ``seed``, cuts this rank's shards by the
+  engine's spec rule (``fed.engine.auto_specs``) and writes the
+  tensor-parallel loss (``train.trainer.make_tp_loss_fn``) and gradients
+  of its shards on :func:`tp_batch`, and the gradients assembled over the
+  model group.
 * A CLI job, ``{"tag", "cli": [argv]}``, runs ``repro_torch.fed.run.main``
   with ``{rank}`` in the arguments replaced by this rank, and writes its
   return code and what it printed. The CLI ends the launcher's world, so
@@ -109,7 +110,8 @@ def tp_job(job, rank):
     client_rank = mesh.get_local_rank("clients")
     grads, loss = grad_and_loss(make_tp_loss_fn(cfg, ctx),
                                 ctx.shard_tree(params),
-                                tp_batch(cfg, tp["seed"], client_rank))
+                                tp_batch(cfg, tp["seed"], client_rank,
+                                         T=tp.get("T", 16)))
     return {"loss": float(loss), "specs": specs,
             "model_rank": ctx.rank, "client_rank": client_rank,
             "grads": {k: v.numpy() for k, v in grads.items()},
