@@ -174,8 +174,15 @@ From the root of a checkout. Phases, each printed as one JSON line:
    after the other: the scan at a rank's 20 of 40 heads and flash at its
    5 query heads over the one kv head, hd 256, added to the kernels line
    with the decision at each rank's rows; its (1, 1) references run after
-   ``uplink_launches`` and its ranks beside the robust and scale-out
-   phases, its checks after them), ``fl_lm_rwkv6_topk`` (K=2,
+   ``uplink_launches`` and its ranks beside the robust, scale-out and
+   mesh phases, its checks after them), ``fl_sharded_auto_moe_card`` (the
+   same for mixtral-8x22b at 1 of 56 layers, K=2, chunk 1, T 512, the
+   third arm of those ranks: each rank's 4 of the 8 experts, the router
+   gathered and the routes replicated, flash at a rank's 24 of 48 query
+   heads over 4 kv heads, window 4096, the decision at each rank's rows
+   of the stacked experts; the ranks' MoE drops a routing equal; each
+   client's first local step within 2e-3 of the (1, 1) run's loss, the
+   round losses within twice the floor run's), ``fl_lm_rwkv6_topk`` (K=2,
    chunk 1, 2 rounds, top-k: the scan 256 a round, the decision),
    ``fl_lm_qwen3_buffered_scalar_median`` (K=4, chunk 2, top-k 0.01,
    int8, buffered with one straggler a round late, the scalar median
@@ -4378,7 +4385,9 @@ def auto_engine_job(job):
     from repro_torch.kernels import _build
     t_job = time.perf_counter()
     spec = ExperimentSpec.from_dict(job["spec"])
-    eng, _ = build_experiment(spec, device="cuda")
+    # every local step's loss, through the client loop the build binds
+    with step_losses() as steps:
+        eng, _ = build_experiment(spec, device="cuda")
     tp, sched = eng._tp, eng.sched
     init = {k: v.clone() for k, v in eng._params.items()}
     elt = next(iter(init.values())).element_size()
@@ -4386,7 +4395,7 @@ def auto_engine_job(job):
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.RandomState(spec.fl.seed + 1)
     ms, coll_ms = [], []
-    with collective_probe() as coll:
+    with collective_probe() as coll, moe_drop_counts() as drops:
         _build.reset_launch_counts()
         src = eng.prefetcher(rng)
         try:
@@ -4426,10 +4435,55 @@ def auto_engine_job(job):
            "launches": launches, "launches_by_shape": shapes,
            "collectives": coll, "collective_ms": coll_ms, "ms": ms,
            "peak_gb": peak / 1e9, "diff2": diff2, "upd2": upd2,
-           "max_abs_diff": max_abs,
+           "max_abs_diff": max_abs, "moe_drops": drops,
+           "step_loss": steps,
            "job_s": time.perf_counter() - t_job}
     eng.close()
     return rec
+
+
+@contextlib.contextmanager
+def step_losses():
+    """Every local step's loss, in order (a client's tau steps, the clients
+    of a chunk, the chunks, the rounds), of the engines built inside:
+    ``train.trainer.grad_and_loss`` wrapped, which the engine's client
+    loop binds when it is built."""
+    from repro_torch.train import trainer
+    out = []
+    real = trainer.grad_and_loss
+
+    def recorded(loss_fn, params, batch):
+        g, loss = real(loss_fn, params, batch)
+        out.append(float(loss))
+        return g, loss
+
+    trainer.grad_and_loss = recorded
+    try:
+        yield out
+    finally:
+        trainer.grad_and_loss = real
+
+
+@contextlib.contextmanager
+def moe_drop_counts():
+    """The routes an MoE model drops past an expert's capacity, one count
+    a routing of a forward (a block of a client step), in order; a
+    checkpoint's recompute in the backward is not counted again."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    drops, real = [], moe_lib.moe_routing
+
+    def counted(p, x, cfg):
+        r = real(p, x, cfg)
+        if torch._C._current_graph_task_id() == -1:
+            drops.append(int((~r.keep).sum()))
+        return r
+
+    moe_lib.moe_routing = counted
+    try:
+        yield drops
+    finally:
+        moe_lib.moe_routing = real
 
 
 def auto_decision_records(shapes):
@@ -4492,18 +4546,36 @@ def auto_decision_records(shapes):
 #: recurrentgemma's 256,000-token vocabulary; there its window of 2048
 #: does not bind (the CPU tests hold the windowed case)
 AUTO_RECURRENT = (("rwkv6-3b", 2, 512), ("recurrentgemma-2b", 3, 512))
+#: fl_sharded_auto_moe_card: the MoE family on AUTO_MESH at full width in
+#: bf16, the third arm of fl_sharded_auto_recurrent_card's rank world:
+#: mixtral-8x22b at 1 of 56 layers (2.91 B params, 2.42 B of them its 8
+#: experts, 4 a rank; swa at a rank's 24 of 48 query heads), T 512, K 2
+#: in chunks of 1
+AUTO_MOE = (("mixtral-8x22b", 1, 512),)
+#: the phase an arch's record is printed under, where not its run's
+AUTO_LABELS = {"mixtral-8x22b": "fl_sharded_auto_moe_card"}
+#: an arch's clients and chunk, where not the spec's 4 and 2: K 2 halves
+#: the reshard of mixtral's 5.8 GB of params (~K x the param bytes a
+#: round); chunk 1 halves a rank's whole-leaf chunk gradients (11.6 GB at
+#: chunk 2: each rank held 32.8 GB when the reshard's 5.4 GB buffer ran
+#: both ranks out of the card, NVIDIA H100 80GB HBM3, 700 W)
+AUTO_CLIENTS = {"mixtral-8x22b": (2, 1)}
 
 
 def auto_spec(arch, depth, T=None):
     """The (1, 1) spec of an auto phase, ``fl_sharded_qwen3_topk``'s at
-    ``arch``, ``depth`` layers and seq_len ``T`` (None: the spec's 2048),
-    and the same on AUTO_MESH with ``model_sharding="auto"``."""
+    ``arch``, ``depth`` layers, seq_len ``T`` (None: the spec's 2048) and
+    AUTO_CLIENTS' K and chunk, and the same on AUTO_MESH with
+    ``model_sharding="auto"``."""
     over = {"model.kw.n_layers": depth, "fl.lbg_variant": "topk-sharded",
             "fl.lbg_kw": {"k_frac": 0.01}, "fl.chunk_size": 2,
             "fl.codec": "int8", "fl.scheduler": "sharded", "fl.mesh": [1, 1],
             "rounds": 2, "eval.final": False}
     if T is not None:
         over["data.kw.seq_len"] = T
+    if arch in AUTO_CLIENTS:
+        K, over["fl.chunk_size"] = AUTO_CLIENTS[arch]
+        over["fl.num_clients"] = over["data.kw.n"] = K
     one = fl_lm_spec(arch, **over)
     return one, one.with_overrides({"fl.mesh": AUTO_MESH,
                                     "fl.model_sharding": "auto"})
@@ -4561,18 +4633,25 @@ def auto_refs(runs, tmp):
     arms = []
     for arch, depth, T in runs:
         one, spec = auto_spec(arch, depth, T)
-        inmem, _, ref_rec, peak11 = fl_lm_run(one, keep_engine=True)
+        with moe_drop_counts() as drops11, step_losses() as steps11:
+            inmem, _, ref_rec, peak11 = fl_lm_run(one, keep_engine=True)
         state = ref_rec.pop("state")
         ref_path = os.path.join(tmp, f"auto_ref_params_{arch}.pt")
         torch.save(state["params"], ref_path)
-        floor_diff2 = auto_update_floor(one, state["params"])
+        with moe_drop_counts() as drops_floor:
+            floor_diff2, floor_hist = auto_update_floor(one,
+                                                        state["params"])
         del state
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        arms.append({"arch": arch, "depth": depth, "spec": spec,
+        arms.append({"arch": arch, "label": AUTO_LABELS.get(arch),
+                     "depth": depth, "spec": spec,
                      "inmem": inmem, "ref_ms": ref_rec["ms"],
                      "peak11": peak11, "floor_diff2": floor_diff2,
+                     "floor_loss": [h["loss"] for h in floor_hist],
+                     "drops11": drops11, "drops_floor": drops_floor,
+                     "steps11": steps11,
                      "calls": auto_local_calls(spec), "ref_path": ref_path,
                      "refs_s": time.perf_counter() - t0})
     return arms
@@ -4603,10 +4682,16 @@ def fl_sharded_auto_finish(totals, run, beside=None):
     AUTO_RECURRENT at its depth and T. Each runs on the (1, 2) mesh with
     ``model_sharding="auto"``: 2 gloo ranks spawned on the one card as
     ``torchrun`` spawns them, each resting its half of the params and
-    running the client forward and backward tensor-parallel. Each arch is
-    held against the same spec's run on the (1, 1) mesh in this process:
-    the decisions (uplink_floats, frac_scalar, savings) equal, loss within
-    TRAIN_LOSS_RTOL, the final params' difference, relative L2 over the
+    running the client forward and backward tensor-parallel;
+    ``fl_sharded_auto_moe_card``: the same for each arch of AUTO_MOE, at
+    AUTO_CLIENTS' K and chunk, the third arm of the recurrent phase's
+    ranks, with each rank's MoE drops a routing recorded (equal on every
+    rank). Each arch is held against the same spec's run on the (1, 1)
+    mesh in this process: the decisions (uplink_floats, frac_scalar,
+    savings) equal, loss within TRAIN_LOSS_RTOL (an MoE: every client's
+    first local step within it, the round losses within twice the floor
+    run's: a route flipped by float-level noise moves the later steps),
+    the final params' difference, relative L2 over the
     model against the (1, 1) run's update, within the larger of
     TRAIN_UPDATE_RTOL and TRAIN_UPDATE_FLOOR_FACTOR times the model's own
     floor (the (1, 1) run again with every flash and scan output moved by
@@ -4646,9 +4731,10 @@ def auto_arm(totals, run, arm, recs, wall, beside):
     from repro_torch.configs import get_config
     spec, inmem, arch = arm["spec"], arm["inmem"], arm["arch"]
     floor_diff2, peak11 = arm["floor_diff2"], arm["peak11"]
+    rounds = len(inmem)
     c, m = AUTO_MESH
     r0 = recs[0]
-    label = run["label"]
+    label = arm["label"] or run["label"]
     bad = []
     for r, rec in enumerate(recs):
         if rec["backend"] != "gloo" or rec["cuda_device"] != 0:
@@ -4671,8 +4757,26 @@ def auto_arm(totals, run, arm, recs, wall, beside):
                 bad.append(f"round {r + 1}: {k} {b[k]} vs {a[k]} on the "
                            f"(1, 1) mesh")
         loss_err = max(loss_err, abs(a["loss"] - b["loss"]) / abs(a["loss"]))
-    if not loss_err <= TRAIN_LOSS_RTOL:
-        bad.append(f"loss {loss_err:.3g} off the (1, 1) run's")
+    loss_floor = max(abs(a["loss"] - f) / abs(a["loss"])
+                     for a, f in zip(inmem, arm["floor_loss"]))
+    moe = get_cfg(spec).moe.num_experts > 0
+    # every client's first local step: the same params and batch in both
+    # runs, so only the forward's float-level noise parts them
+    tau, K = spec.fl.tau, spec.fl.num_clients
+    first = [abs(r0["step_loss"][i * tau] - arm["steps11"][i * tau])
+             / abs(arm["steps11"][i * tau]) for i in range(K)]
+    # an MoE routes each token by a discrete top-k with capacity drops: a
+    # route flipped by float-level noise moves every later local step, as
+    # far in the (1, 1) run against itself (the floor run); its round
+    # losses are held at twice that floor, its first steps at the rtol
+    loss_tol = (max(TRAIN_LOSS_RTOL, TRAIN_UPDATE_FLOOR_FACTOR * loss_floor)
+                if moe else TRAIN_LOSS_RTOL)
+    if not loss_err <= loss_tol:
+        bad.append(f"loss {loss_err:.3g} off the (1, 1) run's (tolerance "
+                   f"{loss_tol:.3g}; the floor run's {loss_floor:.3g})")
+    if not max(first) <= TRAIN_LOSS_RTOL:
+        bad.append(f"first local steps' loss {max(first):.3g} off the "
+                   f"(1, 1) run's")
     upd = math.sqrt(sum(rec["upd2"] for rec in recs))
     upd_rel = math.sqrt(sum(rec["diff2"] for rec in recs)) / max(upd, 1e-30)
     floor = math.sqrt(floor_diff2) / max(upd, 1e-30)
@@ -4680,6 +4784,13 @@ def auto_arm(totals, run, arm, recs, wall, beside):
     if not upd_rel <= upd_tol:
         bad.append(f"final params off the (1, 1) run's by {upd_rel:.3g} of "
                    f"its update (tolerance {upd_tol:.3g}, floor {floor:.3g})")
+    if any(rec["moe_drops"] != r0["moe_drops"] for rec in recs):
+        bad.append("the ranks dropped other routes: "
+                   f"{[rec['moe_drops'] for rec in recs]}")
+    if moe and len(r0["moe_drops"]) != (
+            arm["depth"] * spec.fl.num_clients * spec.fl.tau * rounds):
+        bad.append(f"{len(r0['moe_drops'])} MoE routings, not one a block "
+                   f"a client step")
     delta = spec.fl.delta_threshold
     margin = min(abs(x - delta) for rnd in r0["sin2"] for x in rnd)
     like = {k: types.SimpleNamespace(size=int(math.prod(v)))
@@ -4717,7 +4828,6 @@ def auto_arm(totals, run, arm, recs, wall, beside):
         dict(rec, path=f"{label} {arch} (a model rank's rows)")
         for rec in auto_decision_records(
             list(shapes.get("lbgm_sparse_decision", {})))]
-    rounds = len(inmem)
     coll = [rec["collectives"] for rec in recs]
     emit({"phase": label, "mesh": AUTO_MESH, "ranks": c * m,
           "model_sharding": "auto", "arch": arch,
@@ -4741,7 +4851,11 @@ def auto_arm(totals, run, arm, recs, wall, beside):
                       f"{get_config(arch).n_layers} layers (the (1, 1) "
                       f"reference run at the same depth)"]
           + ([f"seq_len {spec.data.kw['seq_len']} (the FL-LM phases' "
-              f"2048)"] if spec.data.kw["seq_len"] != 2048 else []),
+              f"2048)"] if spec.data.kw["seq_len"] != 2048 else [])
+          + ([f"K {spec.fl.num_clients} (the spec's 4): half the "
+              f"reshard; chunk {spec.fl.chunk_size} (2): half a rank's "
+              f"whole-leaf chunk gradients"] if arch in AUTO_CLIENTS
+             else []),
           "peak_gb_1x1": peak11,
           "ms_per_round_rank0": r0["ms"],
           "ms_per_round_of": "each round under the collective probe (two "
@@ -4769,14 +4883,33 @@ def auto_arm(totals, run, arm, recs, wall, beside):
           "loss": [h["loss"] for h in r0["history"]],
           "loss_1x1": [h["loss"] for h in inmem],
           "loss_max_rel_err": loss_err,
+          "loss_floor": arm["floor_loss"],
+          "loss_floor_max_rel_err": loss_floor,
+          "loss_tolerance": loss_tol,
+          "first_step_loss": [r0["step_loss"][i * tau] for i in range(K)],
+          "first_step_loss_1x1": [arm["steps11"][i * tau]
+                                  for i in range(K)],
+          "first_step_loss_max_rel_err": max(first),
           "wire_bytes": [h["wire_bytes"] for h in r0["history"]],
           "wire_bytes_1x1": [h["wire_bytes"] for h in inmem],
           "params_rel_l2_of_update": upd_rel,
           "params_floor_rel_l2_of_update": floor,
           "params_max_abs_diff": max(rec["max_abs_diff"] for rec in recs),
           "smallest_sin2_margin": margin,
+          **({"moe_drops_per_block": [rec["moe_drops"] for rec in recs],
+              "moe_drops_per_block_1x1": arm["drops11"],
+              "moe_drops_per_block_floor": arm["drops_floor"],
+              "moe_drops_of": "routes past an expert's capacity of each "
+                              "MoE routing of a forward (a block of a "
+                              "client step, in order) on each rank, the "
+                              "(1, 1) run and the floor run; the ranks "
+                              "must agree exactly"} if moe else {}),
           "tolerance": f"uplink_floats, frac_scalar, savings equal; loss "
-                       f"rtol {TRAIN_LOSS_RTOL}; final params within "
+                       f"rtol {loss_tol:.4g}"
+                       + (f" (an MoE: twice the floor run's, each "
+                          f"client's first local step at rtol "
+                          f"{TRAIN_LOSS_RTOL})" if moe else "")
+                       + f"; final params within "
                        f"{upd_tol:.4g} of the (1, 1) run's update "
                        f"(relative L2 over the model; the larger of "
                        f"{TRAIN_UPDATE_RTOL} and "
@@ -4785,6 +4918,7 @@ def auto_arm(totals, run, arm, recs, wall, beside):
                        f"outputs moved by {TRAIN_NUDGE} relative)",
           "failures": bad,
           "decision_launches_at_rank_rows": rows,
+          "launches_per_rank": [rec["launches"] for rec in recs],
           "local_kernels": kern,
           "nvidia_smi": SMI_LINE})
     return kern, bad
@@ -4832,16 +4966,17 @@ def auto_update_floor(one, ref_params):
     params moved by float-level noise: ``one`` (the (1, 1) spec) with
     every flash and scan output moved by TRAIN_NUDGE relative
     (:func:`nudged_lm_kernels`), its final params against
-    ``ref_params`` (the (1, 1) run's, on the host)."""
+    ``ref_params`` (the (1, 1) run's, on the host); and the nudged run's
+    history."""
     import torch
     with nudged_lm_kernels(TRAIN_NUDGE):
-        _, _, rec, _ = fl_lm_run(one, keep_engine=True)
+        history, _, rec, _ = fl_lm_run(one, keep_engine=True)
     params = rec.pop("state")["params"]
     total = 0.0
     for k, v in params.items():
         d = v.cuda().float() - ref_params[k].cuda().float()
         total += float((d * d).sum())
-    return total
+    return total, history
 
 
 def fl_lm_mixtral_topk(params, depth, rounds=3):
@@ -5625,6 +5760,7 @@ def mesh_rank(root, rank, world, port, jobs, out_dir):
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
     sys.path.insert(0, str(Path(root) / "src"))
+    import gc
     import torch
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import shutdown
@@ -5636,6 +5772,12 @@ def mesh_rank(root, rank, world, port, jobs, out_dir):
                    else auto_engine_job(job) if job.get("auto")
                    else mesh_engine_job(job))
             torch.save(rec, os.path.join(out_dir, f"{tag}.r{rank}.pt"))
+            # the next job starts on an emptied cache: the auto arms run
+            # one after another, each near the card's share of a rank
+            del rec
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
     except BaseException:
         with open(os.path.join(out_dir, f"{tag}.r{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
@@ -6263,12 +6405,14 @@ def main():
     profile_round("fcn_topk_int8", fl_spec("fcn", **int8))
     uplink_launches()
     # fl_sharded_auto_recurrent_card: its (1, 1) references here, then its
-    # 2 ranks beside the robust and scale-out phases (host-bound, little
-    # of the card: checks whose times are not cells); placed after the
-    # card-vs-CPU phases they added 117 s to a 1,360 s run (NVIDIA H100
-    # 80GB HBM3, 700 W)
+    # 2 ranks beside the robust, scale-out and mesh phases (host-bound,
+    # little of the card: checks whose times are not cells); placed after
+    # the card-vs-CPU phases they added 117 s to a 1,360 s run (NVIDIA H100
+    # 80GB HBM3, 700 W). fl_sharded_auto_moe_card (mixtral, 1 layer) is
+    # their third arm
     rec_tmp = tempfile.mkdtemp(prefix="chip_smoke_auto_recurrent_")
-    rec_run = auto_launch(rec_tmp, auto_refs(AUTO_RECURRENT, rec_tmp),
+    rec_run = auto_launch(rec_tmp,
+                          auto_refs(AUTO_RECURRENT + AUTO_MOE, rec_tmp),
                           "fl_sharded_auto_recurrent_card")
     robust_phases(totals)
 
@@ -6283,14 +6427,17 @@ def main():
         hier_card_vs_cpu(totals, tmp)
         emit({"phase": "hier_total",
               "seconds": time.perf_counter() - t_hier})
-    autos = [fl_sharded_auto_finish(
-        totals, rec_run, beside="the robust phases (fcn_topk_signflip_gm "
-                                "to fcn_buffered_straggler), hier_*")]
-    shutil.rmtree(rec_tmp, ignore_errors=True)
 
-    # the (clients, model) mesh: 4 and 2 gloo ranks on the one card
+    # the (clients, model) mesh: 4 and 2 gloo ranks on the one card, beside
+    # the auto ranks too (the MoE arm made those longer than the robust
+    # and hier_* phases)
     with tempfile.TemporaryDirectory() as tmp:
         fl_sharded_mesh_card(totals, tmp)
+    autos = [fl_sharded_auto_finish(
+        totals, rec_run, beside="the robust phases (fcn_topk_signflip_gm "
+                                "to fcn_buffered_straggler), hier_*, "
+                                "fl_sharded_mesh_card")]
+    shutil.rmtree(rec_tmp, ignore_errors=True)
 
     # the card-vs-CPU phases' CPU sides, in a worker process beside the
     # LM phases (the heaviest first); their card sides run last
@@ -6322,17 +6469,20 @@ def main():
         del inmem, state
         fl_lm_topk("fl_lm_rwkv6_topk", "rwkv6-3b",
                    **{"fl.num_clients": 2, "data.kw.n": 2, "rounds": 2})
-        fl_lm_qwen3_buffered_scalar_median()
         # fl_sharded_auto_card: its (1, 1) reference here, then its 2
-        # ranks beside the card-vs-CPU phases' card sides (checks whose
-        # times are not cells)
+        # ranks beside the buffered phase and the card-vs-CPU phases' card
+        # sides (checks whose times are not cells; beside the card-vs-CPU
+        # phases alone this process waited 42 s for them on a slow host,
+        # and fl_lm_rwkv6_topk's 53.5 GB peak leaves no room for them)
         auto_tmp = tempfile.mkdtemp(prefix="chip_smoke_auto_")
         auto_run = fl_sharded_auto_start(auto_tmp)
+        fl_lm_qwen3_buffered_scalar_median()
         # every training LM and both FL-LMs against the CPU in fp32
         lm_train_card_vs_cpu(worker, train_in)
         fl_lm_card_vs_cpu(worker, fl_in)
         autos.append(fl_sharded_auto_finish(
-            totals, auto_run, beside="lm_train_card_vs_cpu, "
+            totals, auto_run, beside="fl_lm_qwen3_buffered_scalar_median, "
+                                     "lm_train_card_vs_cpu, "
                                      "fl_lm_card_vs_cpu"))
         shutil.rmtree(auto_tmp, ignore_errors=True)
         draws.shutdown()

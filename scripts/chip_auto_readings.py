@@ -9,10 +9,12 @@ of ``fl_sharded_qwen3_topk``, cut to ``AUTO_DEPTH`` layers, on the
 ``(1, 1)`` sharded mesh in this process, then on the ``(1, 2)`` mesh with
 ``model_sharding="auto"`` (2 gloo ranks on the card, each resting half
 the params and running the client forward and backward tensor-parallel),
-held against the first. ``--arch rwkv6-3b recurrentgemma-2b`` (either or
-both) runs ``fl_sharded_auto_recurrent_card`` instead: the same spec for
-each named arch at its ``AUTO_RECURRENT`` depth and seq_len, the ranks
-running one arch after the other. Prints ``chip_smoke.py``'s JSON
+held against the first. ``--arch rwkv6-3b recurrentgemma-2b
+mixtral-8x22b`` (any of them) runs ``fl_sharded_auto_recurrent_card``
+and ``fl_sharded_auto_moe_card`` instead: the same spec for each named
+arch at its ``AUTO_RECURRENT`` or ``AUTO_MOE`` depth and seq_len (and
+mixtral's ``AUTO_CLIENTS``), the ranks running one arch after the other
+in that order, as in ``chip_smoke.py``. Prints ``chip_smoke.py``'s JSON
 records, after the card's name and power limit, and then the kernels
 line's new records. Needs a CUDA card; exits non-zero without one.
 """
@@ -28,19 +30,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
-RECURRENT = {arch: (arch, depth, T) for arch, depth, T in cs.AUTO_RECURRENT}
+ARMS = {arch: (arch, depth, T)
+        for arch, depth, T in cs.AUTO_RECURRENT + cs.AUTO_MOE}
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", nargs="+", default=["qwen3-1.7b"],
-                    choices=["qwen3-1.7b", *RECURRENT],
+                    choices=["qwen3-1.7b", *ARMS],
                     help="qwen3-1.7b alone (fl_sharded_auto_card), or "
-                         "recurrent archs (fl_sharded_auto_recurrent_card)")
+                         "recurrent and MoE archs "
+                         "(fl_sharded_auto_recurrent_card, "
+                         "fl_sharded_auto_moe_card)")
     args = ap.parse_args(argv)
     if "qwen3-1.7b" in args.arch and len(args.arch) > 1:
         ap.error("qwen3-1.7b runs alone: its phase is another than the "
-                 "recurrent archs'")
+                 "recurrent and MoE archs'")
     return args
 
 
@@ -66,7 +71,7 @@ def main(argv=None):
             recs, _ = cs.fl_sharded_auto_card(totals, tmp)
         else:
             run = cs.fl_sharded_auto_start(
-                tmp, [RECURRENT[a] for a in args.arch],
+                tmp, [ARMS[a] for a in ARMS if a in args.arch],
                 "fl_sharded_auto_recurrent_card")
             recs, _ = cs.fl_sharded_auto_finish(totals, run)
     print(json.dumps({"auto_kernels": recs}), flush=True)

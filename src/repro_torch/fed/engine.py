@@ -108,7 +108,8 @@ from repro_torch.fed.robust import (CollectDenseAggregator,
                                     ScalarMedianSparseAggregator,
                                     make_robust_rule)
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import gather_sum, is_writer
+from repro_torch.launch.mesh import (gather_sum, gather_sum_placed,
+                                     is_writer)
 from repro_torch.models.tensor_parallel import TPContext
 
 
@@ -958,23 +959,29 @@ class ShardedScheduler(_ChunkLoop):
     def _assemble_acc(self, acc):
         """Every carry leaf at its global extent, on every rank of the
         model group: the rank's rows (model-sharded) or model rank 0's
-        leaf (replicated), gathered in one ``all_reduce``."""
+        leaf (replicated), gathered in one ``all_reduce``, written in place
+        into the buffer it sums (``launch.mesh.gather_sum_placed``): one
+        fp32 copy of the model a rank beside its rows, where zero-filled
+        leaves, their packed buffer and the copies out would be three."""
         if self.n_model == 1:
             return acc
         names = sorted(acc)
-        parts = []
-        for name in names:
-            a = acc[name]
-            if (self._msharded or {}).get(name):
-                full = a.new_zeros((a.shape[0] * self.n_model,)
-                                   + a.shape[1:])
+        sharded = [bool((self._msharded or {}).get(n)) for n in names]
+        layout = [(((acc[n].shape[0] * self.n_model,) + acc[n].shape[1:])
+                   if on else acc[n].shape, acc[n].dtype)
+                  for n, on in zip(names, sharded)]
+
+        def place(i, full):
+            a = acc[names[i]]
+            if sharded[i]:
                 full.narrow(0, self.model_rank * a.shape[0],
                             a.shape[0]).copy_(a)
-            else:
-                full = a.clone() if self.model_rank == 0 \
-                    else torch.zeros_like(a)
-            parts.append(full)
-        return dict(zip(names, gather_sum(parts, self.model_group)))
+            elif self.model_rank == 0:
+                full.copy_(a)
+
+        dev = next(iter(acc.values())).device
+        return dict(zip(names, gather_sum_placed(layout, place,
+                                                 self.model_group, dev)))
 
     # ----------------------------------------------------- the round
     def run(self, client_fn, agg, params, batch, lbg, resid, w, maskf):

@@ -430,7 +430,8 @@ def _lm_model(seed: int = 0, arch: str = "qwen3-1.7b", reduced: bool = True,
     CE chunks, so the engine runs a chunk's clients one after another.
     Under ``model_sharding="auto"`` the engine takes the loss's
     ``TENSOR_PARALLEL`` form (``train.trainer.make_tp_loss_fn``), which
-    refuses every arch outside the dense decoder family."""
+    refuses every arch outside the dense decoder, recurrent (rwkv6,
+    RG-LRU) and MoE families."""
     from repro_torch.configs import get_config
     from repro_torch.core.device import resolve_device
     from repro_torch.fed.engine import CLIENT_LOOP, TENSOR_PARALLEL

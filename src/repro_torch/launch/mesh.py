@@ -28,6 +28,7 @@ smaller mesh raises as a larger one does.
 from __future__ import annotations
 
 import atexit
+import math
 import os
 import shutil
 import tempfile
@@ -176,25 +177,84 @@ def make_debug_mesh(data: int = 1, model: int = 1, *, device):
 
 # ------------------------------------------------------------ gathers
 
+#: the most bytes one collective of the gathers and reshards moves: gloo
+#: stages a collective on a CUDA tensor through a pinned host copy of its
+#: size, which the caching host allocator keeps (its size rounded up to a
+#: power of two), so one collective of a model's bytes would hold that
+#: much host memory a rank for the rest of the process
+PIECE_BYTES = 1 << 28
+
+
+def _pieces(buf):
+    n = max(1, PIECE_BYTES // buf.element_size())
+    return [buf[i:i + n] for i in range(0, buf.numel(), n)]
+
+
+def all_reduce_pieces(buf, group):
+    """``dist.all_reduce`` of a flat buffer in pieces of at most
+    PIECE_BYTES. For the integer sums of the gathers: a piece sums as the
+    whole buffer would."""
+    for piece in _pieces(buf):
+        dist.all_reduce(piece, group=group)
+
+
+def broadcast_pieces(buf, src: int, group):
+    """``dist.broadcast`` of a flat buffer in pieces of at most
+    PIECE_BYTES."""
+    for piece in _pieces(buf):
+        dist.broadcast(piece, src=src, group=group)
+
+
+def _byte_spans(nbytes):
+    """Each segment's (offset, nbytes), every segment at an 8-byte
+    boundary, and the int64 words that hold them all."""
+    spans, off = [], 0
+    for n in nbytes:
+        spans.append((off, n))
+        off += -(-n // 8) * 8
+    return spans, max(off, 8) // 8
+
+
+def _as_bytes(t):
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
 def pack_bytes(tensors, fill: bool = True):
     """One flat int64 buffer holding every tensor's bytes, each tensor's
     segment at an 8-byte boundary, and the segments' (offset, nbytes).
     ``fill=False``: an uninitialised buffer of that layout (to receive
     into)."""
-    spans, off = [], 0
-    for t in tensors:
-        n = t.numel() * t.element_size()
-        spans.append((off, n))
-        off += -(-n // 8) * 8
+    spans, words = _byte_spans([t.numel() * t.element_size()
+                                for t in tensors])
+    dev = tensors[0].device
     if not fill:
-        return torch.empty(max(off, 8) // 8, dtype=torch.int64,
-                           device=tensors[0].device), spans
-    buf = torch.zeros(max(off, 8) // 8, dtype=torch.int64,
-                      device=tensors[0].device)
+        return torch.empty(words, dtype=torch.int64, device=dev), spans
+    buf = torch.zeros(words, dtype=torch.int64, device=dev)
     raw = buf.view(torch.uint8)
     for t, (o, n) in zip(tensors, spans):
-        raw[o:o + n].copy_(t.contiguous().reshape(-1).view(torch.uint8))
+        raw[o:o + n].copy_(_as_bytes(t))
     return buf, spans
+
+
+def gather_sum_placed(layout, place, group, device):
+    """:func:`gather_sum` without its zero-filled inputs and the copies of
+    its outputs: the tensors of ``layout`` (a (shape, dtype) each) laid
+    out as :func:`pack_bytes` lays them out, in one zero-filled buffer
+    into which ``place(i, view)`` writes this rank's elements of tensor
+    i; one integer ``all_reduce`` over ``group``
+    (:func:`all_reduce_pieces`). Returns views of the buffer (any of them
+    keeps the whole buffer alive), bit for bit the gather."""
+    spans, words = _byte_spans([
+        math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        for shape, dtype in layout])
+    buf = torch.zeros(words, dtype=torch.int64, device=device)
+    raw = buf.view(torch.uint8)
+    views = [raw[o:o + n].view(dtype).view(shape)
+             for (shape, dtype), (o, n) in zip(layout, spans)]
+    for i, v in enumerate(views):
+        place(i, v)
+    all_reduce_pieces(buf, group)
+    return views
 
 
 def gather_sum(tensors, group):
@@ -202,10 +262,11 @@ def gather_sum(tensors, group):
     passes zero-filled tensors holding its own elements, no byte of which
     any other rank fills. Summed as integers over ``group``, each byte is
     one rank's byte plus zeros, so the result is the gather bit for bit
-    (signed zeros and NaN payloads included), in one collective. Returns
-    new tensors."""
-    buf, spans = pack_bytes(tensors)
-    dist.all_reduce(buf, group=group)
-    raw = buf.view(torch.uint8)
-    return [raw[o:o + n].view(t.dtype).reshape(t.shape).clone()
-            for t, (o, n) in zip(tensors, spans)]
+    (signed zeros and NaN payloads included), in one collective (pieces of
+    at most PIECE_BYTES, :func:`all_reduce_pieces`). Returns new
+    tensors."""
+    views = gather_sum_placed(
+        [(tuple(t.shape), t.dtype) for t in tensors],
+        lambda i, v: _as_bytes(v).copy_(_as_bytes(tensors[i])), group,
+        tensors[0].device)
+    return [v.clone() for v in views]

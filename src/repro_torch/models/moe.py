@@ -21,6 +21,10 @@ Two points where torch differs from jnp and the port follows jnp:
 
 Every index is int64, so a stacked expert leaf of more than 2^31 elements
 (mixtral-8x22b's, llama4's) is addressed correctly.
+
+:func:`apply_moe_tp` is the tensor-parallel form of ``model_sharding=
+"auto"`` (a rank's experts, or every expert's d_ff columns); the JAX
+package has none, GSPMD partitioning ``apply_moe`` from the specs.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import tensor_parallel as tpl
 from repro_torch.models.common import ParamStore, silu
 
 
@@ -91,32 +96,97 @@ def moe_routing(p, x: torch.Tensor, cfg: ArchConfig) -> Routing:
     return Routing(probs, top_w, top_e, pos, keep, buf, slot)
 
 
+def _experts(x, buf, slot, w_gate, w_up, w_down, e_lo: int, C: int):
+    """Each route's expert output (B, T*k, d) from the experts
+    ``[e_lo, e_lo + E_l)`` that ``w_gate``, ``w_up``, ``w_down`` hold
+    (E_l on their leading axis, at whatever d_ff columns they hold): the
+    slots ``buf[:, e_lo*C:(e_lo+E_l)*C]`` gathered, the SwiGLU as batched
+    products over those experts, and each route's slot read back. A route
+    whose slot lies in another expert reads zero."""
+    B, T, d = x.shape
+    E_l = w_gate.shape[0]
+    rows = torch.arange(B, device=x.device)[:, None]
+    own = buf[:, e_lo * C:(e_lo + E_l) * C]
+    gx = x[rows, own.clamp(0, T - 1)].reshape(B, E_l, C, d)   # (B,E,C,d)
+
+    # expert SwiGLU, one batched product per weight over the experts
+    g = torch.einsum("becd,edf->becf", gx, w_gate)
+    u = torch.einsum("becd,edf->becf", gx, w_up)
+    y = torch.einsum("becf,efd->becd", silu(g) * u, w_down)
+    y = y.reshape(B, E_l * C, d)
+    if E_l * C == buf.shape[1]:
+        return y[rows, slot]                                  # (B,T*k,d)
+    s = slot - e_lo * C
+    s = torch.where((s >= 0) & (s < E_l * C), s, E_l * C)
+    return torch.cat([y, y.new_zeros(B, 1, d)], 1)[rows, s]
+
+
+def _combine(back, r: Routing):
+    """Each token's routes (B, T*k, d) weighted by the renormalised top-k
+    probabilities, drop-masked, summed over its k routes."""
+    B, Tk, d = back.shape
+    T, k = r.top_w.shape[1:]
+    w = (r.top_w.reshape(B, T * k) * r.keep).to(back.dtype)
+    return (back.reshape(B, T, k, d) * w.reshape(B, T, k, 1)).sum(2)
+
+
+def _load_balance(r: Routing, cfg: ArchConfig):
+    """Switch-style load-balance aux loss."""
+    E = cfg.moe.num_experts
+    frac_routed = torch.nn.functional.one_hot(
+        r.top_e[..., 0], E).float().mean((0, 1))
+    mean_prob = r.probs.mean((0, 1))
+    return E * (frac_routed * mean_prob).sum() * cfg.moe.router_aux_loss
+
+
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig):
     """x: (B, T, d) -> (out (B, T, d), aux_loss fp32 scalar).
 
     Routing/capacity is computed independently per example, as in JAX."""
-    B, T, d = x.shape
-    E, k = cfg.moe.num_experts, cfg.moe.top_k
-    C = capacity(cfg, T)
     r = moe_routing(p, x, cfg)
+    back = _experts(x, r.buf, r.slot, p["w_gate"], p["w_up"], p["w_down"],
+                    0, capacity(cfg, x.shape[1]))
+    return _combine(back, r).to(x.dtype), _load_balance(r, cfg)
 
-    rows = torch.arange(B, device=x.device)[:, None]
-    gx = x[rows, r.buf.clamp(0, T - 1)].reshape(B, E, C, d)  # (B,E,C,d)
 
-    # expert SwiGLU, one batched product per weight over the experts
-    g = torch.einsum("becd,edf->becf", gx, p["w_gate"])
-    u = torch.einsum("becd,edf->becf", gx, p["w_up"])
-    y = torch.einsum("becf,efd->becd", silu(g) * u, p["w_down"])
-    y = y.reshape(B, E * C, d)
+def apply_moe_tp(p, x: torch.Tensor, cfg: ArchConfig, tp, spec,
+                 remat: bool):
+    """:func:`apply_moe` on this rank's shards (``tp``: a
+    ``models.tensor_parallel.TPContext``; ``spec``: key -> (spec, global
+    shape) of the ``moe/*`` leaves), the whole (B, T, d) output and the
+    aux loss on every model rank. x: the normed residual, the same on
+    every rank.
 
-    # combine: each route gathers its slot back, weighted, drop-masked
-    back = y[rows, r.slot]                                    # (B,T*k,d)
-    w = (r.top_w.reshape(B, T * k) * r.keep).to(back.dtype)
-    out = (back.reshape(B, T, k, d) * w.reshape(B, T, k, 1)).sum(2)
+    The spec rule shards the experts on E where m divides it (and the
+    router's E columns with them), else each expert's d_ff columns (the
+    router replicated). Either way the router runs whole on every rank:
+    its columns gathered (d x E, outside the checkpointed part; its
+    gradient, the same on every rank, sliced back), then the plain
+    :func:`moe_routing` on x, so the routes, drops and slots are the same
+    on every rank by construction (logits gathered from the ranks'
+    columns could move by an ulp and flip a route on one rank only). A
+    rank runs its experts' slots, or every expert at its d_ff columns, on
+    ``copy_in(x)`` (checkpointed under ``remat``) into each route's
+    partial output, zero for a slot of another rank's expert; one
+    ``reduce_out`` of those (B, T*k, d) partials in fp32 (exact when the
+    experts are sharded: each slot is non-zero on one rank), then the
+    combine and the load-balance term on every rank, as the plain form
+    computes them. With every ``moe/*`` leaf replicated (neither E nor
+    d_ff divisible by m) the plain form runs on every rank.
 
-    # Switch-style load-balance aux loss
-    frac_routed = torch.nn.functional.one_hot(
-        r.top_e[..., 0], E).float().mean((0, 1))
-    mean_prob = r.probs.mean((0, 1))
-    aux = E * (frac_routed * mean_prob).sum() * cfg.moe.router_aux_loss
-    return out.to(x.dtype), aux
+    Collectives of a block at m > 1: forward the router's gather (none
+    with the router replicated) and the reduce_out; backward x's copy_in:
+    3 all_reduce."""
+    if tp.m > 1 and tpl.MODEL not in spec["w_gate"][0]:
+        return tpl.local(remat, apply_moe, p, x, cfg)
+    router = p["router"]
+    if tpl.MODEL in spec["router"][0]:
+        router = tpl.gather(router, -1, tp, replicated_grad=True)
+    r = moe_routing({"router": router}, x, cfg)
+    e_lo = (tp.own(cfg.moe.num_experts)[0]
+            if tp.m > 1 and spec["w_gate"][0][0] == tpl.MODEL else 0)
+    back = tpl.local(remat, _experts, tpl.copy_in(x, tp), r.buf, r.slot,
+                     p["w_gate"], p["w_up"], p["w_down"], e_lo,
+                     capacity(cfg, x.shape[1]))
+    out = _combine(tpl.reduce_out(back, tp), r)
+    return out.to(x.dtype), _load_balance(r, cfg)

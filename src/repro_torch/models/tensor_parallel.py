@@ -38,7 +38,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import gather_sum, pack_bytes
+from repro_torch.launch.mesh import broadcast_pieces, gather_sum, pack_bytes
 
 Spec = Tuple[Optional[str], ...]
 MODEL = "model"
@@ -186,9 +186,10 @@ class TPContext:
     def assemble(self, tree, lead: int = 0):
         """The whole leaves of this rank's shards ``tree`` on every rank
         of the model group: each model rank broadcasts its shards, packed
-        in one buffer (model rank 0's also holds the replicated leaves),
-        so a rank receives (m - 1)/m of the bytes, where a ring
-        ``all_reduce`` of zero-filled leaves would move twice that."""
+        in one buffer (model rank 0's also holds the replicated leaves;
+        sent in pieces, ``launch.mesh.broadcast_pieces``), so a rank
+        receives (m - 1)/m of the bytes, where a ring ``all_reduce`` of
+        zero-filled leaves would move twice that."""
         if self.m == 1:
             return dict(tree)
         names = sorted(tree)
@@ -204,13 +205,16 @@ class TPContext:
         for r in range(self.m):
             mine = [k for k in names
                     if self.sharded_dim(k) is not None or r == 0]
+            if not mine:
+                # every leaf replicated: model rank 0's alone are sent
+                continue
             parts = [tree[k] for k in mine]
             if r == self.rank:
                 buf, spans = pack_bytes(parts)
             else:
                 buf, spans = pack_bytes(parts, fill=False)
-            dist.broadcast(buf, src=dist.get_global_rank(self.group, r),
-                           group=self.group)
+            broadcast_pieces(buf, dist.get_global_rank(self.group, r),
+                             self.group)
             raw = buf.view(torch.uint8)
             for k, x, (o, n) in zip(mine, parts, spans):
                 d = self.sharded_dim(k)

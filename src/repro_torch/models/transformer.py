@@ -365,24 +365,25 @@ def lm_loss(params, cfg: ArchConfig, tokens, labels, extra_embeds=None,
 #
 # model_sharding="auto": the client forward and backward of the dense
 # decoder family (attn/swa blocks, a dense SwiGLU FFN, GQA, optional
-# qk-norm, tied or untied head, stacked or per-layer leaves) and of the
+# qk-norm, tied or untied head, stacked or per-layer leaves), of the
 # recurrent families (rwkv6 blocks: ``rwkv6.apply_rwkv6_tp``; the RG-LRU +
-# local attention pattern: ``rglru.apply_rglru_tp``) over the model ranks
-# of ``models.tensor_parallel.TPContext``. Each rank runs on its resting
+# local attention pattern: ``rglru.apply_rglru_tp``) and of the MoE FFN
+# (``moe.apply_moe_tp``: a rank's experts or their d_ff columns, the
+# router gathered and the routes replicated) over the model ranks of
+# ``models.tensor_parallel.TPContext``. Each rank runs on its resting
 # shards, placed by the JAX package's spec rule: the query heads of its
 # rows of wa_o, the kv heads those need (gathered where the spec cut a
 # rank's kv columns off whole heads: reduced yi-34b at m = 4 rests half a
 # kv head a rank, recurrentgemma's one kv head is split over every rank),
-# its columns of a recurrent mixer's d x d weights, its d_ff columns, its
-# d_model columns of the embedding (gathered to full d) and of the head
-# (partial logits summed in fp32). A leaf the rule leaves replicated runs
-# the plain form.
+# its columns of a recurrent mixer's d x d weights, its d_ff columns (or
+# its experts), its d_model columns of the embedding (gathered to full d)
+# and of the head (partial logits summed in fp32). A leaf the rule leaves
+# replicated runs the plain form.
 
 def tensor_parallel_refusal(cfg: ArchConfig):
     """None for the families with a tensor-parallel form (attn, swa, rwkv6
-    and rglru blocks with a dense FFN), else why ``cfg`` has none yet."""
-    if cfg.moe.num_experts:
-        return "an MoE (its expert axis)"
+    and rglru blocks with a dense or MoE FFN), else why ``cfg`` has none
+    yet."""
     if cfg.encdec:
         return "an encoder-decoder"
     if cfg.mrope:
@@ -517,26 +518,33 @@ def _mixer_tp(p, h, cfg: ArchConfig, kind: str, positions, tp, spec,
 
 def _apply_block_tp(p, x, cfg: ArchConfig, kind: str, positions, tp, spec,
                     remat: bool):
-    """One block on this rank's shards. Under ``remat`` each sublayer's
-    local parts are checkpointed between its collectives (the plain form
+    """One block on this rank's shards; returns (x, aux loss), as
+    :func:`_apply_block_train`. Under ``remat`` each sublayer's local
+    parts are checkpointed between its collectives (the plain form
     checkpoints the whole block): the backward recomputes the heads, the
-    mixer's columns and the d_ff columns but no collective."""
+    mixer's columns and the d_ff columns (or the rank's experts) but no
+    collective."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     x = x + _mixer_tp(p, h, cfg, kind, positions, tp, spec, remat)
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if cfg.moe.num_experts:
+        y, aux = moe_lib.apply_moe_tp(subtree(p, "moe"), h2, cfg, tp,
+                                      _sub_specs(spec, "moe"), remat)
+        return x + y, aux
     ffn = (p["w_gate"], p["w_up"], p["w_down"])
     if tp.m > 1 and spec["w_down"][0][0] != tpl.MODEL:
-        return x + tpl.local(remat, swiglu, h2, *ffn)
+        return x + tpl.local(remat, swiglu, h2, *ffn), 0.0
     # this rank's partial of the SwiGLU: its d_ff columns
     return x + tpl.reduce_out(tpl.local(remat, swiglu, tpl.copy_in(h2, tp),
-                                        *ffn), tp)
+                                        *ffn), tp), 0.0
 
 
 def forward_hidden_tp(params, cfg: ArchConfig, tokens: torch.Tensor, tp):
     """:func:`forward_hidden` of the families with a tensor-parallel form
     on this rank's shards: the embedding's d_model columns gathered to
     full d (its gradient, the same on every rank, sliced back), each block
-    tensor-parallel."""
+    tensor-parallel. Returns (hidden, aux loss summed over the blocks),
+    both the same on every model rank."""
     specs = block_specs(tp, cfg)
     B, T = tokens.shape
     x = params["embed"][tokens]
@@ -544,10 +552,12 @@ def forward_hidden_tp(params, cfg: ArchConfig, tokens: torch.Tensor, tp):
         x = tpl.gather(x, -1, tp, replicated_grad=True)
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = 0.0
     for kind, p in layer_params(params, cfg):
-        x = _apply_block_tp(p, x, cfg, kind, positions, tp, specs[kind],
-                            remat)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, aux = _apply_block_tp(p, x, cfg, kind, positions, tp,
+                                 specs[kind], remat)
+        aux_total += aux
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
 def _chunk_ce_tp(xc, lc, head, tp, cols):
@@ -570,11 +580,13 @@ def lm_loss_tp(params, cfg: ArchConfig, tokens, labels, tp,
                ce_chunk: int = 512):
     """:func:`lm_loss` of the families with a tensor-parallel form (see
     :func:`tensor_parallel_refusal`) on this rank's shards
-    (``tp``: a ``models.tensor_parallel.TPContext``); the loss is the same
-    on every model rank, and with m = 1 it is :func:`lm_loss`'s bit for
-    bit. With m > 1 a CE chunk is not checkpointed: its recompute would
-    sum the (B, c, V) partial logits over the ranks a second time."""
-    x = forward_hidden_tp(params, cfg, tokens, tp)
+    (``tp``: a ``models.tensor_parallel.TPContext``): ce + aux, the MoE
+    load-balance loss summed over the blocks (0 for a dense FFN). The loss
+    is the same on every model rank, and with m = 1 it is
+    :func:`lm_loss`'s bit for bit. With m > 1 a CE chunk is not
+    checkpointed: its recompute would sum the (B, c, V) partial logits
+    over the ranks a second time."""
+    x, aux = forward_hidden_tp(params, cfg, tokens, tp)
     head = _head(params, cfg)
     name, dim = ("embed", 1) if cfg.tie_embeddings else ("lm_head", 0)
     cols = (tp.own(cfg.d_model) if tp.specs[name][dim] == tpl.MODEL
@@ -590,5 +602,5 @@ def lm_loss_tp(params, cfg: ArchConfig, tokens, labels, tp,
         t, n = tpl.local(remat, _chunk_ce_tp, xc, lc, head, tp, cols)
         tot, cnt = tot + t, cnt + n
     ce = tot / torch.clamp(cnt, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     return ce + aux, {"ce": ce, "aux": aux}

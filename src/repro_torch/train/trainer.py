@@ -61,16 +61,17 @@ def make_loss_fn(cfg: ArchConfig):
 def make_tp_loss_fn(cfg: ArchConfig, tp):
     """:func:`make_loss_fn`'s loss on one model rank's shards
     (``models.transformer.lm_loss_tp``; ``tp``: a
-    ``models.tensor_parallel.TPContext``). The dense decoder family and
-    the recurrent families (rwkv6, RG-LRU + local attention) have a
-    tensor-parallel form: any other arch raises, naming it."""
+    ``models.tensor_parallel.TPContext``). The dense decoder family, the
+    recurrent families (rwkv6, RG-LRU + local attention) and the MoE
+    family have a tensor-parallel form: any other arch raises, naming
+    it."""
     why = tensor_parallel_refusal(cfg)
     if why is not None:
         raise ValueError(
             f"model_sharding='auto': arch {cfg.name!r} is {why}, which has "
             "no tensor-parallel form in repro_torch yet (only attn, swa, "
-            "rwkv6 and rglru blocks with a dense SwiGLU FFN); it is queued "
-            "in ROADMAP.md §1. Use model_sharding='replicate'")
+            "rwkv6 and rglru blocks with a dense SwiGLU or MoE FFN); it is "
+            "queued in ROADMAP.md §1. Use model_sharding='replicate'")
 
     def loss_fn(params, batch):
         return lm_loss_tp(params, cfg, batch["tokens"], batch["labels"], tp)

@@ -3,7 +3,8 @@
 Each world is ``c·m`` spawned processes (``tests/torch_ranks_worker.py``,
 given the environment ``torchrun`` gives its ranks, so the engine's mesh
 joins the world through ``env://``), which runs a list of specs so the
-imports are paid once. The worlds of 2, 4 and 8 ranks run at once, beside
+imports are paid once; the 4-rank world's gathers and reshards go in
+pieces of 64 KiB (``launch.mesh.PIECE_BYTES``). The worlds of 2, 4 and 8 ranks run at once, beside
 the JAX package's reference runs in the test's own process. Every
 rank must hold the same history and params, bit for bit. Against the JAX
 package's in-process ``"chunked"`` run of the same spec from the same
@@ -55,7 +56,16 @@ live rows, and at m = 4 the last rank holds pad rows only. Cases:
   worlds (at d_model 126 and m = 4 the RG-LRU mixers and the embedding
   are replicated: the plain mixer on every rank); and each arch's
   ``"lm"`` engine run at (1, 2) against JAX's chunked run and the port's
-  ``"replicate"`` run, as yi34b's.
+  ``"replicate"`` run, as yi34b's;
+* ``model_sharding="auto"`` for the MoE family: ``models.moe.
+  apply_moe_tp`` on 2 and 4 ranks against ``apply_moe`` (routes, drops
+  and slots exact on every rank, capacity drops in some cases, the
+  k-th/(k+1)-th prob gap above 1e-5; output, aux and gradients at fp32
+  tolerances, so a replicated gradient summed m times shows), the
+  tensor-parallel loss and gradients of reduced mixtral-8x22b and llama4
+  (experts sharded on E; at E = 2 and m = 4 on d_ff, the router
+  replicated), and each arch's ``"lm"`` engine run at (1, 2) against
+  JAX's chunked run and the port's ``"replicate"`` run.
 """
 import json
 import os
@@ -79,7 +89,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.fed import experiment as texp  # noqa: E402
 from repro_torch.models.transformer import init_lm  # noqa: E402
 from repro_torch.train.trainer import grad_and_loss, make_loss_fn  # noqa
-from torch_ranks_worker import tp_batch  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from torch_ranks_worker import (AUX_WEIGHT, moe_inputs, tp_batch,  # noqa
+                                tp_cfg)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_ranks_worker.py"
@@ -119,10 +131,12 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def start(world, jobs, out):
+def start(world, jobs, out, piece_bytes=None):
     """Launch ``jobs`` on a gloo world of ``world`` CPU ranks, as
     ``torchrun`` would (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
-    ``MASTER_ADDR``, ``MASTER_PORT``); returns the processes."""
+    ``MASTER_ADDR``, ``MASTER_PORT``); returns the processes.
+    ``piece_bytes``: the ranks' ``launch.mesh.PIECE_BYTES``, so that the
+    small models' gathers and reshards go in several pieces."""
     path = os.path.join(out, f"jobs{world}.json")
     with open(path, "w") as f:
         json.dump(jobs, f)
@@ -133,6 +147,8 @@ def start(world, jobs, out):
                    LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(port), OMP_NUM_THREADS="1",
                    PYTHONPATH=str(ROOT / "src"))
+        if piece_bytes:
+            env["PIECE_BYTES"] = str(piece_bytes)
         procs.append(subprocess.Popen(
             [sys.executable, str(WORKER), path, out], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -280,6 +296,20 @@ TP_CASES = {
                                               "d_model": 126},
                                        "mesh": [1, 4], "seed": 0,
                                        "T": 48}),
+    "mixtral@[1, 2]": (2, {"arch": "mixtral-8x22b", "mesh": [1, 2],
+                           "seed": 0}),
+    "llama4@[1, 2]": (2, {"arch": "llama4-maverick-400b-a17b",
+                          "kw": {"remat": True}, "mesh": [1, 2],
+                          "seed": 0}),
+    "mixtral@[1, 4]": (4, {"arch": "mixtral-8x22b", "kw": {"remat": True},
+                           "mesh": [1, 4], "seed": 1}),
+    "llama4@[1, 4]": (4, {"arch": "llama4-maverick-400b-a17b",
+                          "mesh": [1, 4], "seed": 1}),
+    # E = 2 at m = 4: each expert's d_ff columns sharded, the router
+    # replicated
+    "mixtral-ff-sharded@[1, 4]": (4, {"arch": "mixtral-8x22b",
+                                      "moe": {"num_experts": 2},
+                                      "mesh": [1, 4], "seed": 2}),
 }
 #: archs whose gradients are held at their own floor as well: reduced
 #: rwkv6's fp32 gradients move by ~6e-5 of a leaf's largest under a
@@ -290,13 +320,43 @@ TP_FLOOR_ARCHS = ("rwkv6-3b",)
 
 #: the recurrent archs' (1, 2) engine runs: arch -> (layers, T)
 RECURRENT_TP = {"rwkv6-3b": (2, 32), "recurrentgemma-2b": (3, 48)}
+#: the MoE archs' (1, 2) engine runs: arch -> (layers, T)
+MOE_TP = {"mixtral-8x22b": (2, 32), "llama4-maverick-400b-a17b": (2, 32)}
+LM_TP = {**RECURRENT_TP, **MOE_TP}
+
+#: apply_moe_tp against apply_moe: tag -> (world, the job's "moe")
+MOE_UNIT = {
+    "moe-mixtral@2": (2, {"arch": "mixtral-8x22b", "m": 2, "seed": 0}),
+    "moe-llama4-drops@2": (2, {"arch": "llama4-maverick-400b-a17b",
+                               "m": 2, "seed": 1, "remat": True,
+                               "T": 24}),
+    "moe-mixtral-drops@4": (4, {"arch": "mixtral-8x22b", "m": 4,
+                                "seed": 2, "remat": True,
+                                "moe": {"capacity_factor": 0.5}}),
+    "moe-llama4@4": (4, {"arch": "llama4-maverick-400b-a17b", "m": 4,
+                         "seed": 3}),
+    # E = 2 at m = 4: d_ff sharded. Top-2 of 2 (at top-1 the combine's
+    # weight is p/p = 1, whose router gradient is float noise of the
+    # expert output: the ranks' fp32 sum of d_ff partials moves it)
+    "moe-ff-sharded@4": (4, {"arch": "mixtral-8x22b", "m": 4, "seed": 4,
+                             "moe": {"num_experts": 2,
+                                     "capacity_factor": 0.75}}),
+    # neither E = 2 nor d_ff 258 divisible by 4: every leaf replicated,
+    # the plain form on every rank
+    "moe-replicated@4": (4, {"arch": "mixtral-8x22b", "m": 4, "seed": 5,
+                             "kw": {"d_ff": 258},
+                             "moe": {"num_experts": 2}}),
+}
+#: the MOE_UNIT cases that must drop routes past an expert's capacity
+MOE_DROPS = ("moe-llama4-drops@2", "moe-mixtral-drops@4",
+             "moe-ff-sharded@4")
 
 
-def recurrent_tp_spec(arch, model_sharding="auto"):
-    """:func:`yi34b_tp_spec` with ``arch`` reduced at RECURRENT_TP's depth
-    and T (vocab 512) on a (1, 2) mesh, K = 4 in chunks of 2."""
+def lm_tp_spec(arch, model_sharding="auto"):
+    """:func:`yi34b_tp_spec` with ``arch`` reduced at LM_TP's depth and T
+    (vocab 512) on a (1, 2) mesh, K = 4 in chunks of 2."""
     d = yi34b_tp_spec(model_sharding)
-    layers, T = RECURRENT_TP[arch]
+    layers, T = LM_TP[arch]
     d["name"] = f"{arch}-tp-mesh1x2"
     d["model"]["kw"] = {"arch": arch, "reduced": True, "n_layers": layers,
                         "vocab_size": 512}
@@ -307,7 +367,8 @@ def recurrent_tp_spec(arch, model_sharding="auto"):
 
 def _tp_jobs(world):
     return [dict(tag=tag, tp=tp) for tag, (w, tp) in TP_CASES.items()
-            if w == world]
+            if w == world] + [dict(tag=tag, moe=case) for tag, (w, case)
+                              in MOE_UNIT.items() if w == world]
 
 
 def _job(tag, d, p0, rounds=None, **kw):
@@ -342,16 +403,16 @@ def runs(workdir):
     p0_tp = os.path.join(workdir, "p0_tp.npz")
     np.savez(p0_tp, **jax_params(tp_ref))
     rec_ref, rec_jobs = {}, []
-    for arch in RECURRENT_TP:
-        rec_ref[arch] = recurrent_tp_spec(arch)
+    for arch in LM_TP:
+        rec_ref[arch] = lm_tp_spec(arch)
         rec_ref[arch]["fl"].update(scheduler="chunked", mesh=None,
                                    lbg_variant="topk",
                                    model_sharding="replicate")
         path = os.path.join(workdir, f"p0_{arch}.npz")
         np.savez(path, **jax_params(rec_ref[arch]))
-        rec_jobs += [_job(f"{arch}-tp", recurrent_tp_spec(arch), path),
+        rec_jobs += [_job(f"{arch}-tp", lm_tp_spec(arch), path),
                      _job(f"{arch}-tp-replicate",
-                          recurrent_tp_spec(arch, "replicate"), path)]
+                          lm_tp_spec(arch, "replicate"), path)]
     cli_spec = os.path.join(workdir, "cli_spec.json")
     with open(cli_spec, "w") as f:
         json.dump(sharded(fcn_spec(rounds=1), [2, 1]), f)
@@ -381,7 +442,9 @@ def runs(workdir):
                 "--rounds", "1", "--device", "cpu", "--out",
                 os.path.join(workdir, "tp-cli.r{rank}.json")])],
     }
-    procs = {w: start(w, jobs, workdir) for w, jobs in worlds.items()}
+    # the 4-rank world's gathers and reshards in pieces of 64 KiB
+    procs = {w: start(w, jobs, workdir, 1 << 16 if w == 4 else None)
+             for w, jobs in worlds.items()}
     try:
         jax = {c: (d,) + jax_run(d)[:2] for c, d in ref.items()}
         jax["yi"] = (yi,) + jax_run(yi_ref)[:2]
@@ -513,10 +576,7 @@ def test_tp_loss_and_grads_match_plain(case, runs):
     on every rank of a model group, bit for bit."""
     world_n, tp = TP_CASES[case]
     recs = world(runs, world_n)[case]
-    kw = dict(tp.get("kw", {}))
-    if "block_pattern" in kw:
-        kw["block_pattern"] = tuple(kw["block_pattern"])
-    cfg = get_config(tp["arch"]).reduced(**kw)
+    cfg = tp_cfg(tp)
     params, _ = init_lm(torch.Generator().manual_seed(tp["seed"]), cfg,
                         device="cpu")
     c, m = tp["mesh"]
@@ -617,17 +677,15 @@ def test_yi34b_tp2x4_spec_matches_jax(runs):
         assert rec["msharded"] == reps[0]["msharded"]
 
 
-@pytest.mark.parametrize("arch", sorted(RECURRENT_TP))
-def test_recurrent_tp_engine_matches_jax(arch, runs):
-    """:func:`recurrent_tp_spec` (reduced, the ``"lm"`` component,
-    top-k-sharded at k_frac 0.01, K = 4, 2 rounds, ``model_sharding=
-    "auto"`` on a (1, 2) mesh) on 2 ranks: against JAX's chunked
-    ``"topk"`` run of the spec without the mesh, under
-    ``test_yi34b_mesh2x4_spec_matches_jax``'s rules; against the port's
-    own ``"replicate"`` run, EXACT fields equal and loss within rtol
-    1e-5; each rank resting its shards by JAX's spec rule: half of each
-    model-sharded leaf's bytes and the whole of each replicated one (at
-    these widths rwkv6's replicated decay LoRA is 6.8% of the bytes)."""
+def check_lm_tp_engine(arch, runs):
+    """:func:`lm_tp_spec` (reduced, the ``"lm"`` component, top-k-sharded
+    at k_frac 0.01, K = 4, 2 rounds, ``model_sharding="auto"`` on a (1,
+    2) mesh) on 2 ranks: against JAX's chunked ``"topk"`` run of the spec
+    without the mesh, under ``test_yi34b_mesh2x4_spec_matches_jax``'s
+    rules; against the port's own ``"replicate"`` run, EXACT fields equal
+    and loss within rtol 1e-5; each rank resting its shards by JAX's spec
+    rule: half of each model-sharded leaf's bytes and the whole of each
+    replicated one. Returns the leaves' specs."""
     got = world(runs, 2)
     d, jh, jp = runs["jax"][arch]
     recs, reps = got[f"{arch}-tp"], got[f"{arch}-tp-replicate"]
@@ -641,11 +699,96 @@ def test_recurrent_tp_engine_matches_jax(arch, runs):
     specs = recs[0]["specs"]
     assert specs["embed"] == (None, "model")
     assert specs["lm_head"] == ("model", None)
-    mixer = ("blocks/tmix/w_o" if arch == "rwkv6-3b"
-             else "layer_00/rec/w_out")
-    assert "model" in specs[mixer], specs[mixer]
     rest = sum(v.nbytes // (2 if "model" in specs[k] else 1)
                for k, v in recs[0]["params"].items())
     for rec in recs:
         assert rec["specs"] == specs
         assert rec["rest_bytes"] == rest, (rec["rest_bytes"], rest)
+    return specs
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT_TP))
+def test_recurrent_tp_engine_matches_jax(arch, runs):
+    """:func:`check_lm_tp_engine` for the recurrent archs, their mixers
+    model-sharded (at these widths rwkv6's replicated decay LoRA is 6.8%
+    of the bytes)."""
+    specs = check_lm_tp_engine(arch, runs)
+    mixer = ("blocks/tmix/w_o" if arch == "rwkv6-3b"
+             else "layer_00/rec/w_out")
+    assert "model" in specs[mixer], specs[mixer]
+
+
+@pytest.mark.parametrize("arch", sorted(MOE_TP))
+def test_moe_tp_engine_matches_jax(arch, runs):
+    """:func:`check_lm_tp_engine` for the MoE archs, the stacked experts
+    sharded on E (dim 1, after ``layers``) with the router's E columns."""
+    specs = check_lm_tp_engine(arch, runs)
+    for k in ("w_gate", "w_up", "w_down"):
+        assert specs[f"blocks/moe/{k}"] == (None, "model", None, None), k
+    assert specs["blocks/moe/router"] == (None, None, "model")
+
+
+@pytest.mark.parametrize("case", sorted(MOE_UNIT))
+def test_moe_tp_matches_plain(case, runs):
+    """``models.moe.apply_moe_tp`` on every rank of a (1, m) mesh against
+    ``apply_moe`` on the same fp32 x, params and upstream gradient
+    (:func:`torch_ranks_worker.moe_inputs`): every routing (probs, top-k,
+    positions, keep, dispatch buffer, slots) equal to the plain one on
+    every rank; each pair of neighbours among a token's k + 1 largest
+    probs (the k-th and (k+1)-th among them) more than 1e-5 apart, so no
+    float-level difference could flip a route or its order; the MOE_DROPS
+    cases drop routes; output and aux within rtol 1e-5 (atol 1e-6 of the
+    largest output), the gradients of x and of every leaf (each rank's its
+    shard of the assembled one) within rtol 1e-4 / atol 1e-5 of the
+    largest, so a gradient summed on m ranks where it should be summed
+    once shows; output, aux and assembled gradients bit for bit the same
+    on every rank."""
+    world_n, mc = MOE_UNIT[case]
+    recs = world(runs, world_n)[case]
+    cfg, params, _, x, dy = moe_inputs(mc)
+    k = cfg.moe.top_k
+    leaves = {n: v.clone().requires_grad_() for n, v in params.items()}
+    xg = x.clone().requires_grad_()
+    out, aux = tmoe.apply_moe(leaves, xg, cfg)
+    ((out * dy).sum() + AUX_WEIGHT * aux).backward()
+    r = tmoe.moe_routing(params, x, cfg)
+    srt = torch.sort(r.probs, dim=-1, descending=True).values[..., :k + 1]
+    gap = float((srt[..., :-1] - srt[..., 1:]).min())
+    assert gap > 1e-5, (case, gap)
+    if case in MOE_DROPS:
+        assert int((~r.keep).sum()) > 0, case
+    want = {f: v.numpy() for f, v in r._asdict().items()}
+    out, aux = out.detach().numpy(), float(aux.detach())
+    specs = recs[0]["specs"]
+    on_e = cfg.moe.num_experts % mc["m"] == 0
+    on_ff = not on_e and cfg.d_ff % mc["m"] == 0
+    assert specs["w_gate"] == (("model", None, None) if on_e
+                               else (None, None, "model") if on_ff
+                               else (None, None, None)), specs
+    assert specs["router"] == ((None, "model") if on_e else (None, None))
+    for rec in recs:
+        assert len(rec["routings"]) == 1, len(rec["routings"])
+        for f, v in rec["routings"][0].items():
+            assert np.array_equal(v, want[f]), (case, f, rec["model_rank"])
+        np.testing.assert_allclose(rec["out"], out, rtol=1e-5,
+                                   atol=1e-6 * np.abs(out).max())
+        np.testing.assert_allclose(rec["aux"], aux, rtol=1e-5)
+        got = dict(rec["assembled"], x=rec["x_grad"])
+        plain = {n: v.grad.numpy() for n, v in leaves.items()}
+        plain["x"] = xg.grad.numpy()
+        for n, g in plain.items():
+            np.testing.assert_allclose(got[n], g, rtol=1e-4,
+                                       atol=1e-5 * np.abs(g).max(),
+                                       err_msg=f"{case} {n}")
+        q = rec["model_rank"]
+        for n, mine in rec["grads"].items():
+            full = rec["assembled"][n]
+            if "model" in specs[n]:
+                dim = specs[n].index("model")
+                w = full.shape[dim] // mc["m"]
+                full = np.take(full, range(q * w, (q + 1) * w), axis=dim)
+            assert np.array_equal(mine, full), (case, n, q)
+        assert np.array_equal(rec["out"], recs[0]["out"])
+        assert rec["aux"] == recs[0]["aux"]
+        for n, v in rec["assembled"].items():
+            assert np.array_equal(v, recs[0]["assembled"][n]), (case, n)

@@ -4,17 +4,18 @@ JAX package's, the tensor-parallel forms at m = 1, and the refusals.
 * ``train.sharding.param_pspec`` (both modes, the ``embed_shard``
   variant) and the engine's bound leaf specs (``fed.engine.auto_specs``)
   equal the JAX package's rule for every leaf of reduced yi-34b,
-  qwen3-1.7b, rwkv6-3b (stacked ``blocks/`` leaves) and
-  recurrentgemma-2b (per-layer rglru and swa leaves) at m in {1, 2, 4,
-  8}: ``repro.train.sharding.param_pspec`` on
+  qwen3-1.7b, rwkv6-3b (stacked ``blocks/`` leaves), recurrentgemma-2b
+  (per-layer rglru and swa leaves), mixtral-8x22b and llama4 (stacked
+  experts: E = 4 shards on E up to m = 4, on d_ff at m = 8) at m in {1,
+  2, 4, 8}: ``repro.train.sharding.param_pspec`` on
   ``abstract_mesh``, plus the vocab rule of ``ShardedScheduler.
   bind_model_axes`` (``repro/fed/engine.py:1041-1049``);
 * at m = 1 the tensor-parallel loss and gradients are the plain ones bit
-  for bit, and a ``(1, 1)`` auto run is the ``(1, 1)`` replicate run bit
-  for bit;
+  for bit (the MoE load-balance term included), and a ``(1, 1)`` auto
+  run is the ``(1, 1)`` replicate run bit for bit;
 * the engine's refusals mirror ``tests/test_mesh2d.py:150-195``, and every
-  model family without a tensor-parallel form (MoE, the
-  encoder-decoder, the M-RoPE VLM) is refused by name.
+  model family without a tensor-parallel form (the encoder-decoder, the
+  M-RoPE VLM) is refused by name.
 
 The tensor-parallel gradients on 2- and 4-rank gloo worlds, and
 ``examples/specs/yi34b_tp2x4.json`` on 8 ranks, are in
@@ -45,7 +46,8 @@ from repro_torch.train import sharding as tsh  # noqa: E402
 from repro_torch.train.trainer import grad_and_loss  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["yi-34b", "qwen3-1.7b", "rwkv6-3b", "recurrentgemma-2b"]
+ARCHS = ["yi-34b", "qwen3-1.7b", "rwkv6-3b", "recurrentgemma-2b",
+         "mixtral-8x22b", "llama4-maverick-400b-a17b"]
 MS = [1, 2, 4, 8]
 
 
@@ -104,6 +106,18 @@ def test_spec_rule_matches_jax(arch, m):
         assert bound[k] == jax_auto_spec(axes[k], v.shape, jm, m), k
     assert bound["embed"] == (None, "model")
     assert bound["lm_head"] == ("model", None)
+    if "blocks/moe/router" in params:
+        # the stacked experts: on E where m divides it (the router's E
+        # columns with them), else on d_ff with the router replicated
+        on_e = 4 % m == 0
+        assert bound["blocks/moe/router"] == (
+            (None, None, "model") if on_e else (None, None, None))
+        assert bound["blocks/moe/w_gate"] == (
+            (None, "model", None, None) if on_e
+            else (None, None, None, "model"))
+        assert bound["blocks/moe/w_down"] == (
+            (None, "model", None, None) if on_e
+            else (None, None, "model", None))
 
 
 def _batch(cfg, seed=0, B=2, T=16):
@@ -121,10 +135,13 @@ def _batch(cfg, seed=0, B=2, T=16):
                     "sliding_window": 8}),
     ("rwkv6-3b", {}),
     ("recurrentgemma-2b", {"n_layers": 3, "remat": True}),
+    ("mixtral-8x22b", {}),
+    ("llama4-maverick-400b-a17b", {"remat": True}),
 ])
 def test_tp_loss_at_one_rank_is_the_plain_loss(arch, kw):
     """With m = 1 the tensor-parallel loss and gradients are
-    ``lm_loss``'s bit for bit (no collective runs)."""
+    ``lm_loss``'s bit for bit (no collective runs), the MoE load-balance
+    term included."""
     cfg = get_config(arch).reduced(**kw)
     params, axes = init_lm(torch.Generator().manual_seed(0), cfg,
                            device="cpu")
@@ -137,6 +154,11 @@ def test_tp_loss_at_one_rank_is_the_plain_loss(arch, kw):
     g0, l0 = grad_and_loss(plain, params, batch)
     g1, l1 = grad_and_loss(tpl, params, batch)
     assert torch.equal(l0, l1)
+    with torch.no_grad():
+        aux0 = plain(params, batch)[1]["aux"]
+        aux1 = tpl(params, batch)[1]["aux"]
+    assert torch.equal(aux0, aux1)
+    assert (float(aux1) > 0) == bool(cfg.moe.num_experts)
     for k in g0:
         assert torch.equal(g0[k], g1[k]), k
 
@@ -253,8 +275,7 @@ def test_model_sharding_auto_refuses_a_scheduler_without_model_axes(
         _fcn_engine()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-base",
-                                  "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-2b"])
 def test_other_families_refused_by_name(arch):
     """Every family without a tensor-parallel form is refused at engine
     build, naming the arch and ROADMAP.md §1: nothing runs as something

@@ -5,7 +5,8 @@ the CPU (gloo), for ``tests/test_torch_sharded_ranks.py``.
         python tests/torch_ranks_worker.py JOBS.json OUT_DIR
 
 ``JOBS.json`` is a list of jobs run in order, in one process, so the
-imports are paid once. No process group is started here: the first
+imports are paid once. ``PIECE_BYTES`` in the environment sets
+``launch.mesh.PIECE_BYTES``, the largest piece of a gather or reshard. No process group is started here: the first
 engine's mesh joins the launcher's world (``launch.mesh.ensure_world``,
 ``env://``), as under ``torchrun``.
 
@@ -19,12 +20,19 @@ engine's mesh joins the launcher's world (``launch.mesh.ensure_world``,
   Under ``model_sharding="auto"`` it also writes each leaf's spec and this
   rank's resting param bytes.
 * A tensor-parallel job, ``{"tag", "tp": {"arch", "kw" (``reduced()``
-  overrides), "mesh", "seed", "T" (optional, 16)}}``, draws the arch's
-  params from a CPU generator of ``seed``, cuts this rank's shards by the
-  engine's spec rule (``fed.engine.auto_specs``) and writes the
-  tensor-parallel loss (``train.trainer.make_tp_loss_fn``) and gradients
-  of its shards on :func:`tp_batch`, and the gradients assembled over the
-  model group.
+  overrides), "moe" (optional ``MoEConfig`` overrides), "mesh", "seed",
+  "T" (optional, 16)}}``, draws the arch's params from a CPU generator of
+  ``seed``, cuts this rank's shards by the engine's spec rule
+  (``fed.engine.auto_specs``) and writes the tensor-parallel loss
+  (``train.trainer.make_tp_loss_fn``) and gradients of its shards on
+  :func:`tp_batch`, and the gradients assembled over the model group.
+* An MoE job, ``{"tag", "moe": {"arch", "m", "seed", "remat", "moe"
+  (optional ``MoEConfig`` overrides), "B", "T"}}``, runs
+  ``models.moe.apply_moe_tp`` on a (1, m) mesh over :func:`moe_inputs`
+  (the rank's shards of one MoE layer by JAX's spec rule, the same x on
+  every rank) and writes its output, aux loss, the gradients of x, of its
+  shards and assembled (of ``(out * dy).sum() + AUX_WEIGHT * aux``), and
+  every routing it computed.
 * A CLI job, ``{"tag", "cli": [argv]}``, runs ``repro_torch.fed.run.main``
   with ``{rank}`` in the arguments replaced by this rank, and writes its
   return code and what it printed. The CLI ends the launcher's world, so
@@ -91,15 +99,92 @@ def tp_batch(cfg, seed, client_rank, B=2, T=16):
             "labels": torch.as_tensor(toks[:, 1:])}
 
 
-def tp_job(job, rank):
+def tp_cfg(tp):
+    """The reduced arch config of a tensor-parallel or MoE job: ``kw``'s
+    ``reduced()`` overrides, then ``moe``'s ``MoEConfig`` overrides."""
+    import dataclasses
     from repro_torch.configs import get_config
+    kw = dict(tp.get("kw", {}))
+    if "block_pattern" in kw:
+        kw["block_pattern"] = tuple(kw["block_pattern"])
+    cfg = get_config(tp["arch"]).reduced(**kw)
+    if tp.get("moe"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **tp["moe"]))
+    return cfg
+
+
+#: the aux loss's weight in an MoE job's scalar, so its gradient shows
+AUX_WEIGHT = 3.0
+
+
+def moe_inputs(case):
+    """An MoE job's inputs: (cfg, the ``moe/*`` params drawn from a CPU
+    generator of ``seed`` without their prefix, their logical axes, x and
+    the output's upstream gradient dy, both (B, T, d) fp32 from a numpy
+    stream of ``seed``)."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import ParamStore, subtree
+    cfg = tp_cfg(case)
+    store = ParamStore(torch.Generator().manual_seed(case["seed"]))
+    moe.init_moe(store, "moe", cfg)
+    rng = np.random.RandomState(case["seed"])
+    B, T, d = case.get("B", 2), case.get("T", 16), cfg.d_model
+    x = torch.as_tensor(rng.randn(B, T, d).astype(np.float32))
+    dy = torch.as_tensor(rng.randn(B, T, d).astype(np.float32))
+    return (cfg, subtree(store.params, "moe"), subtree(store.axes, "moe"),
+            x, dy)
+
+
+def moe_job(job, rank):
+    from repro_torch.fed.engine import auto_specs
+    from repro_torch.models import moe
+    from repro_torch.models.tensor_parallel import TPContext
+    from repro_torch.train.sharding import mesh_axes
+    case = job["moe"]
+    cfg, params, axes, x, dy = moe_inputs(case)
+    mesh = tmesh.make_fl_mesh([1, case["m"]], device="cpu")
+    specs = auto_specs(axes, params, mesh_axes(mesh))
+    ctx = TPContext(specs, {k: v.shape for k, v in params.items()},
+                    mesh.get_group("model"), mesh.get_local_rank("model"),
+                    case["m"])
+    shards = {k: ctx.shard(k, v).requires_grad_()
+              for k, v in params.items()}
+    x = x.requires_grad_()
+    routings, real = [], moe.moe_routing
+
+    def keep_routing(p, h, c):
+        r = real(p, h, c)
+        routings.append({f: v.detach().numpy()
+                         for f, v in r._asdict().items()})
+        return r
+
+    moe.moe_routing = keep_routing
+    try:
+        out, aux = moe.apply_moe_tp(
+            shards, x, cfg, ctx,
+            {k: (specs[k], tuple(v.shape)) for k, v in params.items()},
+            case.get("remat", False))
+        ((out * dy).sum() + AUX_WEIGHT * aux).backward()
+    finally:
+        moe.moe_routing = real
+    grads = {k: v.grad for k, v in shards.items()}
+    return {"specs": specs, "model_rank": ctx.rank,
+            "out": out.detach().numpy(), "aux": float(aux),
+            "x_grad": x.grad.numpy(), "routings": routings,
+            "grads": {k: v.numpy() for k, v in grads.items()},
+            "assembled": {k: v.numpy()
+                          for k, v in ctx.assemble(grads).items()}}
+
+
+def tp_job(job, rank):
     from repro_torch.fed.engine import auto_specs
     from repro_torch.models.tensor_parallel import TPContext
     from repro_torch.models.transformer import init_lm
     from repro_torch.train.sharding import mesh_axes
     from repro_torch.train.trainer import grad_and_loss, make_tp_loss_fn
     tp = job["tp"]
-    cfg = get_config(tp["arch"]).reduced(**tp.get("kw", {}))
+    cfg = tp_cfg(tp)
     mesh = tmesh.make_fl_mesh(tp["mesh"], device="cpu")
     params, axes = init_lm(torch.Generator().manual_seed(tp["seed"]), cfg,
                            device="cpu")
@@ -129,12 +214,14 @@ def cli_job(job, rank):
 
 def main(jobs_path, out_dir):
     rank = int(os.environ["RANK"])
+    if os.environ.get("PIECE_BYTES"):
+        tmesh.PIECE_BYTES = int(os.environ["PIECE_BYTES"])
     with open(jobs_path) as f:
         jobs = json.load(f)
     try:
         for job in jobs:
             run = (cli_job if "cli" in job else tp_job if "tp" in job
-                   else engine_job)
+                   else moe_job if "moe" in job else engine_job)
             rec = run(job, rank)
             torch.save(rec, f"{out_dir}/{job['tag']}.r{rank}.pt")
     finally:
