@@ -182,7 +182,12 @@ From the root of a checkout. Phases, each printed as one JSON line:
    heads over 4 kv heads, window 4096, the decision at each rank's rows
    of the stacked experts; the ranks' MoE drops a routing equal; each
    client's first local step within 2e-3 of the (1, 1) run's loss, the
-   round losses within twice the floor run's), ``fl_lm_rwkv6_topk`` (K=2,
+   round losses within twice the floor run's), ``fl_sharded_auto_vlm_card``
+   (the same for qwen2-vl-2b at 2 of 28 layers, K=4, chunk 2, T 512: 256
+   vision-grid and 256 text positions of M-RoPE, the fourth arm of those
+   ranks: flash at a rank's 6 of 12 query heads over its one kv head, the
+   decision at each rank's rows of the 151,936-token embedding and head),
+   ``fl_lm_rwkv6_topk`` (K=2,
    chunk 1, 2 rounds, top-k: the scan 256 a round, the decision),
    ``fl_lm_qwen3_buffered_scalar_median`` (K=4, chunk 2, top-k 0.01,
    int8, buffered with one straggler a round late, the scalar median
@@ -3943,7 +3948,8 @@ def lm_train_card_vs_cpu(worker, inputs, K=2, b=1, steps=2):
 #: no round recycled: NVIDIA H100 80GB HBM3, 700 W)
 FL_LM_SPEC = ROOT / "examples" / "specs" / "qwen3_fl_lm.json"
 FL_LM_VOCAB = {"qwen3-1.7b": 151936, "rwkv6-3b": 65536,
-               "mixtral-8x22b": 32768, "recurrentgemma-2b": 256000}
+               "mixtral-8x22b": 32768, "recurrentgemma-2b": 256000,
+               "qwen2-vl-2b": 151936}
 #: card against CPU in fp32 at depth 2: round 1's loss (rtol) and
 #: aggregated update (relative L2: FL_CPU_UPDATE_RTOL or, where larger,
 #: twice the model's own floor, the card's round against itself with the
@@ -4552,8 +4558,18 @@ AUTO_RECURRENT = (("rwkv6-3b", 2, 512), ("recurrentgemma-2b", 3, 512))
 #: experts, 4 a rank; swa at a rank's 24 of 48 query heads), T 512, K 2
 #: in chunks of 1
 AUTO_MOE = (("mixtral-8x22b", 1, 512),)
+#: fl_sharded_auto_vlm_card: the M-RoPE VLM on AUTO_MESH at full width in
+#: bf16, the fourth arm of fl_sharded_auto_recurrent_card's rank world:
+#: qwen2-vl-2b at 2 of 28 layers (0.56 B params, 0.47 B of them the
+#: untied 151,936-token embedding and head), T 512 (a 16 x 16 vision grid
+#: of 256 positions, then 256 text positions: both M-RoPE streams), K 4 in
+#: chunks of 2; flash at a rank's 6 of 12 query heads over its 1 of 2 kv
+#: heads. The "lm" component's batches carry no stub patches (the CPU
+#: tests hold them under model_sharding="auto")
+AUTO_VLM = (("qwen2-vl-2b", 2, 512),)
 #: the phase an arch's record is printed under, where not its run's
-AUTO_LABELS = {"mixtral-8x22b": "fl_sharded_auto_moe_card"}
+AUTO_LABELS = {"mixtral-8x22b": "fl_sharded_auto_moe_card",
+               "qwen2-vl-2b": "fl_sharded_auto_vlm_card"}
 #: an arch's clients and chunk, where not the spec's 4 and 2: K 2 halves
 #: the reshard of mixtral's 5.8 GB of params (~K x the param bytes a
 #: round); chunk 1 halves a rank's whole-leaf chunk gradients (11.6 GB at
@@ -4686,8 +4702,10 @@ def fl_sharded_auto_finish(totals, run, beside=None):
     ``fl_sharded_auto_moe_card``: the same for each arch of AUTO_MOE, at
     AUTO_CLIENTS' K and chunk, the third arm of the recurrent phase's
     ranks, with each rank's MoE drops a routing recorded (equal on every
-    rank). Each arch is held against the same spec's run on the (1, 1)
-    mesh in this process: the decisions (uplink_floats, frac_scalar,
+    rank); ``fl_sharded_auto_vlm_card``: the same for each arch of
+    AUTO_VLM (M-RoPE at a rank's local heads), the fourth arm. Each arch
+    is held against the same spec's run on the (1, 1) mesh in this
+    process: the decisions (uplink_floats, frac_scalar,
     savings) equal, loss within TRAIN_LOSS_RTOL (an MoE: every client's
     first local step within it, the round losses within twice the floor
     run's: a route flipped by float-level noise moves the later steps),
@@ -6409,11 +6427,12 @@ def main():
     # little of the card: checks whose times are not cells); placed after
     # the card-vs-CPU phases they added 117 s to a 1,360 s run (NVIDIA H100
     # 80GB HBM3, 700 W). fl_sharded_auto_moe_card (mixtral, 1 layer) is
-    # their third arm
+    # their third arm, fl_sharded_auto_vlm_card (qwen2-vl, 2 layers) their
+    # fourth
     rec_tmp = tempfile.mkdtemp(prefix="chip_smoke_auto_recurrent_")
-    rec_run = auto_launch(rec_tmp,
-                          auto_refs(AUTO_RECURRENT + AUTO_MOE, rec_tmp),
-                          "fl_sharded_auto_recurrent_card")
+    rec_run = auto_launch(
+        rec_tmp, auto_refs(AUTO_RECURRENT + AUTO_MOE + AUTO_VLM, rec_tmp),
+        "fl_sharded_auto_recurrent_card")
     robust_phases(totals)
 
     # one-host scale-out: the shipped 100,000-client spec on the topk-host

@@ -10,11 +10,12 @@ of ``fl_sharded_qwen3_topk``, cut to ``AUTO_DEPTH`` layers, on the
 ``model_sharding="auto"`` (2 gloo ranks on the card, each resting half
 the params and running the client forward and backward tensor-parallel),
 held against the first. ``--arch rwkv6-3b recurrentgemma-2b
-mixtral-8x22b`` (any of them) runs ``fl_sharded_auto_recurrent_card``
-and ``fl_sharded_auto_moe_card`` instead: the same spec for each named
-arch at its ``AUTO_RECURRENT`` or ``AUTO_MOE`` depth and seq_len (and
-mixtral's ``AUTO_CLIENTS``), the ranks running one arch after the other
-in that order, as in ``chip_smoke.py``. Prints ``chip_smoke.py``'s JSON
+mixtral-8x22b qwen2-vl-2b`` (any of them) runs
+``fl_sharded_auto_recurrent_card``, ``fl_sharded_auto_moe_card`` and
+``fl_sharded_auto_vlm_card`` instead: the same spec for each named arch
+at its ``AUTO_RECURRENT``, ``AUTO_MOE`` or ``AUTO_VLM`` depth and seq_len
+(and mixtral's ``AUTO_CLIENTS``), the ranks running one arch after the
+other in that order, as in ``chip_smoke.py``. Prints ``chip_smoke.py``'s JSON
 records, after the card's name and power limit, and then the kernels
 line's new records. Needs a CUDA card; exits non-zero without one.
 """
@@ -31,7 +32,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 ARMS = {arch: (arch, depth, T)
-        for arch, depth, T in cs.AUTO_RECURRENT + cs.AUTO_MOE}
+        for arch, depth, T in cs.AUTO_RECURRENT + cs.AUTO_MOE + cs.AUTO_VLM}
 
 
 def parse_args(argv=None):
@@ -39,13 +40,14 @@ def parse_args(argv=None):
     ap.add_argument("--arch", nargs="+", default=["qwen3-1.7b"],
                     choices=["qwen3-1.7b", *ARMS],
                     help="qwen3-1.7b alone (fl_sharded_auto_card), or "
-                         "recurrent and MoE archs "
+                         "recurrent, MoE and VLM archs "
                          "(fl_sharded_auto_recurrent_card, "
-                         "fl_sharded_auto_moe_card)")
+                         "fl_sharded_auto_moe_card, "
+                         "fl_sharded_auto_vlm_card)")
     args = ap.parse_args(argv)
     if "qwen3-1.7b" in args.arch and len(args.arch) > 1:
         ap.error("qwen3-1.7b runs alone: its phase is another than the "
-                 "recurrent and MoE archs'")
+                 "recurrent, MoE and VLM archs'")
     return args
 
 

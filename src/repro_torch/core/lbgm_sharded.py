@@ -6,20 +6,27 @@ its rows of each leaf's *global* block layout and its bank rows, and the
 only traffic of the decision is one ``all_reduce`` over the model group
 of each client's three partial scalars (<g,l>, ||l||², ||g||²).
 
+The planning side of the JAX module is here too: a bank laid out per
+device shard of each leaf (:func:`sharded_lbg_layout`,
+:func:`init_sharded_lbg`), its specs plain tuples as
+``train.sharding``'s.
+
 ``make_sharded_topk_step`` (model-sharded gradients with ``pre_blocked``
 block rows, ``model_sharding="auto"``) is not ported.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.lbgm import (_block_layout, decision_from_scalars,
                                    topk_step_core, topk_uplink_stats)
 from repro_torch.kernels.ops import lbgm_sparse_decision
 from repro_torch.kernels.ref import flat_to_blocks, topk_abs_rows
+from repro_torch.train.sharding import axes_size, axis_entry
 
 
 def local_leaf_size(leaf_shape, spec, mesh_shape: Dict[str, int]) -> int:
@@ -35,6 +42,55 @@ def local_leaf_size(leaf_shape, spec, mesh_shape: Dict[str, int]) -> int:
                 div *= mesh_shape[a]
         n *= d // div
     return n
+
+
+def _spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec names, in order (a dim's tuple of axes
+    flattened)."""
+    out = []
+    for e in spec:
+        if e is None:
+            continue
+        out.extend((e,) if isinstance(e, str) else e)
+    return tuple(out)
+
+
+def sharded_lbg_layout(params_like, gspecs, mesh, k_frac: float):
+    """The top-k bank laid out per device shard of each leaf: name ->
+    ``{"idx", "val"}`` of shape ``(nb * n_shards, kb)`` (int32, float32)
+    as tensors on the ``meta`` device, where ``(nb, _, kb)`` is the block
+    layout of one shard of the leaf under its spec ``gspecs[name]`` and
+    n_shards the product of the extents of the axes the spec names; and
+    name -> ``{"idx", "val"}`` specs, the block rows over those axes,
+    ``(axes, None)`` in ``PartitionSpec``'s normal form. ``mesh``: axis
+    names and extents (``train.sharding.abstract_mesh``)."""
+    meta = torch.device("meta")
+    layout, specs = {}, {}
+    for name, leaf in params_like.items():
+        axes = _spec_axes(gspecs[name])
+        nb, _, kb = _block_layout(local_leaf_size(
+            tuple(leaf.shape), gspecs[name], mesh.shape), k_frac)
+        shape = (nb * axes_size(mesh, axes), kb)
+        layout[name] = {
+            "idx": torch.empty(shape, dtype=torch.int32, device=meta),
+            "val": torch.empty(shape, dtype=torch.float32, device=meta)}
+        spec = (axis_entry(axes), None)
+        specs[name] = {"idx": spec, "val": spec}
+    return layout, specs
+
+
+def init_sharded_lbg(params_like, gspecs, mesh, k_frac: float,
+                     device="cuda"):
+    """:func:`sharded_lbg_layout`'s bank, zero-filled on ``device``: the
+    card by default, ``"meta"`` to plan with shapes and dtypes only, the
+    CPU when asked for by name."""
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
+    layout, _ = sharded_lbg_layout(params_like, gspecs, mesh, k_frac)
+    return {name: {f: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                   for f, t in leaf.items()}
+            for name, leaf in layout.items()}
 
 
 def make_local_topk_step(delta: float, k_frac: float, *,

@@ -429,9 +429,12 @@ def _lm_model(seed: int = 0, arch: str = "qwen3-1.7b", reduced: bool = True,
     ``torch.func`` cannot take the gradient of its checkpointed blocks and
     CE chunks, so the engine runs a chunk's clients one after another.
     Under ``model_sharding="auto"`` the engine takes the loss's
-    ``TENSOR_PARALLEL`` form (``train.trainer.make_tp_loss_fn``), which
-    refuses every arch outside the dense decoder, recurrent (rwkv6,
-    RG-LRU) and MoE families."""
+    ``TENSOR_PARALLEL`` form (``train.trainer.make_tp_loss_fn``): the
+    dense decoder, M-RoPE VLM (its M-RoPE positions; the batches carry no
+    stub patches, as the JAX component's), recurrent (rwkv6, RG-LRU) and
+    MoE families. It refuses the encoder-decoder at engine build: the
+    batches carry no encoder frames, so whisper runs under no
+    ``model_sharding``, in this package as in the JAX one."""
     from repro_torch.configs import get_config
     from repro_torch.core.device import resolve_device
     from repro_torch.fed.engine import CLIENT_LOOP, TENSOR_PARALLEL

@@ -21,9 +21,9 @@ ranks (``fl.mesh``); launch one process per rank with ``torchrun``:
 share a card). Every rank runs the experiment and holds the same history;
 rank 0 alone prints, writes ``--out`` and the checkpoints. A sharded spec
 whose mesh is ``(1, 1)`` needs no launcher. A spec with
-``model_sharding="auto"`` trains the dense, recurrent and MoE ``"lm"``
-families tensor-parallel over the mesh's model ranks, each resting its
-shards:
+``model_sharding="auto"`` trains the dense, M-RoPE VLM, recurrent and
+MoE ``"lm"`` families tensor-parallel over the mesh's model ranks, each
+resting its shards:
 
     torchrun --nproc-per-node 8 -m repro_torch.fed.run \
         --spec examples/specs/yi34b_tp2x4.json --device cpu

@@ -169,6 +169,29 @@ def make_client_mesh(num_devices: Optional[int] = None,
     return _mesh((n,), (axis,), device, "client mesh")
 
 
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production mesh: ``(16, 16)`` on ``("data", "model")``, or with
+    ``multi_pod`` ``(2, 16, 16)`` on ``("pod", "data", "model")``; 256 or
+    512 ranks, a card each. A ``DeviceMesh`` only on a world of exactly
+    that many ranks (a group already up, or a launcher's ``WORLD_SIZE``):
+    any other world raises, as the JAX function raises on too few
+    devices, and no smaller mesh is taken. No process group is started
+    to find that out. To plan without the ranks, lay the state out on
+    ``train.sharding.abstract_mesh`` of the same extents and names."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != n:
+        raise RuntimeError(
+            f"need {n} devices for the production mesh {shape} on "
+            f"{names}, have {world} ranks; launch {n} ranks, a card each, "
+            f"or plan on train.sharding.abstract_mesh({shape}, {names}), "
+            "which needs no device")
+    return _mesh(shape, names, device, "production mesh")
+
+
 def make_debug_mesh(data: int = 1, model: int = 1, *, device):
     """Small ``("data", "model")`` mesh over the world (tests, examples)."""
     return _mesh((data, model), ("data", "model"), device,

@@ -365,9 +365,10 @@ def lm_loss(params, cfg: ArchConfig, tokens, labels, extra_embeds=None,
 #
 # model_sharding="auto": the client forward and backward of the dense
 # decoder family (attn/swa blocks, a dense SwiGLU FFN, GQA, optional
-# qk-norm, tied or untied head, stacked or per-layer leaves), of the
-# recurrent families (rwkv6 blocks: ``rwkv6.apply_rwkv6_tp``; the RG-LRU +
-# local attention pattern: ``rglru.apply_rglru_tp``) and of the MoE FFN
+# qk-norm, tied or untied head, stacked or per-layer leaves; M-RoPE and
+# the stub patches of the VLM), of the recurrent families (rwkv6 blocks:
+# ``rwkv6.apply_rwkv6_tp``; the RG-LRU + local attention pattern:
+# ``rglru.apply_rglru_tp``) and of the MoE FFN
 # (``moe.apply_moe_tp``: a rank's experts or their d_ff columns, the
 # router gathered and the routes replicated) over the model ranks of
 # ``models.tensor_parallel.TPContext``. Each rank runs on its resting
@@ -378,16 +379,16 @@ def lm_loss(params, cfg: ArchConfig, tokens, labels, extra_embeds=None,
 # its columns of a recurrent mixer's d x d weights, its d_ff columns (or
 # its experts), its d_model columns of the embedding (gathered to full d)
 # and of the head (partial logits summed in fp32). A leaf the rule leaves
-# replicated runs the plain form.
+# replicated runs the plain form. M-RoPE rotates each head on its head_dim
+# axis alone, so a rank rotates its local heads as the plain form rotates
+# them all; the VLM's patches overwrite the first positions of the
+# embedding after its columns are gathered to full d.
 
 def tensor_parallel_refusal(cfg: ArchConfig):
-    """None for the families with a tensor-parallel form (attn, swa, rwkv6
-    and rglru blocks with a dense or MoE FFN), else why ``cfg`` has none
-    yet."""
-    if cfg.encdec:
-        return "an encoder-decoder"
-    if cfg.mrope:
-        return "the M-RoPE VLM"
+    """None for the block kinds with a tensor-parallel form (attn, swa,
+    rwkv6 and rglru blocks with a dense or MoE FFN, M-RoPE or not), else
+    the kinds without one. An encoder-decoder has none either:
+    :func:`forward_hidden_tp` raises on it."""
     odd = sorted(set(cfg.block_pattern) - {"attn", "swa", "rwkv6", "rglru"})
     if odd:
         return f"{'/'.join(odd)} blocks"
@@ -450,7 +451,8 @@ def _attn_weights_tp(p, cfg: ArchConfig, tp, spec):
     return w, plans[tp.rank]
 
 
-def _attn_local_tp(w, x, cfg: ArchConfig, kind: str, positions, plan):
+def _attn_local_tp(w, x, cfg: ArchConfig, kind: str, positions, pos3,
+                   plan):
     """This rank's partial of the attention sublayer: its query heads'
     output through its rows of wa_o (the model ranks' partials sum to
     the sublayer's output); ``w`` and ``plan`` from
@@ -465,8 +467,12 @@ def _attn_local_tp(w, x, cfg: ArchConfig, kind: str, positions, plan):
     if cfg.qk_norm:
         q = rms_norm(q, w["q_norm"], cfg.norm_eps)
         k = rms_norm(k, w["k_norm"], cfg.norm_eps)
-    q = rope_rotate(q, positions, cfg.rope_theta)
-    k = rope_rotate(k, positions, cfg.rope_theta)
+    if cfg.mrope and pos3 is not None:
+        q = mrope_rotate(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+        k = mrope_rotate(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = rope_rotate(q, positions, cfg.rope_theta)
+        k = rope_rotate(k, positions, cfg.rope_theta)
     if nkh > 1 and (h_lo % g or nh % g):
         # the rank's query heads do not take whole kv groups: one kv head
         # per query head, so the kernel's GQA map is the global one (with
@@ -485,16 +491,16 @@ def _attn_local_tp(w, x, cfg: ArchConfig, kind: str, positions, plan):
 _RECURRENT = {"rwkv6": ("tmix", "w_o"), "rglru": ("rec", "w_out")}
 
 
-def _mixer_plain(p, h, cfg: ArchConfig, kind: str, positions):
+def _mixer_plain(p, h, cfg: ArchConfig, kind: str, positions, pos3):
     """The plain form of the block's mixer (its output only)."""
     if kind == "rwkv6":
         return rwkv6_lib.apply_rwkv6(subtree(p, "tmix"), h, cfg)[0]
     if kind == "rglru":
         return rglru_lib.apply_rglru(subtree(p, "rec"), h, cfg)[0]
-    return _apply_attn_train(p, h, cfg, kind, positions, None)
+    return _apply_attn_train(p, h, cfg, kind, positions, pos3)
 
 
-def _mixer_tp(p, h, cfg: ArchConfig, kind: str, positions, tp, spec,
+def _mixer_tp(p, h, cfg: ArchConfig, kind: str, positions, pos3, tp, spec,
               remat: bool):
     """The block's mixer on the normed residual ``h``, the whole output on
     every model rank. A mixer whose output weight the rule leaves
@@ -503,7 +509,8 @@ def _mixer_tp(p, h, cfg: ArchConfig, kind: str, positions, tp, spec,
     sub, w_out = _RECURRENT.get(kind, (None, "wa_o"))
     if tp.m > 1 and tpl.MODEL not in spec[
             f"{sub}/{w_out}" if sub else w_out][0]:
-        return tpl.local(remat, _mixer_plain, p, h, cfg, kind, positions)
+        return tpl.local(remat, _mixer_plain, p, h, cfg, kind, positions,
+                         pos3)
     if kind == "rwkv6":
         return rwkv6_lib.apply_rwkv6_tp(subtree(p, sub), h, cfg, tp,
                                         _sub_specs(spec, sub), remat)
@@ -513,11 +520,11 @@ def _mixer_tp(p, h, cfg: ArchConfig, kind: str, positions, tp, spec,
     w, plan = _attn_weights_tp(p, cfg, tp, spec)
     return tpl.reduce_out(tpl.local(remat, _attn_local_tp, w,
                                     tpl.copy_in(h, tp), cfg, kind, positions,
-                                    plan), tp)
+                                    pos3, plan), tp)
 
 
-def _apply_block_tp(p, x, cfg: ArchConfig, kind: str, positions, tp, spec,
-                    remat: bool):
+def _apply_block_tp(p, x, cfg: ArchConfig, kind: str, positions, pos3, tp,
+                    spec, remat: bool):
     """One block on this rank's shards; returns (x, aux loss), as
     :func:`_apply_block_train`. Under ``remat`` each sublayer's local
     parts are checkpointed between its collectives (the plain form
@@ -525,7 +532,7 @@ def _apply_block_tp(p, x, cfg: ArchConfig, kind: str, positions, tp, spec,
     mixer's columns and the d_ff columns (or the rank's experts) but no
     collective."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + _mixer_tp(p, h, cfg, kind, positions, tp, spec, remat)
+    x = x + _mixer_tp(p, h, cfg, kind, positions, pos3, tp, spec, remat)
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.moe.num_experts:
         y, aux = moe_lib.apply_moe_tp(subtree(p, "moe"), h2, cfg, tp,
@@ -539,22 +546,36 @@ def _apply_block_tp(p, x, cfg: ArchConfig, kind: str, positions, tp, spec,
                                         *ffn), tp), 0.0
 
 
-def forward_hidden_tp(params, cfg: ArchConfig, tokens: torch.Tensor, tp):
+def forward_hidden_tp(params, cfg: ArchConfig, tokens: torch.Tensor, tp,
+                      extra_embeds=None):
     """:func:`forward_hidden` of the families with a tensor-parallel form
     on this rank's shards: the embedding's d_model columns gathered to
     full d (its gradient, the same on every rank, sliced back), each block
-    tensor-parallel. Returns (hidden, aux loss summed over the blocks),
-    both the same on every model rank."""
+    tensor-parallel. The VLM's ``extra_embeds`` (B, n_vis, d), whole on
+    every rank, overwrite the first n_vis positions of the gathered
+    embedding, so the embedding's gradient there is zero on every rank,
+    as in the plain form. Returns (hidden, aux loss summed over the
+    blocks), both the same on every model rank."""
+    if cfg.encdec:
+        raise ValueError(
+            f"arch {cfg.name!r} is an encoder-decoder, which has no "
+            "tensor-parallel form (its encoder stack and cross attention)")
     specs = block_specs(tp, cfg)
     B, T = tokens.shape
     x = params["embed"][tokens]
     if tp.specs["embed"][1] == tpl.MODEL:
         x = tpl.gather(x, -1, tp, replicated_grad=True)
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    pos3 = None
+    if cfg.mrope:
+        pos3 = build_mrope_positions(cfg, B, T, device=x.device)
+        if extra_embeds is not None:
+            nv = extra_embeds.shape[1]
+            x = torch.cat([extra_embeds.to(x.dtype), x[:, nv:]], dim=1)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = 0.0
     for kind, p in layer_params(params, cfg):
-        x, aux = _apply_block_tp(p, x, cfg, kind, positions, tp,
+        x, aux = _apply_block_tp(p, x, cfg, kind, positions, pos3, tp,
                                  specs[kind], remat)
         aux_total += aux
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
@@ -577,16 +598,18 @@ def _chunk_ce_tp(xc, lc, head, tp, cols):
 
 
 def lm_loss_tp(params, cfg: ArchConfig, tokens, labels, tp,
-               ce_chunk: int = 512):
+               extra_embeds=None, ce_chunk: int = 512):
     """:func:`lm_loss` of the families with a tensor-parallel form (see
-    :func:`tensor_parallel_refusal`) on this rank's shards
-    (``tp``: a ``models.tensor_parallel.TPContext``): ce + aux, the MoE
+    :func:`tensor_parallel_refusal`; an encoder-decoder raises) on this
+    rank's shards (``tp``: a ``models.tensor_parallel.TPContext``), the
+    VLM's stub patches ``extra_embeds`` as :func:`forward_hidden_tp`
+    takes them: ce + aux, the MoE
     load-balance loss summed over the blocks (0 for a dense FFN). The loss
     is the same on every model rank, and with m = 1 it is
     :func:`lm_loss`'s bit for bit. With m > 1 a CE chunk is not
     checkpointed: its recompute would sum the (B, c, V) partial logits
     over the ranks a second time."""
-    x, aux = forward_hidden_tp(params, cfg, tokens, tp)
+    x, aux = forward_hidden_tp(params, cfg, tokens, tp, extra_embeds)
     head = _head(params, cfg)
     name, dim = ("embed", 1) if cfg.tie_embeddings else ("lm_head", 0)
     cols = (tp.own(cfg.d_model) if tp.specs[name][dim] == tpl.MODEL

@@ -17,8 +17,10 @@ into the bank in place (the step mutates ``state["lbg"]``; params and
 optimizer state come back as new tensors). On CUDA tensors the decision
 takes the fused kernels (the projection over a table of every leaf, the
 sparse decision per leaf), on CPU tensors their plain versions. The mesh
-glue (``train_state_shardings``, ``batch_shardings``) waits for the
-multi-GPU slice.
+glue (``train_state_shardings``, ``batch_shardings``) gives the JAX
+package's specs as plain tuples (``train.sharding``), on a planning mesh
+(``train.sharding.abstract_mesh``) or a ``DeviceMesh``'s axes; no step
+here runs on a mesh yet.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.models.transformer import (init_lm, lm_loss, lm_loss_tp,
                                            prefill_logits,
                                            tensor_parallel_refusal)
 from repro_torch.optim.sgd import sgd_init, sgd_update
+from repro_torch.train import sharding as shd
 
 
 # ------------------------------------------------------------- state
@@ -60,21 +63,34 @@ def make_loss_fn(cfg: ArchConfig):
 
 def make_tp_loss_fn(cfg: ArchConfig, tp):
     """:func:`make_loss_fn`'s loss on one model rank's shards
-    (``models.transformer.lm_loss_tp``; ``tp``: a
+    (``models.transformer.lm_loss_tp``, with the batch's stub patches
+    ``"extra"`` where it has them; ``tp``: a
     ``models.tensor_parallel.TPContext``). The dense decoder family, the
-    recurrent families (rwkv6, RG-LRU + local attention) and the MoE
-    family have a tensor-parallel form: any other arch raises, naming
-    it."""
+    M-RoPE VLM, the recurrent families (rwkv6, RG-LRU + local attention)
+    and the MoE family have a tensor-parallel form. An encoder-decoder
+    raises, naming the arch: its forward needs encoder frames, which the
+    ``"lm"`` component's batches (tokens and labels) do not carry, as in
+    the JAX package, whose FL engine cannot run it under any
+    ``model_sharding`` either. Any other arch without a form raises,
+    naming it."""
+    if cfg.encdec:
+        raise ValueError(
+            f"model_sharding='auto': arch {cfg.name!r} is an "
+            "encoder-decoder: enc-dec needs encoder frames, and the 'lm' "
+            "component's batches carry none (tokens and labels only), as "
+            "in the JAX package, whose FL engine cannot run it under any "
+            "model_sharding; use a decoder-only arch")
     why = tensor_parallel_refusal(cfg)
     if why is not None:
         raise ValueError(
-            f"model_sharding='auto': arch {cfg.name!r} is {why}, which has "
-            "no tensor-parallel form in repro_torch yet (only attn, swa, "
-            "rwkv6 and rglru blocks with a dense SwiGLU or MoE FFN); it is "
-            "queued in ROADMAP.md §1. Use model_sharding='replicate'")
+            f"model_sharding='auto': arch {cfg.name!r} has {why}, which "
+            "have no tensor-parallel form (only attn, swa, rwkv6 and rglru "
+            "blocks with a dense SwiGLU or MoE FFN). Use "
+            "model_sharding='replicate'")
 
     def loss_fn(params, batch):
-        return lm_loss_tp(params, cfg, batch["tokens"], batch["labels"], tp)
+        return lm_loss_tp(params, cfg, batch["tokens"], batch["labels"], tp,
+                          batch.get("extra"))
     return loss_fn
 
 
@@ -237,3 +253,56 @@ def make_prefill_step(cfg: ArchConfig):
         return prefill_logits(params, cfg, batch["tokens"],
                               batch.get("extra"))
     return step
+
+
+# ------------------------------------------------------------- sharding glue
+
+def train_state_shardings(state, axes, cfg: ArchConfig, mesh,
+                          embed_shard: str = "vocab"):
+    """The train state's specs, a tree of ``state``'s structure (the JAX
+    function's, each ``NamedSharding``'s spec as a tuple): the params by
+    ``train.sharding.params_shardings`` in ``cfg.dp_mode``, the momentum
+    as the params, ``step`` replicated; the dense bank in replicated mode
+    ``(dp, *param spec)``; any other bank leaf ``(None, "model", None)``
+    where it is 3-D and the model extent (> 1) divides its dim 1 (the
+    sparse bank's blocks), else replicated."""
+    mode = cfg.dp_mode
+    pspec = shd.params_shardings(axes, state["params"], mode, mesh,
+                                 embed_shard)
+    out: Dict[str, Any] = {
+        "params": pspec,
+        "opt": {} if not state["opt"] else
+        {"m": {k: pspec[k] for k in state["params"]}},
+        "step": (),
+    }
+    if "lbg" in state:
+        if cfg.lbgm.variant == "full" and mode == "replicated":
+            dp = shd.dp_axes(mesh)
+            out["lbg"] = {k: shd.stacked_pspec(pspec[k], dp)
+                          for k in state["params"]}
+        else:
+            model = mesh.shape.get("model", 1)
+
+            def lbg_spec(leaf):
+                if isinstance(leaf, dict):
+                    return {f: lbg_spec(t) for f, t in leaf.items()}
+                if leaf.ndim == 3 and model > 1 \
+                        and leaf.shape[1] % model == 0:
+                    return (None, "model", None)
+                return (None,) * leaf.ndim
+            out["lbg"] = {k: lbg_spec(v) for k, v in state["lbg"].items()}
+    return out
+
+
+def batch_shardings(batch_spec, mesh):
+    """The specs of a batch (a tensor or a dict of them, such as
+    ``launch.specs.train_batch_specs``): the leading axis (clients or
+    batch) over ("pod", "data") where their product divides it, the rest
+    unsharded."""
+    if isinstance(batch_spec, dict):
+        return {k: batch_shardings(v, mesh) for k, v in batch_spec.items()}
+    dp = shd.dp_axes(mesh)
+    total = shd.axes_size(mesh, dp)
+    shape = tuple(batch_spec.shape)
+    lead = shd.axis_entry(dp) if shape and shape[0] % total == 0 else None
+    return (lead, *([None] * (len(shape) - 1)))

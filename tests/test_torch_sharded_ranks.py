@@ -65,7 +65,14 @@ live rows, and at m = 4 the last rank holds pad rows only. Cases:
   tensor-parallel loss and gradients of reduced mixtral-8x22b and llama4
   (experts sharded on E; at E = 2 and m = 4 on d_ff, the router
   replicated), and each arch's ``"lm"`` engine run at (1, 2) against
-  JAX's chunked run and the port's ``"replicate"`` run.
+  JAX's chunked run and the port's ``"replicate"`` run;
+* ``model_sharding="auto"`` for the M-RoPE VLM: the tensor-parallel loss
+  and gradients of reduced qwen2-vl-2b with its stub patches over the
+  gathered embedding on 2- and 4-rank worlds (at m = 4 a rank rests half
+  a kv head), and a case whose 3 heads of 34 leave ``wa_o`` replicated,
+  so every rank runs the plain mixer with the M-RoPE positions; and its
+  ``"lm"`` engine run at (1, 2) against JAX's chunked run and the port's
+  ``"replicate"`` run.
 """
 import json
 import os
@@ -310,6 +317,23 @@ TP_CASES = {
     "mixtral-ff-sharded@[1, 4]": (4, {"arch": "mixtral-8x22b",
                                       "moe": {"num_experts": 2},
                                       "mesh": [1, 4], "seed": 2}),
+    # the M-RoPE VLM with its stub patches over the first 8 positions: at
+    # m = 2 two query heads and one kv head a rank, at m = 4 one query
+    # head and half a kv head
+    "qwen2-vl-patches@[1, 2]": (2, {"arch": "qwen2-vl-2b",
+                                    "kw": {"remat": True}, "mesh": [1, 2],
+                                    "seed": 0, "patches": True}),
+    "qwen2-vl-patches@[1, 4]": (4, {"arch": "qwen2-vl-2b", "mesh": [1, 4],
+                                    "seed": 1, "patches": True}),
+    # 3 heads of 34 at m = 4: wa_o's 102 rows do not divide, so the
+    # attention is replicated and every rank runs the plain mixer, which
+    # must take the M-RoPE positions too; per-layer leaves (attn, swa)
+    "qwen2-vl-attn-replicated@[1, 4]": (4, {
+        "arch": "qwen2-vl-2b",
+        "kw": {"n_heads": 3, "n_kv_heads": 1, "head_dim": 34,
+               "mrope_sections": [5, 6, 6],
+               "block_pattern": ["attn", "swa"], "sliding_window": 8},
+        "mesh": [1, 4], "seed": 2, "patches": True}),
 }
 #: archs whose gradients are held at their own floor as well: reduced
 #: rwkv6's fp32 gradients move by ~6e-5 of a leaf's largest under a
@@ -322,7 +346,10 @@ TP_FLOOR_ARCHS = ("rwkv6-3b",)
 RECURRENT_TP = {"rwkv6-3b": (2, 32), "recurrentgemma-2b": (3, 48)}
 #: the MoE archs' (1, 2) engine runs: arch -> (layers, T)
 MOE_TP = {"mixtral-8x22b": (2, 32), "llama4-maverick-400b-a17b": (2, 32)}
-LM_TP = {**RECURRENT_TP, **MOE_TP}
+#: the M-RoPE VLM's (1, 2) engine run: 8 vision-grid and 24 text positions
+#: (the "lm" component's batches carry no stub patches, as JAX's)
+VLM_TP = {"qwen2-vl-2b": (2, 32)}
+LM_TP = {**RECURRENT_TP, **MOE_TP, **VLM_TP}
 
 #: apply_moe_tp against apply_moe: tag -> (world, the job's "moe")
 MOE_UNIT = {
@@ -582,7 +609,8 @@ def test_tp_loss_and_grads_match_plain(case, runs):
     c, m = tp["mesh"]
     plain, floor = {}, {}
     for r in range(c):
-        batch = tp_batch(cfg, tp["seed"], r, T=tp.get("T", 16))
+        batch = tp_batch(cfg, tp["seed"], r, T=tp.get("T", 16),
+                         patches=tp.get("patches", False))
         g, loss = grad_and_loss(make_loss_fn(cfg), params, batch)
         plain[r] = ({k: v.numpy() for k, v in g.items()}, float(loss))
         if tp["arch"] not in TP_FLOOR_ARCHS:
@@ -726,6 +754,16 @@ def test_moe_tp_engine_matches_jax(arch, runs):
     for k in ("w_gate", "w_up", "w_down"):
         assert specs[f"blocks/moe/{k}"] == (None, "model", None, None), k
     assert specs["blocks/moe/router"] == (None, None, "model")
+
+
+def test_vlm_tp_engine_matches_jax(runs):
+    """:func:`check_lm_tp_engine` for the M-RoPE VLM (reduced qwen2-vl-2b,
+    M-RoPE at a rank's local heads: two query heads and one kv head a
+    rank), its attention and FFN model-sharded."""
+    specs = check_lm_tp_engine("qwen2-vl-2b", runs)
+    assert specs["blocks/wa_o"] == (None, "model", None)
+    assert specs["blocks/wa_k"] == (None, None, "model")
+    assert specs["blocks/w_down"] == (None, "model", None)
 
 
 @pytest.mark.parametrize("case", sorted(MOE_UNIT))

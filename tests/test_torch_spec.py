@@ -132,10 +132,10 @@ def test_tensor_parallel_spec_is_refused():
     both packages to the same dict; its parity run on 8 ranks is
     ``test_torch_sharded_ranks.py::test_yi34b_tp2x4_spec_matches_jax``.
     What the port has no tensor-parallel form for is refused by name,
-    not run as something else: the spec with an arch outside the dense,
-    recurrent and MoE families (the encoder-decoder whisper-base) fails at
-    engine build, naming the arch and ROADMAP.md §1; with rwkv6-3b and
-    mixtral-8x22b it builds."""
+    not run as something else: the spec with the encoder-decoder
+    whisper-base fails at engine build, naming the arch and the cause the
+    JAX package shares (the "lm" component's batches carry no encoder
+    frames); with rwkv6-3b, mixtral-8x22b and qwen2-vl-2b it builds."""
     path = ROOT / "examples" / "specs" / "yi34b_tp2x4.json"
     js, ts = jexp.ExperimentSpec.load(str(path)), \
         texp.ExperimentSpec.load(str(path))
@@ -146,9 +146,10 @@ def test_tensor_parallel_spec_is_refused():
         return ts.with_overrides({"fl.mesh": [1, 1], "model.kw": {
             "arch": arch, "reduced": True, "n_layers": 2},
             "data.kw.vocab": 512})
-    with pytest.raises(ValueError, match="whisper-base.*ROADMAP.md §1"):
+    with pytest.raises(ValueError,
+                       match="whisper-base.*encoder frames.*carry none"):
         texp.build_experiment(at("whisper-base"), device="cpu")
-    for arch in ("rwkv6-3b", "mixtral-8x22b"):
+    for arch in ("rwkv6-3b", "mixtral-8x22b", "qwen2-vl-2b"):
         eng, _ = texp.build_experiment(at(arch), device="cpu")
         assert eng._tp is not None
 

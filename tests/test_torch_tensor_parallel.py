@@ -6,16 +6,19 @@ JAX package's, the tensor-parallel forms at m = 1, and the refusals.
   equal the JAX package's rule for every leaf of reduced yi-34b,
   qwen3-1.7b, rwkv6-3b (stacked ``blocks/`` leaves), recurrentgemma-2b
   (per-layer rglru and swa leaves), mixtral-8x22b and llama4 (stacked
-  experts: E = 4 shards on E up to m = 4, on d_ff at m = 8) at m in {1,
-  2, 4, 8}: ``repro.train.sharding.param_pspec`` on
+  experts: E = 4 shards on E up to m = 4, on d_ff at m = 8) and
+  qwen2-vl-2b (M-RoPE) at m in {1, 2, 4, 8}:
+  ``repro.train.sharding.param_pspec`` on
   ``abstract_mesh``, plus the vocab rule of ``ShardedScheduler.
   bind_model_axes`` (``repro/fed/engine.py:1041-1049``);
 * at m = 1 the tensor-parallel loss and gradients are the plain ones bit
-  for bit (the MoE load-balance term included), and a ``(1, 1)`` auto
-  run is the ``(1, 1)`` replicate run bit for bit;
-* the engine's refusals mirror ``tests/test_mesh2d.py:150-195``, and every
-  model family without a tensor-parallel form (the encoder-decoder, the
-  M-RoPE VLM) is refused by name.
+  for bit (the MoE load-balance term included; the VLM with and without
+  its stub patches), and a ``(1, 1)`` auto run is the ``(1, 1)``
+  replicate run bit for bit;
+* the engine's refusals mirror ``tests/test_mesh2d.py:150-195``, and the
+  encoder-decoder is refused by name at engine build with the cause the
+  JAX package shares: the ``"lm"`` component's batches carry no encoder
+  frames.
 
 The tensor-parallel gradients on 2- and 4-rank gloo worlds, and
 ``examples/specs/yi34b_tp2x4.json`` on 8 ranks, are in
@@ -39,6 +42,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.fed import engine as fe  # noqa: E402
 from repro_torch.fed import experiment as texp  # noqa: E402
 from repro_torch.fed.flconfig import FLConfig  # noqa: E402
+from repro_torch.models.frontends import make_stub_embeds  # noqa: E402
 from repro_torch.models.tensor_parallel import TPContext  # noqa: E402
 from repro_torch.models.transformer import (init_lm, lm_loss,  # noqa: E402
                                             lm_loss_tp)
@@ -47,7 +51,7 @@ from repro_torch.train.trainer import grad_and_loss  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["yi-34b", "qwen3-1.7b", "rwkv6-3b", "recurrentgemma-2b",
-         "mixtral-8x22b", "llama4-maverick-400b-a17b"]
+         "mixtral-8x22b", "llama4-maverick-400b-a17b", "qwen2-vl-2b"]
 MS = [1, 2, 4, 8]
 
 
@@ -143,14 +147,46 @@ def test_tp_loss_at_one_rank_is_the_plain_loss(arch, kw):
     ``lm_loss``'s bit for bit (no collective runs), the MoE load-balance
     term included."""
     cfg = get_config(arch).reduced(**kw)
+    assert_tp_at_one_rank_is_plain(cfg, _batch(cfg))
+
+
+@pytest.mark.parametrize("patches", [False, True],
+                         ids=["tokens", "stub-patches"])
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_vlm_tp_loss_at_one_rank_is_the_plain_loss(remat, patches):
+    """Reduced qwen2-vl-2b (M-RoPE over 8 vision-grid and 8 text
+    positions) at m = 1: the tensor-parallel loss and gradients are
+    ``lm_loss``'s bit for bit, with the stub patches of
+    ``models.frontends`` over the first 8 positions and without; with
+    them the embedding's gradient at the rows only those positions read
+    is zero."""
+    cfg = get_config("qwen2-vl-2b").reduced(remat=remat)
+    batch = _batch(cfg)
+    if patches:
+        batch["extra"] = make_stub_embeds(torch.Generator().manual_seed(5),
+                                          cfg, 2)
+    g = assert_tp_at_one_rank_is_plain(cfg, batch)
+    nv = cfg.vision_tokens
+    hidden = set(batch["tokens"][:, :nv].flatten().tolist()) - set(
+        batch["tokens"][:, nv:].flatten().tolist())
+    assert hidden
+    rows = g["embed"][sorted(hidden)]
+    assert bool((rows == 0).all()) == patches
+
+
+def assert_tp_at_one_rank_is_plain(cfg, batch):
+    """The m = 1 tensor-parallel loss, aux and gradients of ``cfg`` on
+    ``batch`` (with its ``"extra"`` where it has one) equal the plain
+    ones bit for bit; returns the gradients."""
     params, axes = init_lm(torch.Generator().manual_seed(0), cfg,
                            device="cpu")
     mesh = tsh.MeshAxes(("clients", "model"), {"clients": 1, "model": 1})
     tp = TPContext(fe.auto_specs(axes, params, mesh),
                    {k: v.shape for k, v in params.items()}, None, 0, 1)
-    batch = _batch(cfg)
-    plain = lambda p, b: lm_loss(p, cfg, b["tokens"], b["labels"])
-    tpl = lambda p, b: lm_loss_tp(p, cfg, b["tokens"], b["labels"], tp)
+    plain = lambda p, b: lm_loss(p, cfg, b["tokens"], b["labels"],
+                                 b.get("extra"))
+    tpl = lambda p, b: lm_loss_tp(p, cfg, b["tokens"], b["labels"], tp,
+                                  b.get("extra"))
     g0, l0 = grad_and_loss(plain, params, batch)
     g1, l1 = grad_and_loss(tpl, params, batch)
     assert torch.equal(l0, l1)
@@ -161,6 +197,7 @@ def test_tp_loss_at_one_rank_is_the_plain_loss(arch, kw):
     assert (float(aux1) > 0) == bool(cfg.moe.num_experts)
     for k in g0:
         assert torch.equal(g0[k], g1[k]), k
+    return g1
 
 
 def tp_spec(mesh=(1, 1), n_layers=2, **fl):
@@ -275,14 +312,22 @@ def test_model_sharding_auto_refuses_a_scheduler_without_model_axes(
         _fcn_engine()
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-2b"])
+@pytest.mark.parametrize("arch", ["whisper-base"])
 def test_other_families_refused_by_name(arch):
-    """Every family without a tensor-parallel form is refused at engine
-    build, naming the arch and ROADMAP.md §1: nothing runs as something
-    else."""
+    """The encoder-decoder is refused at engine build, naming the arch and
+    the cause the JAX package shares (``repro/fed/experiment.py:462``,
+    ``repro/models/transformer.py:229``): the ``"lm"`` component's batches
+    carry no encoder frames. Under ``"replicate"`` the same spec builds
+    and fails at its first loss, as it does in the JAX package."""
     d = tp_spec()
     d["model"]["kw"] = {"arch": arch, "reduced": True, "n_layers": 2}
     d["data"]["kw"].update(vocab=512)
-    with pytest.raises(ValueError, match=f"{arch}.*ROADMAP.md §1"):
+    with pytest.raises(ValueError,
+                       match=f"{arch}.*encoder frames.*carry none"):
         texp.build_experiment(texp.ExperimentSpec.from_dict(d),
                               device="cpu")
+    d["fl"]["model_sharding"] = "replicate"
+    eng, _ = texp.build_experiment(texp.ExperimentSpec.from_dict(d),
+                                   device="cpu")
+    with pytest.raises(ValueError, match="enc-dec needs encoder frames"):
+        eng.run(1)

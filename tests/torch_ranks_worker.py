@@ -21,7 +21,8 @@ engine's mesh joins the launcher's world (``launch.mesh.ensure_world``,
   rank's resting param bytes.
 * A tensor-parallel job, ``{"tag", "tp": {"arch", "kw" (``reduced()``
   overrides), "moe" (optional ``MoEConfig`` overrides), "mesh", "seed",
-  "T" (optional, 16)}}``, draws the arch's params from a CPU generator of
+  "T" (optional, 16), "patches" (optional: the VLM's stub patches in the
+  batch)}}``, draws the arch's params from a CPU generator of
   ``seed``, cuts this rank's shards by the engine's spec rule
   (``fed.engine.auto_specs``) and writes the tensor-parallel loss
   (``train.trainer.make_tp_loss_fn``) and gradients of its shards on
@@ -91,12 +92,19 @@ def engine_job(job, rank):
     return rec
 
 
-def tp_batch(cfg, seed, client_rank, B=2, T=16):
-    """A client rank's (B, T) tokens and next-token labels."""
+def tp_batch(cfg, seed, client_rank, B=2, T=16, patches=False):
+    """A client rank's (B, T) tokens and next-token labels; with
+    ``patches``, the VLM's stub patches (``models.frontends``) from a CPU
+    generator of the same seed as ``"extra"``."""
+    from repro_torch.models.frontends import make_stub_embeds
     rng = np.random.RandomState(seed + 101 * client_rank)
     toks = rng.randint(0, cfg.vocab_size, size=(B, T + 1))
-    return {"tokens": torch.as_tensor(toks[:, :-1]),
-            "labels": torch.as_tensor(toks[:, 1:])}
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]),
+             "labels": torch.as_tensor(toks[:, 1:])}
+    if patches:
+        batch["extra"] = make_stub_embeds(
+            torch.Generator().manual_seed(seed + 101 * client_rank), cfg, B)
+    return batch
 
 
 def tp_cfg(tp):
@@ -105,8 +113,9 @@ def tp_cfg(tp):
     import dataclasses
     from repro_torch.configs import get_config
     kw = dict(tp.get("kw", {}))
-    if "block_pattern" in kw:
-        kw["block_pattern"] = tuple(kw["block_pattern"])
+    for key in ("block_pattern", "mrope_sections"):
+        if key in kw:
+            kw[key] = tuple(kw[key])
     cfg = get_config(tp["arch"]).reduced(**kw)
     if tp.get("moe"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -196,7 +205,8 @@ def tp_job(job, rank):
     grads, loss = grad_and_loss(make_tp_loss_fn(cfg, ctx),
                                 ctx.shard_tree(params),
                                 tp_batch(cfg, tp["seed"], client_rank,
-                                         T=tp.get("T", 16)))
+                                         T=tp.get("T", 16),
+                                         patches=tp.get("patches", False)))
     return {"loss": float(loss), "specs": specs,
             "model_rank": ctx.rank, "client_rank": client_rank,
             "grads": {k: v.numpy() for k, v in grads.items()},
